@@ -1,0 +1,46 @@
+"""The PyTorch port imports without jax, flax or pydantic (the GPU
+machine has none of them)."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+sys.modules["jax"] = sys.modules["flax"] = sys.modules["pydantic"] = None
+import voice_tts_tpu_torch
+import voice_tts_tpu_torch.engine.engine
+import voice_tts_tpu_torch.serving.app
+import voice_tts_tpu_torch.ops.fused_decode
+import voice_tts_tpu_torch.ops.aa_activation
+import voice_tts_tpu_torch.ops.int8_matmul
+import voice_tts_tpu_torch.utils.convert
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_without_jax_flax_pydantic():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result line when CUDA is
+    unavailable."""
+    import torch
+
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

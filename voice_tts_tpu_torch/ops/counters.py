@@ -1,0 +1,24 @@
+"""Launch counters of the hand-written kernels.
+
+Each kernel wrapper adds one to its entry each time it launches its kernel,
+and nowhere else, so a run can show that the main path went through the
+kernels.  `fused_decode_step` counts one per decode step (a step is a chain
+of launches, see `ops/fused_decode.py`).
+"""
+
+from __future__ import annotations
+
+import collections
+
+KERNELS = ("fused_decode_step", "int8_gemv", "aa_snake_activation")
+
+LAUNCHES: collections.Counter = collections.Counter({k: 0 for k in KERNELS})
+
+
+def reset() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def snapshot() -> dict:
+    return {k: LAUNCHES[k] for k in KERNELS}
