@@ -8,21 +8,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 
 1. device check: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernels from `voice_tts_tpu_torch/csrc`;
+2. build: compiles the CUDA kernels from `voice_tts_tpu_torch/csrc` (one
+   nvcc per source, in parallel);
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the flagship shapes of the slice, with the tolerance printed, both timed
-   with CUDA events;
-4. slice: builds the flagship engine (random weights, bench decode
-   settings) on cuda:0, serves it over HTTP from a background thread, sends
-   GET /health and three POST /tts requests, checks the WAVs, and checks
-   from the launch counters that the served requests went through the
-   kernels (K1 once per decode step, K2 109 times per vocode).
+   the flagship shapes of the paths, with the tolerance printed, both timed
+   with CUDA events: K2, K4, K1 (bf16 cache; int8 KV at pos 300 and 1500),
+   K3 (beam-3 through an ancestor table with int8 KV and with a bf16 cache,
+   pos 1500; eight rows at their own positions, one of them 0);
+4. tiny engines: the tiny engine on the card against the same weights on
+   the CPU, greedy, same CFM noise: one beam (K1), and the production flags
+   (beam-3 through K3, int8 KV, bf16 conditioning);
+5. production slice: the flagship engine (random weights) in the serving
+   profile, the server default, behind the HTTP server in a background
+   thread: GET /health, GET /debug/worker-info, three POST /tts, then one
+   request under the CUDA profiler; the launch counters must show K3 once
+   per beam decode step, K1 never, K2 109 times per vocode;
+6. bench slice: the same with `--profile bench` (sampling, one beam): K1
+   once per decode step, K3 never, K2 109 times per vocode.
 
-The second-to-last stdout line is the kernel JSON: under "kernels" the
-kernels of the served path, each with its launch count from the three
-requests, its largest error against the plain version and both times;
-under "off_path" K4, which the flagship slice does not reach.  The last
-line is `{"ok": true, "device": {...}}`.
+The third-to-last stdout line repeats the card's name and power limit; the
+second-to-last is the kernel JSON: under "kernels" the kernels of the
+served paths, each with its launch count from the path that runs it (K3 and
+K2 from the production slice, K1 from the bench slice; `launches_by_path`
+has both), its largest error against the plain version and both times;
+under "off_path" K4, which neither flagship slice reaches.  The last line
+is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -84,12 +94,13 @@ def max_err(torch, a, b) -> float:
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def check_k1(torch, dev, results):
+def random_trunk(torch, dev, seed: int):
+    """A random int8 pack and readout at the flagship widths (L 24, D 1280,
+    vocab 8194), scaled like a quantized GPT-2."""
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
-    L, D, H, T_MAX, POS = 24, 1280, 20, 512, 300
-    V = 8194
-    g = torch.Generator(device=dev).manual_seed(1)
+    L, D, V = 24, 1280, 8194
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
@@ -105,49 +116,131 @@ def check_k1(torch, dev, results):
     consts[:, 25] = randn(L, D, std=0.02)
     consts[:, 26] = 1 + randn(L, D, std=0.05)
     consts[:, 27] = randn(L, D, std=0.02)
-    pack = fd.FusedDecodePack(w, consts)
-    head = randn(V, D, std=0.02)
-    state = {"mel_head.weight": head, "mel_head.bias": randn(V, std=0.02),
+    state = {"mel_head.weight": randn(V, D, std=0.02),
+             "mel_head.bias": randn(V, std=0.02),
              "final_norm.weight": 1 + randn(D, std=0.05),
              "final_norm.bias": randn(D, std=0.02)}
-    ro = fd.pack_readout(state)
-    cache = randn(L, 2, 1, T_MAX, D).to(torch.bfloat16)
-    bias = torch.zeros((T_MAX, 1), device=dev)
-    bias[70:82] = -1e30                          # invalid prompt pads
-    x = randn(1, D, std=0.5)
+    return fd.FusedDecodePack(w, consts), fd.pack_readout(state), g
 
-    hid, kv, logits = fd.fused_decode_step(x, pack, cache, bias, POS, H, ro)
-    torch.cuda.synchronize()
-    hid_p, kv_p, logits_p = fd.fused_decode_step_plain(x, pack, cache, bias, POS, H, ro)
-    # f32 sums in another order flip single bf16 roundings of the
-    # activations; across 24 layers that stays within 1e-2 of the largest
-    # magnitude (the chip run records the actual error)
-    tol = 1e-2
+
+# f32 sums in another order flip single bf16 roundings of the activations;
+# across 24 layers that stays within 1e-2 of the largest magnitude (the chip
+# run records the actual error)
+DECODE_TOL = 1e-2
+VOCAB = 8194
+
+
+def compare_step(torch, tag, out, ref):
+    """Hidden, kv_new and logits of a decode step against the plain version
+    (tolerance DECODE_TOL * max|ref|), and the logits' argmax per row."""
     errs = {}
-    for name, a, b in (("hidden", hid, hid_p), ("kv_new", kv, kv_p),
-                       ("logits", logits[:, :V], logits_p[:, :V])):
+    for name, a, b in (("hidden", out[0], ref[0]), ("kv_new", out[1], ref[1]),
+                       ("logits", out[2][:, :VOCAB], ref[2][:, :VOCAB])):
         scale = float(b.float().abs().max())
         errs[name] = max_err(torch, a, b)
-        print(f"K1 {name}: max_abs_err {errs[name]:.4g} (max|ref| {scale:.4g}, "
-              f"tol {tol} * max|ref|)")
-        if not errs[name] <= tol * scale:
-            fail(f"K1 {name} disagrees with the plain version")
-    am, am_p = int(logits[0, :V].argmax()), int(logits_p[0, :V].argmax())
-    print(f"K1 argmax {am} vs plain {am_p}")
+        print(f"{tag} {name}: max_abs_err {errs[name]:.4g} (max|ref| {scale:.4g}, "
+              f"tol {DECODE_TOL} * max|ref|)")
+        if not errs[name] <= DECODE_TOL * scale:
+            fail(f"{tag} {name} disagrees with the plain version")
+    am = out[2][:, :VOCAB].argmax(-1).tolist()
+    am_p = ref[2][:, :VOCAB].argmax(-1).tolist()
+    print(f"{tag} argmax per row {am} vs plain {am_p}")
     if am != am_p:
-        fail("K1 logits argmax differs from the plain version")
-    ms = cuda_time_ms(torch, lambda: fd.fused_decode_step(
-        x, pack, cache, bias, POS, H, ro), 20)
-    plain_ms = cuda_time_ms(torch, lambda: fd.fused_decode_step_plain(
-        x, pack, cache, bias, POS, H, ro), 5)
-    print(f"K1 fused_decode_step L={L} D={D} H={H} pos={POS} Tmax={T_MAX}: "
-          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        fail(f"{tag} logits argmax differs from the plain version")
+    return max(errs.values())
+
+
+def check_k1(torch, dev, results):
+    """K1 at B = 1: the bf16 cache of the bench slice (pos 300, Tmax 512),
+    and the int8-KV branch at pos 300 / Tmax 512 and pos 1500 / Tmax 1792."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    print(f"decode-step tolerance (K1, K3): {DECODE_TOL} * max|ref|, because f32 "
+          f"sums in another order flip single bf16 roundings of the activations, "
+          f"compounded over 24 layers")
+    pack, ro, g = random_trunk(torch, dev, 1)
+    L, _, _, D = pack.w.shape
+    H = 20
+    cases, worst = [], 0.0
+    for int8_kv, t_max, pos in ((False, 512, 300), (True, 512, 300), (True, 1792, 1500)):
+        cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+        scales = None
+        if int8_kv:
+            cache, scales = fd.quantize_kv_cache(cache)
+        bias = torch.zeros((t_max, 1), device=dev)
+        bias[70:82] = -1e30                      # invalid prompt pads
+        x = torch.randn(1, D, generator=g, device=dev) * 0.5
+
+        def run(fn):
+            return fn(x, pack, cache, bias, pos, H, ro, scales)
+        out = run(fd.fused_decode_step)
+        torch.cuda.synchronize()
+        tag = f"K1 {'int8' if int8_kv else 'bf16'}-KV pos={pos} Tmax={t_max}"
+        worst = max(worst, compare_step(torch, tag, out, run(fd.fused_decode_step_plain)))
+        ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step), 20)
+        plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_plain), 3)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        cases.append({"kv": "int8" if int8_kv else "bf16", "pos": pos,
+                      "t_max": t_max, "ms": ms, "plain_ms": plain_ms})
     results.append({
         "name": "fused_decode_step", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:555",
-        "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-        "ms_of": f"one decode step at pos {POS}, Tmax {T_MAX}"})
+        "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "ms_of": "one bf16-KV decode step at pos 300, Tmax 512", "cases": cases})
+
+
+def check_k3(torch, dev, results):
+    """K3 at the flagship widths: (a) B = 3 through a random ancestor table
+    with int8 KV, pos 1500, Tmax 1792 (the production beam step); (b) the
+    same with a bf16 cache; (c) B = 8 at per-row positions, one of them 0,
+    no table, bf16.  All with the folded readout."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack, ro, g = random_trunk(torch, dev, 4)
+    L, _, _, D = pack.w.shape
+    H, T_MAX = 20, 1792
+    rows8 = torch.tensor([0, 17, 300, 511, 800, 1024, 1400, 1500],
+                         dtype=torch.int32, device=dev)
+    cases, worst = [], 0.0
+    for name, b, int8_kv, table, pos in (("a", 3, True, True, 1500),
+                                         ("b", 3, False, True, 1500),
+                                         ("c", 8, False, False, rows8)):
+        cache = torch.randn(L, 2, b, T_MAX, D, generator=g, device=dev).to(torch.bfloat16)
+        scales = src = None
+        if int8_kv:
+            cache, scales = fd.quantize_kv_cache_batch(cache)
+        if table:
+            src = torch.randint(0, b, (b, T_MAX), generator=g, device=dev,
+                                dtype=torch.int32)
+        bias = torch.zeros((b, T_MAX), device=dev)
+        bias[:, 50:68] = -1e30                   # invalid prompt pads
+        x = torch.randn(b, D, generator=g, device=dev) * 0.5
+
+        def run(fn):
+            return fn(x, pack, cache, bias, pos, H, scales, src, ro)
+        out = run(fd.fused_decode_step_batch)
+        torch.cuda.synchronize()
+        tag = (f"K3 ({name}) B={b} {'int8' if int8_kv else 'bf16'}-KV "
+               f"{'table' if table else 'no table'} pos="
+               f"{pos if isinstance(pos, int) else pos.tolist()} Tmax={T_MAX}")
+        finite = all(bool(torch.isfinite(t).all()) for t in out)
+        if not finite:
+            fail(f"{tag}: non-finite output")
+        worst = max(worst, compare_step(torch, tag, out,
+                                        run(fd.fused_decode_step_batch_plain)))
+        ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_batch), 20)
+        plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_batch_plain), 3)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        cases.append({"case": name, "rows": b, "kv": "int8" if int8_kv else "bf16",
+                      "table": table, "ms": ms, "plain_ms": plain_ms})
+    results.append({
+        "name": "fused_decode_step_batch", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "voice_tts_tpu/ops/fused_decode.py:1098",
+        "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "ms_of": "one beam-3 step through the table, int8 KV, pos 1500, Tmax 1792",
+        "cases": cases})
 
 
 def check_k4(torch, dev, results):
@@ -251,45 +344,100 @@ def tone_prompt(seconds: float, sr: int) -> bytes:
     return encode_wav_int16(tone * 32767, sr)
 
 
-def check_tiny_engine(torch, dev):
-    """End-to-end reference on a small input: the tiny engine on the card
-    (every kernel launched, K4 on its int8 prefill) against the same
-    weights on the CPU (plain PyTorch versions), greedy, same CFM noise."""
-    import copy
-
-    import numpy as np
-    from voice_tts_tpu_torch.engine.engine import TTSEngine
-
-    flags = dict(use_int8_decode=True, use_fused_decode=True, fold_readout=True,
-                 use_fp16=True, fuse_pipeline=True)
-    cpu = TTSEngine.tiny(device="cpu", seed=0, **flags)
-    gpu = TTSEngine(cpu.cfg, {k: copy.deepcopy(m) for k, m in cpu.models.items()},
-                    cpu.tokenizer, device=dev)
+def _shared_noise(torch, cpu, gpu, dev):
+    """Hand both engines the same CFM noise, drawn on the CPU."""
     g = torch.Generator().manual_seed(5)
     noise = {}
 
-    def shared_noise(shape):
+    def draw(shape):
         if tuple(shape) not in noise:
             noise[tuple(shape)] = torch.randn(shape, generator=g)
         return noise[tuple(shape)]
-    cpu._draw_noise = lambda shape: shared_noise(shape)
-    gpu._draw_noise = lambda shape: shared_noise(shape).to(dev)
-    prompt = tone_prompt(1.0, 16000)
-    text = "hello world."
-    ref = cpu.infer(prompt, text, do_sample=False)
-    out = gpu.infer(prompt, text, do_sample=False)
-    torch.cuda.synchronize()
+    cpu._draw_noise = lambda shape: draw(shape)
+    gpu._draw_noise = lambda shape: draw(shape).to(dev)
+
+
+def _tiny_pair(torch, dev, **flags):
+    """The tiny engine with `flags` on the CPU (plain versions) and on the
+    card (every kernel launched), with the same random weights."""
+    import copy
+
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, tiny_config
+
+    base = TTSEngine.tiny(device="cpu", seed=0)
+    cfg = tiny_config(**flags)
+    cpu = TTSEngine(cfg, copy.deepcopy(base.models), base.tokenizer, device="cpu")
+    gpu = TTSEngine(cfg, copy.deepcopy(base.models), base.tokenizer, device=dev)
+    _shared_noise(torch, cpu, gpu, dev)
+    return cpu, gpu
+
+
+def _compare_wavs(tag, ref, out, tol):
+    import numpy as np
+
     if out.wav.shape != ref.wav.shape:
-        fail(f"tiny engine: card wav {out.wav.shape} vs CPU {ref.wav.shape}")
+        fail(f"{tag}: card wav {out.wav.shape} vs CPU {ref.wav.shape}")
     diff = int(np.abs(out.wav.astype(np.int32) - ref.wav.astype(np.int32)).max())
-    # same codes (greedy), then f32 s2mel / vocoder on two devices: the
-    # int16 samples may differ by float rounding only
-    tol = 64
     steps = (ref.metrics["decode_steps"], out.metrics["decode_steps"])
-    print(f"tiny engine card vs CPU: {len(out.wav)} samples, decode steps "
-          f"{steps}, max |diff| {diff} LSB (tol {tol})")
+    print(f"{tag} card vs CPU: {len(out.wav)} samples, decode steps {steps}, "
+          f"max |diff| {diff} LSB (tol {tol})")
     if steps[0] != steps[1] or diff > tol:
-        fail("tiny engine on the card disagrees with the CPU reference")
+        fail(f"{tag} on the card disagrees with the CPU reference")
+
+
+# same codes, then f32 s2mel / vocoder on two devices: the int16 samples may
+# differ by float rounding only
+WAV_TOL = 64
+
+
+def check_tiny_engine(torch, dev):
+    """End-to-end reference on a small input, bench-like flags: the tiny
+    engine on the card (K1, K2, K4 on its int8 prefill) against the same
+    weights on the CPU (plain versions), greedy, same CFM noise."""
+    cpu, gpu = _tiny_pair(torch, dev, use_int8_decode=True, use_fused_decode=True,
+                          fold_readout=True, use_fp16=True, fuse_pipeline=True)
+    prompt = tone_prompt(1.0, 16000)
+    ref = cpu.infer(prompt, "hello world.", do_sample=False)
+    out = gpu.infer(prompt, "hello world.", do_sample=False)
+    torch.cuda.synchronize()
+    _compare_wavs("tiny engine (num_beams 1)", ref, out, WAV_TOL)
+
+
+# bf16 conditioning: cuBLAS and the CPU round the bf16 products at other
+# points; one bf16 ulp is 2^-8 of a value, compounded over a few layers
+COND_TOL = 3e-2
+
+
+def check_tiny_engine_production(torch, dev):
+    """The tiny engine under the production flags (beam-3 through K3 with the
+    ancestor table, int8 KV, folded readout, bf16 GPT and conditioning,
+    masters released) on the card against the CPU, greedy, same weights and
+    CFM noise.  The card's own bf16 conditioning is held against the CPU's
+    (COND_TOL); the decode and synthesis then start from the CPU's
+    conditioning on both, so that the comparison is of the beam kernels and
+    the synthesis."""
+    flags = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
+                 use_fused_beam_decode=True, use_int8_kv=True, fold_readout=True,
+                 use_bf16_conditioning=True, release_master_trees=True,
+                 fuse_pipeline=True)
+    cpu, gpu = _tiny_pair(torch, dev, **flags)
+    prompt = tone_prompt(1.0, 16000)
+    key = cpu._content_key(prompt)
+    spk_c, spk_g = cpu._speaker_conditioning(prompt), gpu._speaker_conditioning(prompt)
+    for name in ("cond_latents", "spk_emovec", "style", "prompt_condition"):
+        ref = spk_c[name].float()
+        err = max_err(torch, spk_g[name].cpu(), ref)
+        tol = COND_TOL * max(1.0, float(ref.abs().max()))
+        print(f"tiny production conditioning {name}: max_abs_err {err:.4g} (tol {tol:.4g})")
+        if not err <= tol:
+            fail(f"tiny production conditioning {name}: card disagrees with the CPU")
+    gpu._spk_cache[key] = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                           for k, v in spk_c.items()}
+    gpu._emo_cache[key] = cpu._emotion_conditioning(prompt).to(dev)
+    ref = cpu.infer(prompt, "hello world.", do_sample=False, num_beams=3)
+    out = gpu.infer(prompt, "hello world.", do_sample=False, num_beams=3)
+    torch.cuda.synchronize()
+    _compare_wavs("tiny engine (production, beam-3)", ref, out, WAV_TOL)
 
 
 def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
@@ -327,30 +475,32 @@ def profile_request(torch, engine, prompt: bytes, text: str):
                         for e in top]}))
 
 
-def run_slice(torch, dev, counters):
-    """The flagship engine served over HTTP; three /tts requests."""
+def serve_three(torch, engine, profile: str, counters):
+    """Serve `engine` over HTTP from a background thread: GET /health, GET
+    /debug/worker-info, then three POST /tts with the counters set to 0
+    just before and read just after.  Returns (launches, decode steps,
+    AA activations per vocode, prompt, text)."""
     import numpy as np
     from voice_tts_tpu_torch.audio import decode_audio_bytes
-    from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
     from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
 
-    t0 = time.perf_counter()
-    engine = TTSEngine.random(bench_config(), device=dev, seed=0)
-    torch.cuda.synchronize()
-    print(f"engine build (flagship widths, random weights): "
-          f"{time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     cfg = engine.cfg
     n_act = (len(cfg.vocoder.upsample_rates) * len(cfg.vocoder.resblock_kernel_sizes)
              * 2 * len(cfg.vocoder.resblock_dilation_sizes[0]) + 1)
-    service = TTSService(engine)
+    service = TTSService(engine, profile=profile)
     server = BackgroundServer(service)
     port = server.start()
     try:
         status, body = http(port, "GET", "/health")
-        print(f"GET /health -> {status} {body.decode()}")
+        print(f"[{profile}] GET /health -> {status} {body.decode()}")
         if status != 200:
             fail("/health did not answer 200")
+        status, body = http(port, "GET", "/debug/worker-info")
+        info = json.loads(body)["replicas"][0]
+        print(f"[{profile}] GET /debug/worker-info -> {status} "
+              + json.dumps({k: info[k] for k in ("profile", "num_beams", "engine_flags")}))
+        if status != 200 or info["profile"] != profile:
+            fail("/debug/worker-info does not report the served profile")
         prompt_hex = tone_prompt(5.0, 22050).hex()
         text = "欢迎大家来体验这个语音合成系统谢谢大家."
         counters.reset()
@@ -361,28 +511,68 @@ def run_slice(torch, dev, counters):
                 {"text": text, "spk_audio": prompt_hex}).encode())
             wall = time.perf_counter() - t1
             if status != 200:
-                fail(f"POST /tts #{i} -> {status}: {body[:500]!r}")
+                fail(f"[{profile}] POST /tts #{i} -> {status}: {body[:500]!r}")
             resp = json.loads(body)
             wav, sr = decode_audio_bytes(bytes.fromhex(resp["audio_hex"]))
             if sr != 22050 or wav.size == 0 or not np.all(np.isfinite(wav)):
-                fail(f"POST /tts #{i}: bad WAV (sr {sr}, {wav.size} samples)")
+                fail(f"[{profile}] POST /tts #{i}: bad WAV (sr {sr}, {wav.size} samples)")
             m = engine.last_metrics
             steps += m["decode_steps"]
-            print(f"POST /tts #{i}: 200, {wav.size} samples ({resp['audio_length']:.3f} s), "
-                  f"rtf {resp['rtf']:.4f} (server), wall {wall:.3f} s, timers "
+            print(f"[{profile}] POST /tts #{i}: 200, {wav.size} samples "
+                  f"({resp['audio_length']:.3f} s), rtf {resp['rtf']:.4f} (server), "
+                  f"wall {wall:.3f} s, timers "
                   + json.dumps({k: round(v, 4) for k, v in m.items()}))
         launches = counters.snapshot()
     finally:
         server.stop()
         service.close()
-    profile_request(torch, engine, bytes.fromhex(prompt_hex), text)
-    print(f"launches over 3 requests: {launches} (decode steps {steps}, "
-          f"{n_act} AA activations per vocode)")
-    if launches["fused_decode_step"] != steps or steps == 0:
-        fail("K1 was not launched once per decode step")
+    print(f"[{profile}] launches over 3 requests: {launches} (decode steps "
+          f"{steps}, {n_act} AA activations per vocode)")
+    return launches, steps, n_act, bytes.fromhex(prompt_hex), text
+
+
+def run_production_slice(torch, dev, counters):
+    """The flagship engine in the production profile (the server default):
+    beam-3 through K3 with the ancestor table, int8 KV."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+
+    t0 = time.perf_counter()
+    engine = TTSEngine.random(serving_config(), device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[serving] engine build (flagship widths, random weights): "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    launches, steps, n_act, prompt, text = serve_three(torch, engine, "serving", counters)
+    if launches["fused_decode_step_batch"] != steps or steps == 0:
+        fail("K3 was not launched once per beam decode step")
+    if launches["fused_decode_step"] != 0:
+        fail("K1 was launched on the beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
         fail("K2 was not launched on every vocoder activation")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_request(torch, engine, prompt, text)
+    print(f"[serving] peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def run_bench_slice(torch, dev, counters):
+    """The flagship engine in the bench configuration (`--profile bench`):
+    sampling, one beam through K1."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
+
+    t0 = time.perf_counter()
+    engine = TTSEngine.random(bench_config(), device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[bench] engine build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    launches, steps, n_act, _, _ = serve_three(torch, engine, "bench", counters)
+    if launches["fused_decode_step"] != steps or steps == 0:
+        fail("K1 was not launched once per decode step")
+    if launches["fused_decode_step_batch"] != 0:
+        fail("K3 was launched on the one-beam path")
+    if launches["aa_snake_activation"] != 3 * n_act:
+        fail("K2 was not launched on every vocoder activation")
     return launches
 
 
@@ -406,15 +596,23 @@ def main():
     check_k2(torch, dev, results)
     check_k4(torch, dev, results)
     check_k1(torch, dev, results)
+    check_k3(torch, dev, results)
     check_tiny_engine(torch, dev)
-    launches = run_slice(torch, dev, counters)
+    check_tiny_engine_production(torch, dev)
+    by_path = {"serving": run_production_slice(torch, dev, counters)}
+    torch.cuda.empty_cache()
+    by_path["bench"] = run_bench_slice(torch, dev, counters)
+    # each kernel's launches come from the path that runs it: K3 and K2 from
+    # the production slice, K1 from the bench slice; K4 serves int8 products
+    # of <= 32 rows, the tiny engines' prefill, not the flagship slices (their
+    # prefill has 84 rows), and is reported beside the paths' kernels
+    owner = {"fused_decode_step": "bench"}
     on_path, off_path = [], []
     for r in results:
-        r["launches"] = launches[r["name"]]
-        # K4 serves int8 products of <= 32 rows: the tiny engine's prefill,
-        # not the flagship slice (its prefill has 84 rows), so it is reported
-        # beside the path's kernels, with the launches it got (0)
+        r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]
+        r["launches_by_path"] = {p: by_path[p][r["name"]] for p in by_path}
         (off_path if r["name"] == "int8_gemv" else on_path).append(r)
+    print(card)
     print(json.dumps({"kernels": on_path, "off_path": off_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import voice_tts_tpu_torch
 import voice_tts_tpu_torch.engine.engine
 import voice_tts_tpu_torch.serving.app
 import voice_tts_tpu_torch.ops.fused_decode
+import voice_tts_tpu_torch.models.gpt.beam
 import voice_tts_tpu_torch.ops.aa_activation
 import voice_tts_tpu_torch.ops.int8_matmul
 import voice_tts_tpu_torch.utils.convert

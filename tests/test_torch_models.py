@@ -76,6 +76,38 @@ def test_gpt_conditioning(gpt):
         close(port.get_emovec(t(feats), t(lens)), ref_e, 2e-4)
 
 
+def test_gpt_conditioning_bf16_runtime(gpt):
+    """The int8 runtime GPT's bf16 conformer-perceiver, as the bf16
+    conditioning path runs it on bf16 w2v features: the f32 position table
+    promotes the conformer's attention, and from there the rest, to f32 in
+    both packages (same dtypes); values within bf16 rounding, 1e-2 of
+    max(1, max|ref|)."""
+    from voice_tts_tpu.utils.quantize import quantize_gpt_params
+    from voice_tts_tpu_torch.engine.engine import TTSEngine
+    from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
+    from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
+
+    model, params, port = gpt
+    jrt = quantize_gpt_params(params)
+    state = quantize_gpt_state(port.state_dict())
+    prt = UnifiedVoice(CFG.gpt, int8=True)
+    TTSEngine._cast_like(prt, state)
+    prt.load_state_dict(state)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((1, 20, CFG.gpt.condition_module.input_size)).astype(np.float32)
+    lens = np.asarray([17])
+    jf = jnp.asarray(feats, jnp.bfloat16)
+    ref_c = model.apply(jrt, jf, jnp.asarray(lens), method=JUV.get_conditioning)
+    ref_e = model.apply(jrt, jf, jnp.asarray(lens), method=JUV.get_emovec)
+    with torch.no_grad():
+        pf = t(feats).to(torch.bfloat16)
+        out_c = prt.get_conditioning(pf, t(lens))
+        out_e = prt.get_emovec(pf, t(lens))
+    for out, ref in ((out_c, ref_c), (out_e, ref_e)):
+        assert str(out.dtype).split(".")[-1] == str(ref.dtype)
+        close(out, ref, 1e-2)
+
+
 def test_gpt_latent_and_prefill_logits(gpt):
     model, params, port = gpt
     c = CFG.gpt

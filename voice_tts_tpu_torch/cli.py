@@ -1,12 +1,13 @@
 """Command-line synthesis on the PyTorch port (`voice_tts_tpu/cli.py`).
 
     python -m voice_tts_tpu_torch.cli "text to speak" -v voice.wav -o gen.wav \
-        (--random | --tiny) [--device cuda|cpu] [--emo-audio E.wav]
-        [--emo happy] [--emo-alpha 0.8]
+        (--random | --tiny) [--profile serving|bench] [--device cuda|cpu]
+        [--emo-audio E.wav] [--emo happy] [--emo-alpha 0.8]
 
-`--random` runs the flagship widths with random weights in the bench
-decode configuration (the audio is noise); `--tiny` the tiny config.
-Loading the published checkpoints is not ported yet.
+`--random` runs the flagship widths with random weights (the audio is
+noise) in the production profile (beam-3, int8 KV; the default) or, with
+`--profile bench`, the bench decode configuration; `--tiny` the tiny
+config.  Loading the published checkpoints is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ def main(argv=None) -> int:
                          help="flagship widths, random weights (audio is noise)")
     weights.add_argument("--tiny", action="store_true",
                          help="tiny random config (fast CPU smoke test)")
+    parser.add_argument("--profile", default="serving", choices=("serving", "bench"),
+                        help="'serving' (default): the production profile, "
+                             "beam-3 with int8 KV; 'bench': sampling, one beam")
     parser.add_argument("--device", default="cuda", help="torch device")
     parser.add_argument("--emo-audio", default=None, help="emotion reference audio")
     parser.add_argument("--emo", default=None,
@@ -49,7 +53,7 @@ def main(argv=None) -> int:
     from voice_tts_tpu.text.emotion import create_emotion_vector
     from voice_tts_tpu_torch.serving.app import build_engine
 
-    engine = build_engine(args.tiny, args.device)
+    engine = build_engine(args.tiny, args.device, profile=args.profile)
     emo_vector = create_emotion_vector(args.emo, args.emo_alpha) if args.emo else None
     result = engine.infer(args.voice, args.text, args.output_path,
                           emo_audio_prompt=args.emo_audio,

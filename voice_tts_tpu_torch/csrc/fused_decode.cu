@@ -1,44 +1,62 @@
-// K1: batch-1 GPT-2 decode step of the int8 trunk, with the folded readout.
+// K1 and K3: GPT-2 decode step of the int8 trunk for B rows (B = 1 for K1,
+// up to 12 for K3), with the folded readout, a bf16 or int8 KV cache and,
+// for beam search, an ancestor table.
 //
 // Replaces: voice_tts_tpu/ops/fused_decode.py `fused_decode_step` (Pallas
-// `_kernel_merged` + `_attend`), float-KV / int8-weight / readout branch.
+// `_kernel_merged` + `_attend`: K1, float-KV and int8-KV branches) and
+// `fused_decode_step_batch` (Pallas `_kernel_batch` + `_attend_batch`: K3,
+// with `beam_src`, `kv_scales` and `readout_pack`), int8-weight branches.
 //
-// The Pallas kernel runs the whole trunk in one call because TPU grid steps
+// The Pallas kernels run the whole trunk in one call because TPU grid steps
 // run in order on one core and a residual can live in VMEM scratch across
 // them.  A GPU grid gives no such order, so the step is a host-sequenced
 // chain of launches, five per layer plus one for the readout:
 //
-//   dq_gemv  [LN1 prologue]          x   -> qkv (3D)
-//   attend   [one block per head]    qkv -> ctx (D), kv_new rows (bf16)
-//   dq_gemv  [residual epilogue]     ctx -> x += proj(ctx)
-//   dq_gemv  [LN2 prologue, GELU]    x   -> h (4D)
-//   dq_gemv  [residual epilogue]     h   -> x += fc2(h)   (K = 4D, 4 k-tiles)
-//   dq_gemv  [final-LN prologue]     x   -> logits (12 * VT)
+//   dq_gemv  [LN1 prologue]             x   -> qkv (B, 3D)
+//   attend   [one block per head, row]  qkv -> ctx (B, D), kv_new rows
+//   dq_gemv  [residual epilogue]        ctx -> x += proj(ctx)
+//   dq_gemv  [LN2 prologue, GELU]       x   -> h (B, 4D)
+//   dq_gemv  [residual epilogue]        h   -> x += fc2(h)   (K = 4D, 4 k-tiles)
+//   dq_gemv  [final-LN prologue]        x   -> logits (B, 12 * VT)
 //
-// Numerics reproduced from the Pallas kernel: the activation is rounded to
+// Numerics reproduced from the Pallas kernels: the activation is rounded to
 // bf16 before every product, f32 accumulation, then `* scale + bias`; the fc2
-// bias is added once; q is scaled by hd^-0.5 in f32; cache rows are read as
-// bf16 and widened; the current token's k/v enter attention unrounded while
-// the kv_new rows are stored as bf16; the final LN runs in f32.
+// bias is added once; q is scaled by hd^-0.5 in f32; cache rows are widened to
+// f32 and, from an int8 cache, multiplied by the scale of the row they are
+// read from; the current token's k/v enter attention unrounded while kv_new
+// is stored in the cache dtype (bf16), or as f32 beside an int8 cache (the
+// caller quantizes it); the final LN runs in f32.
+//
+// What is TPU-only in the Pallas K3 and left out here: the one-hot ancestor
+// multiply-add and the `beam_k` grouping (on the card an ancestor is a plain
+// gather: row b at position t loads cache row src[b, t]), the [lo, hi)
+// interval scalars that stand in for the additive bias (the bias is read
+// directly; -1e30 gives the same softmax as the Pallas -inf), and
+// `batch_block_t`.
 //
 // Weight layout (see voice_tts_tpu_torch/ops/fused_decode.py `pack_gpt`):
 // every (D, D) int8 tile of the JAX pack is stored transposed, (out, in), so
 // one output column's weights are contiguous and a warp streams them with
-// 16-byte loads.  A (F, K) matrix is `n_ktiles` such blocks, [kt][F][K/kt].
+// coalesced loads.  A (F, K) matrix is `n_ktiles` such blocks, [kt][F][K/kt].
 //
 // Bound on the H100: device memory.  A step reads the whole int8 trunk once
-// (12 D^2 bytes per layer, 472 MB at D = 1280, L = 24) plus the int8 readout
-// and the live bf16 KV prefix; each weight byte feeds one multiply-add.  The
-// GEMV gives one warp per output column (8 per block, hundreds of blocks per
-// launch); a warp reads its column's weights as 4 bytes a lane, neighbouring
-// lanes on neighbouring addresses (128-byte coalesced loads, four in flight),
-// and the activation as float4 from shared memory, conflict-free.  The LN
-// prologue is recomputed by each block from the D-float input, which costs D
-// reads against F*K weight bytes.  Attention reads only the live [0, pos)
-// prefix, one block per head: each cache row is read by hd/8 lanes as 16-byte
-// loads (a warp covers 32*8/hd rows at once), scores of a chunk of positions
-// go to shared memory for an online softmax, and the weighted sum of V is kept
-// in registers across chunks and reduced across warps once at the end.
+// (12 D^2 bytes per layer, 472 MB at D = 1280, L = 24) plus the int8 readout,
+// and B live KV prefixes (one per row, pos_b * D bytes per layer and k|v,
+// int8 or bf16); each weight byte feeds B multiply-adds.  The GEMV gives one
+// warp per output column (8 per block, hundreds of blocks per launch); a warp
+// reads its column's weights ONCE for all B rows, 4 bytes a lane,
+// neighbouring lanes on neighbouring addresses, while the B rows' activations
+// sit in shared memory as bf16 (exact: they are rounded to bf16 before every
+// product anyway; at fc2, K = 5120, twelve rows take 120 KB, where f32 would
+// need 240 KB, more than a block may have).  So the 472 MB weight stream is
+// read once per beam step, not once per beam.  The LN prologue is recomputed
+// by each block from the B D-float inputs.  Attention runs one block per
+// (head, row) over the row's live prefix [0, pos_b) only: each cache row is
+// read by hd/8 lanes as 16-byte (bf16) or 8-byte (int8) loads through the
+// ancestor table, scores of a chunk of positions go to shared memory for an
+// online softmax, and the weighted sum of V stays in registers across chunks.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -54,39 +72,71 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
 }
 
-// out[f] = epi(sum_k bf16(ln(x))[k] * W[f, k] * scale[f] + bias[f])
-// x, out, res: f32; W: [n_ktiles][F][ktile] int8; ln_w == nullptr -> no LN.
-template <int EPI>
+// Widen the 4 bf16 values of one 8-byte load to f32 (f[j] is element j).
+__device__ __forceinline__ void bf16x4_to_f32(const uint2 raw, float* f) {
+  f[0] = __uint_as_float(raw.x << 16);
+  f[1] = __uint_as_float(raw.x & 0xffff0000u);
+  f[2] = __uint_as_float(raw.y << 16);
+  f[3] = __uint_as_float(raw.y & 0xffff0000u);
+}
+
+// 8 cache values widened to f32: 16 bytes of bf16 or 8 bytes of int8.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  vtt::bf16x8_to_f32(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = (float)(int8_t)(raw.x >> (8 * i));
+    f[4 + i] = (float)(int8_t)(raw.y >> (8 * i));
+  }
+}
+
+// out[r, f] = epi(sum_k bf16(ln(x[r]))[k] * W[f, k] * scale[f] + bias[f])
+// for rows r < nrows <= NB.  x, out, res: (nrows, K) / (nrows, F) f32;
+// W: [n_ktiles][F][ktile] int8; ln_w == nullptr -> no LN.  Dynamic shared
+// memory: nrows * K bf16 activations, then (LN only) K f32 of staging.
+template <int EPI, int NB>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, const int8_t* __restrict__ w,
                int n_ktiles, int ktile, const float* __restrict__ scale,
                const float* __restrict__ bias, const float* res, float* out,
-               int f_total) {
-  extern __shared__ float4 xs4[];  // K = n_ktiles * ktile floats
-  float* xs = reinterpret_cast<float*>(xs4);
+               int f_total, int nrows) {
+  extern __shared__ uint4 smem4[];
   __shared__ float scratch[32];
   const int k_total = n_ktiles * ktile;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* stage = reinterpret_cast<float*>(xs + (size_t)nrows * k_total);
 
-  for (int i = threadIdx.x; i < k_total; i += blockDim.x) xs[i] = x[i];
-  __syncthreads();
-  if (ln_w != nullptr) {
-    float s = 0.0f;
-    for (int i = threadIdx.x; i < k_total; i += blockDim.x) s += xs[i];
-    const float mean = vtt::block_sum(s, scratch) / (float)k_total;
-    float v = 0.0f;
-    for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-      const float c = xs[i] - mean;
-      v += c * c;
-    }
-    const float var = vtt::block_sum(v, scratch) / (float)k_total;
-    const float rstd = rsqrtf(var + 1e-5f);
-    for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-      xs[i] = vtt::round_bf16((xs[i] - mean) * rstd * ln_w[i] + ln_b[i]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-      xs[i] = vtt::round_bf16(xs[i]);
+  for (int r = 0; r < nrows; ++r) {
+    const float* xr = x + (size_t)r * k_total;
+    __nv_bfloat16* xb = xs + (size_t)r * k_total;
+    if (ln_w != nullptr) {
+      // each thread reads back only the stage entries it wrote itself
+      float s = 0.0f;
+      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
+        const float v = xr[i];
+        stage[i] = v;
+        s += v;
+      }
+      const float mean = vtt::block_sum(s, scratch) / (float)k_total;
+      float v = 0.0f;
+      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
+        const float c = stage[i] - mean;
+        v += c * c;
+      }
+      const float var = vtt::block_sum(v, scratch) / (float)k_total;
+      const float rstd = rsqrtf(var + 1e-5f);
+      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
+        xb[i] = __float2bfloat16_rn((stage[i] - mean) * rstd * ln_w[i] + ln_b[i]);
+      }
+    } else {
+      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
+        xb[i] = __float2bfloat16_rn(xr[i]);
+      }
     }
   }
   __syncthreads();
@@ -94,64 +144,96 @@ dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * GEMV_WARPS + warp;
   if (col >= f_total) return;
-  float acc = 0.0f;
+  float acc[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) acc[r] = 0.0f;
   for (int kt = 0; kt < n_ktiles; ++kt) {
     const int8_t* wrow = w + ((size_t)kt * f_total + col) * ktile;
-    const float* xk = xs + kt * ktile;
+    const __nv_bfloat16* xk = xs + kt * ktile;
 #pragma unroll 4
     for (int c = lane * 4; c < ktile; c += 32 * 4) {
       const char4 q = *reinterpret_cast<const char4*>(wrow + c);
-      const float4 xv = *reinterpret_cast<const float4*>(xk + c);
-      acc += xv.x * (float)q.x;
-      acc += xv.y * (float)q.y;
-      acc += xv.z * (float)q.z;
-      acc += xv.w * (float)q.w;
+      const float w0 = q.x, w1 = q.y, w2 = q.z, w3 = q.w;
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        if (r < nrows) {
+          float xv[4];
+          bf16x4_to_f32(*reinterpret_cast<const uint2*>(xk + (size_t)r * k_total + c), xv);
+          acc[r] += xv[0] * w0;
+          acc[r] += xv[1] * w1;
+          acc[r] += xv[2] * w2;
+          acc[r] += xv[3] * w3;
+        }
+      }
     }
   }
-  acc = vtt::warp_sum(acc);
-  if (lane == 0) {
-    float y = acc * scale[col] + bias[col];
-    if (EPI == EPI_GELU) y = gelu_tanh(y);
-    if (EPI == EPI_RESIDUAL) y = res[col] + y;
-    out[col] = y;
+#pragma unroll
+  for (int r = 0; r < NB; ++r) {
+    if (r < nrows) {
+      const float a = vtt::warp_sum(acc[r]);
+      if (lane == 0) {
+        float y = a * scale[col] + bias[col];
+        if (EPI == EPI_GELU) y = gelu_tanh(y);
+        if (EPI == EPI_RESIDUAL) y = res[(size_t)r * f_total + col] + y;
+        out[(size_t)r * f_total + col] = y;
+      }
+    }
   }
 }
 
-// One block per head.  Lane layout: a cache row of hd bf16 is read by
-// lpr = hd/8 lanes, 8 values (16 bytes) each; a warp covers 32/lpr rows at
-// once.  Online softmax over the cached prefix [0, pos) in chunks of
-// ATT_CHUNK positions (scores in shared memory, the running weighted sum of V
-// in registers), then the current token's k/v from `qkv`, unrounded.
-// qkv: (3D) f32 [q | k | v]; cache_k, cache_v: this layer's (Tmax, D) bf16
-// rows; bias: (Tmax,) f32 additive mask; ctx: (D) f32; kv_new: (2, D) bf16.
+// One block per (head, row).  Lane layout: a cache row of hd values is read
+// by lpr = hd/8 lanes, 8 values each; a warp covers 32/lpr rows at once.
+// Online softmax over the row's prefix [0, pos_b) in chunks of ATT_CHUNK
+// positions (scores in shared memory, the running weighted sum of V in
+// registers), then the current token's k/v from `qkv`, unrounded.
+// qkv: (B, 3D) f32 [q | k | v]; cache_k, cache_v: this layer's (B, Tmax, D)
+// planes; scales: this layer's (B, Tmax, 2) f32 (int8 cache only); bias:
+// (B, Tmax) f32 additive mask; src: (B, Tmax) i32 ancestor rows or null
+// (row b reads itself); pos_rows: (B,) i32 or null (every row at pos_all);
+// ctx: (B, D) f32; kv_new: (2, B, D), bf16 beside a bf16 cache, f32 beside
+// an int8 one.  A row at pos 0 attends to its current token only.
 // Needs hd % 8 == 0 and 32 % (hd / 8) == 0.
+template <typename CacheT>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-attend_kernel(const float* __restrict__ qkv,
-              const __nv_bfloat16* __restrict__ cache_k,
-              const __nv_bfloat16* __restrict__ cache_v,
-              const float* __restrict__ bias, int pos, int d, int hd,
-              float q_scale, float* __restrict__ ctx,
-              __nv_bfloat16* __restrict__ kv_new) {
+attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
+              const CacheT* __restrict__ cache_v, const float* __restrict__ scales,
+              const float* __restrict__ bias, const int* __restrict__ src,
+              const int* __restrict__ pos_rows, int pos_all, int t_max, int d,
+              int hd, float q_scale, float* __restrict__ ctx,
+              void* __restrict__ kv_new) {
+  constexpr bool kInt8 = std::is_same<CacheT, int8_t>::value;
   __shared__ float p[ATT_CHUNK];
+  __shared__ int srow[ATT_CHUNK];  // source cache row of each chunk position
   __shared__ float scratch[32];
   extern __shared__ float part[];  // ATT_WARPS * hd partial sums of V
-  const int h = blockIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y, nrows = gridDim.y;
+  const int pos = min(pos_rows != nullptr ? pos_rows[b] : pos_all, t_max);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lpr = hd / 8, rows = 32 / lpr;
   const int g = lane / lpr, sub = lane % lpr;
   const size_t col = (size_t)h * hd + sub * 8;
-  const float* k_cur = qkv + d + h * hd;
-  const float* v_cur = qkv + 2 * d + h * hd;
+  const float* qrow = qkv + (size_t)b * 3 * d;
+  const float* k_cur = qrow + d + h * hd;
+  const float* v_cur = qrow + 2 * d + h * hd;
+  const float* brow = bias + (size_t)b * t_max;
+  const int* srcrow = src != nullptr ? src + (size_t)b * t_max : nullptr;
 
+  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
+    const size_t ko = (size_t)b * d + h * hd + i;
+    const size_t vo = (size_t)(nrows + b) * d + h * hd + i;
+    if constexpr (kInt8) {
+      static_cast<float*>(kv_new)[ko] = k_cur[i];
+      static_cast<float*>(kv_new)[vo] = v_cur[i];
+    } else {
+      static_cast<__nv_bfloat16*>(kv_new)[ko] = __float2bfloat16_rn(k_cur[i]);
+      static_cast<__nv_bfloat16*>(kv_new)[vo] = __float2bfloat16_rn(v_cur[i]);
+    }
+  }
   float q[8], acc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    q[j] = qkv[col + j] * q_scale;
+    q[j] = qrow[col + j] * q_scale;
     acc[j] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-    kv_new[h * hd + i] = __float2bfloat16_rn(k_cur[i]);
-    kv_new[d + h * hd + i] = __float2bfloat16_rn(v_cur[i]);
   }
   // the current token's score, from the lanes of warp 0's first row group
   float sc = 0.0f;
@@ -164,18 +246,27 @@ attend_kernel(const float* __restrict__ qkv,
   float m = -INFINITY, l = 0.0f;
   for (int c0 = 0; c0 < pos; c0 += ATT_CHUNK) {
     const int n = min(ATT_CHUNK, pos - c0);
+    for (int tt = threadIdx.x; tt < n; tt += blockDim.x) {
+      srow[tt] = srcrow != nullptr ? srcrow[c0 + tt] : b;
+    }
+    __syncthreads();
     for (int r0 = warp * rows; r0 < n; r0 += ATT_WARPS * rows) {
       const int tt = r0 + g;
       float s = 0.0f;
       if (tt < n) {
+        const size_t at = (size_t)srow[tt] * t_max + c0 + tt;
         float kr[8];
-        vtt::bf16x8_to_f32(*reinterpret_cast<const uint4*>(
-                               cache_k + (size_t)(c0 + tt) * d + col), kr);
+        load8(cache_k + at * d + col, kr);
+        if constexpr (kInt8) {
+          const float ks = scales[at * 2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) kr[j] *= ks;
+        }
 #pragma unroll
         for (int j = 0; j < 8; ++j) s += q[j] * kr[j];
       }
       for (int o = lpr / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (tt < n && sub == 0) p[tt] = s + bias[c0 + tt];
+      if (tt < n && sub == 0) p[tt] = s + brow[c0 + tt];
     }
     __syncthreads();
     float cm = -INFINITY;
@@ -194,15 +285,20 @@ attend_kernel(const float* __restrict__ qkv,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] *= alpha;
     for (int tt = warp * rows + g; tt < n; tt += ATT_WARPS * rows) {
+      const size_t at = (size_t)srow[tt] * t_max + c0 + tt;
       float vr[8];
-      vtt::bf16x8_to_f32(*reinterpret_cast<const uint4*>(
-                             cache_v + (size_t)(c0 + tt) * d + col), vr);
+      load8(cache_v + at * d + col, vr);
+      if constexpr (kInt8) {
+        const float vs = scales[at * 2 + 1];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) vr[j] *= vs;
+      }
       const float pt = p[tt];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] += pt * vr[j];
     }
     m = m_new;
-    __syncthreads();  // p is rewritten by the next chunk
+    __syncthreads();  // p and srow are rewritten by the next chunk
   }
 
   // sum the row groups of each warp (lanes sharing `sub`), then the warps
@@ -219,72 +315,110 @@ attend_kernel(const float* __restrict__ qkv,
   const float alpha = expf(m - m_f);
   const float p_cur = expf(s_cur - m_f);
   const float l_f = l * alpha + p_cur;
+  float* crow = ctx + (size_t)b * d + h * hd;
   for (int i = threadIdx.x; i < hd; i += blockDim.x) {
     float a = 0.0f;
     for (int w = 0; w < ATT_WARPS; ++w) a += part[w * hd + i];
-    ctx[h * hd + i] = (a * alpha + p_cur * v_cur[i]) / l_f;
+    crow[i] = (a * alpha + p_cur * v_cur[i]) / l_f;
   }
 }
 
-template <int EPI>
-cudaError_t launch_gemv(const float* x, const float* ln_w, const float* ln_b,
-                        const int8_t* w, int n_ktiles, int ktile,
-                        const float* scale, const float* bias, const float* res,
-                        float* out, int f_total, cudaStream_t stream) {
-  const size_t smem = (size_t)n_ktiles * ktile * sizeof(float);
+template <int EPI, int NB>
+cudaError_t launch_gemv_nb(const float* x, const float* ln_w, const float* ln_b,
+                           const int8_t* w, int n_ktiles, int ktile,
+                           const float* scale, const float* bias,
+                           const float* res, float* out, int f_total, int nrows,
+                           cudaStream_t stream) {
+  const size_t k_total = (size_t)n_ktiles * ktile;
+  const size_t smem = nrows * k_total * sizeof(__nv_bfloat16)
+                      + (ln_w != nullptr ? k_total * sizeof(float) : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        dq_gemv_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dq_gemv_kernel<EPI, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int grid = (f_total + GEMV_WARPS - 1) / GEMV_WARPS;
-  dq_gemv_kernel<EPI><<<grid, GEMV_WARPS * 32, smem, stream>>>(
-      x, ln_w, ln_b, w, n_ktiles, ktile, scale, bias, res, out, f_total);
+  dq_gemv_kernel<EPI, NB><<<grid, GEMV_WARPS * 32, smem, stream>>>(
+      x, ln_w, ln_b, w, n_ktiles, ktile, scale, bias, res, out, f_total, nrows);
   return cudaGetLastError();
+}
+
+// rows are rounded up to an instantiated accumulator count
+template <int EPI>
+cudaError_t launch_gemv(const float* x, const float* ln_w, const float* ln_b,
+                        const int8_t* w, int n_ktiles, int ktile,
+                        const float* scale, const float* bias, const float* res,
+                        float* out, int f_total, int nrows, cudaStream_t stream) {
+#define VTT_GEMV(NB)                                                        \
+  return launch_gemv_nb<EPI, NB>(x, ln_w, ln_b, w, n_ktiles, ktile, scale, \
+                                 bias, res, out, f_total, nrows, stream)
+  if (nrows <= 1) VTT_GEMV(1);
+  if (nrows <= 2) VTT_GEMV(2);
+  if (nrows <= 3) VTT_GEMV(3);
+  if (nrows <= 4) VTT_GEMV(4);
+  if (nrows <= 8) VTT_GEMV(8);
+  VTT_GEMV(12);
+#undef VTT_GEMV
 }
 
 }  // namespace
 
-// Dequantizing GEMV with optional LN prologue and epilogue
-// (epilogue: 0 none, 1 GELU-tanh, 2 residual add `res`).  ktile % 4 == 0,
+// Dequantizing GEMV over 1 <= nrows <= 12 rows with optional LN prologue
+// and epilogue (0 none, 1 GELU-tanh, 2 residual add `res`).  ktile % 4 == 0,
 // w 4-byte aligned.  ln_w / ln_b / res may be null where unused.
 VTT_EXPORT int vtt_dq_gemv(const float* x, const float* ln_w, const float* ln_b,
                            const int8_t* w, int n_ktiles, int ktile,
                            const float* scale, const float* bias,
-                           const float* res, float* out, int f_total,
+                           const float* res, float* out, int f_total, int nrows,
                            int epilogue, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (nrows < 1 || nrows > 12 || ktile % 4 != 0) return (int)cudaErrorInvalidValue;
   switch (epilogue) {
     case EPI_NONE:
       return (int)launch_gemv<EPI_NONE>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                        scale, bias, res, out, f_total, s);
+                                        scale, bias, res, out, f_total, nrows, s);
     case EPI_GELU:
       return (int)launch_gemv<EPI_GELU>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                        scale, bias, res, out, f_total, s);
+                                        scale, bias, res, out, f_total, nrows, s);
     case EPI_RESIDUAL:
       return (int)launch_gemv<EPI_RESIDUAL>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                            scale, bias, res, out, f_total, s);
+                                            scale, bias, res, out, f_total,
+                                            nrows, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// hd = d / heads with hd % 8 == 0 and 32 % (hd / 8) == 0; cache rows 16-byte
-// aligned (d % 8 == 0).
+// Attention of one layer for nrows rows; see attend_kernel.  hd = d / heads
+// with hd % 8 == 0 and 32 % (hd / 8) == 0; cache rows 16-byte aligned.
+// int8_kv selects the int8 cache (scales required, kv_new f32) over bf16.
 VTT_EXPORT int vtt_decode_attend(const float* qkv, const void* cache_k,
-                                 const void* cache_v, const float* bias,
-                                 int pos, int d, int heads, float q_scale,
-                                 float* ctx, void* kv_new, void* stream) {
+                                 const void* cache_v, const float* scales,
+                                 const float* bias, const int* src,
+                                 const int* pos_rows, int pos, int nrows,
+                                 int t_max, int d, int heads, float q_scale,
+                                 float* ctx, void* kv_new, int int8_kv,
+                                 void* stream) {
   const int hd = d / heads;
-  if (hd % 8 != 0 || 32 % (hd / 8) != 0 || d % heads != 0) {
+  if (d % heads != 0 || hd % 8 != 0 || 32 % (hd / 8) != 0 || nrows < 1
+      || (int8_kv && scales == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)ATT_WARPS * hd * sizeof(float);
-  attend_kernel<<<heads, ATT_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      qkv, reinterpret_cast<const __nv_bfloat16*>(cache_k),
-      reinterpret_cast<const __nv_bfloat16*>(cache_v), bias, pos, d, hd,
-      q_scale, ctx, reinterpret_cast<__nv_bfloat16*>(kv_new));
+  const dim3 grid(heads, nrows);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (int8_kv) {
+    attend_kernel<int8_t><<<grid, ATT_WARPS * 32, smem, s>>>(
+        qkv, static_cast<const int8_t*>(cache_k),
+        static_cast<const int8_t*>(cache_v), scales, bias, src, pos_rows, pos,
+        t_max, d, hd, q_scale, ctx, kv_new);
+  } else {
+    attend_kernel<__nv_bfloat16><<<grid, ATT_WARPS * 32, smem, s>>>(
+        qkv, static_cast<const __nv_bfloat16*>(cache_k),
+        static_cast<const __nv_bfloat16*>(cache_v), scales, bias, src,
+        pos_rows, pos, t_max, d, hd, q_scale, ctx, kv_new);
+  }
   return (int)cudaGetLastError();
 }
 

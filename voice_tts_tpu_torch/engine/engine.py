@@ -1,22 +1,38 @@
 """TTSEngine: the single-request inference path, PyTorch + CUDA
-(`voice_tts_tpu/engine/engine.py`: `infer`, `_prepare`,
-`_synthesize_segment` on the `fuse_pipeline` path).
+(`voice_tts_tpu/engine/engine.py`: `infer`, `_prepare`, `_decode_cap`,
+`_observe_code_len` and both arms of `_synthesize_segment`).
 
-One segment runs eagerly: AR decode (the K1 kernel chain per step) ->
-device-side silence trim -> teacher-forced GPT latent -> s2mel (length
-regulator + 25-step CFM) -> BigVGAN (K2 on every activation) -> int16, with
-the JAX engine's text / code / mel / prompt buckets and padded shapes.  New
-speakers run the conditioning path (resample, seamless features, w2v-bert,
-RepCodec, kaldi fbank + CAMPPlus, mel, regulator, conformer-perceiver),
-cached by prompt content hash.  Stage timers keep the reference's names.
+One segment runs eagerly: AR decode -> silence trim -> teacher-forced GPT
+latent -> s2mel (length regulator + 25-step CFM) -> BigVGAN (K2 on every
+activation) -> int16, with the JAX engine's text / code / mel / prompt
+buckets and padded shapes.  The decode is either
 
-Left out: `infer_batch`, streaming (`infer_generator`), the Qwen text
-emotion model, beam search, and the JAX engine's other fast-path flags
-(constructing with one of them raises).
+- beam search (`num_beams > 1`, the production default): `models/gpt/beam.py`
+  at the text bucket's learned decode cap with one full-cap retry, every
+  step one K3 launch over the beams with the ancestor table, as the JAX
+  engine's beam branch; or
+- sampling / greedy (`num_beams == 1`): the K1 step, with the JAX
+  `fuse_pipeline` path's code bucket estimate and retry.
+
+New speakers run the conditioning path (resample, seamless features,
+w2v-bert, RepCodec, kaldi fbank + CAMPPlus, mel, regulator,
+conformer-perceiver), cached by prompt content hash; with
+`use_bf16_conditioning` on bf16 copies of w2v-bert, RepCodec and CAMPPlus
+and on the bf16 runtime GPT.  Stage timers keep the reference's names.
+
+Engine flags accepted without effect here: `merge_decode_stages` (a grid
+setting of the Mosaic kernels, which the CUDA chain does not have),
+`use_fused_batch_decode` (the batched sampling decode: the server takes one
+request at a time), and `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` /
+`batch_segments` (graph and dispatch settings of the JAX engine; segments
+run one after another).  Left out: `infer_batch`, streaming
+(`infer_generator`), the Qwen text emotion model, and the flags in
+`_UNPORTED_FLAGS` (constructing with one of them raises).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import math
@@ -37,6 +53,7 @@ from voice_tts_tpu_torch.models.conditioning.campplus import CAMPPlus
 from voice_tts_tpu_torch.models.conditioning.repcodec import (RepCodec,
                                                               repcodec_vq2emb)
 from voice_tts_tpu_torch.models.conditioning.w2v_bert import Wav2Vec2Bert
+from voice_tts_tpu_torch.models.gpt.beam import beam_decode
 from voice_tts_tpu_torch.models.gpt.decode import decode as gpt_decode
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.models.layers import init_weights
@@ -51,10 +68,9 @@ from voice_tts_tpu_torch.utils.convert import FAMILIES, convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
 # JAX-engine flags whose paths the port does not carry yet
-_UNPORTED_FLAGS = ("use_int4_decode", "spec_decode_k", "use_int8_kv",
-                   "use_packed_vocoder", "use_shared_act_vocoder",
-                   "use_fused_vocoder", "use_bf16_s2mel",
-                   "use_bf16_conditioning")
+_UNPORTED_FLAGS = ("use_int4_decode", "spec_decode_k", "use_packed_vocoder",
+                   "use_shared_act_vocoder", "use_fused_vocoder",
+                   "use_bf16_s2mel")
 
 
 @dataclasses.dataclass
@@ -120,6 +136,16 @@ def bench_config() -> TTSConfig:
     e.use_int8_kv = False
     e.fuse_pipeline = True
     return cfg
+
+
+def serving_config() -> TTSConfig:
+    """The flagship widths with the production serving profile
+    (`TTSConfig.serving()`, JAX `config.py:523-559`): beam search with 3
+    beams over the reference's sampling settings, max_mel_tokens 1500, the
+    default text / code buckets, bf16 GPT with the int8 trunk through K3 and
+    the ancestor table, int8 KV, folded readout, bf16 conditioning, f32
+    masters released."""
+    return TTSConfig.serving()
 
 
 def tiny_config(**engine_overrides) -> TTSConfig:
@@ -209,6 +235,26 @@ class TTSEngine:
             self.gpt_rt = self.gpt
         self.gpt_rt.eval().requires_grad_(False)
 
+        # cold-prompt conditioning: bf16 copies of w2v-bert, RepCodec and
+        # CAMPPlus, and the bf16 runtime GPT for the conformer-perceiver
+        # (it never touches the int8 trunk); RepCodec's f32 master stays for
+        # the s2mel codebook lookup
+        if e.use_bf16_conditioning:
+            self.w2v_rt, self.repcodec_rt, self.campplus_rt = (
+                copy.deepcopy(m).to(torch.bfloat16)
+                for m in (self.w2v, self.repcodec, self.campplus))
+            self.cond_gpt = self.gpt_rt
+        else:
+            self.w2v_rt, self.repcodec_rt, self.campplus_rt = (
+                self.w2v, self.repcodec, self.campplus)
+            self.cond_gpt = self.gpt
+        if e.release_master_trees:
+            # inference never reads the f32 GPT / w2v-bert masters once the
+            # runtime copies exist; dropping them frees their device memory
+            self.models["gpt"] = self.gpt = self.gpt_rt
+            if e.use_bf16_conditioning:
+                self.models["w2v"] = self.w2v = self.w2v_rt
+
         self.mel_fn = MelSpectrogram(cfg.mel, dev)
         self.seamless = SeamlessFeatures(sample_rate=self.SR_COND, device=dev)
         self.fbank = KaldiFbank(sample_rate=self.SR_COND, waveform_scale=32768.0,
@@ -231,6 +277,12 @@ class TTSEngine:
         self._gen_cache: Dict[tuple, object] = {}
         self.generator = torch.Generator(device=dev).manual_seed(e.seed)
         self.last_metrics: Dict[str, float] = {}
+
+    @staticmethod
+    def _float_dtype(module: torch.nn.Module) -> torch.dtype:
+        """The compute dtype of a module: its first floating parameter's (the
+        int8 runtime GPT's conformer and perceiver weights are bf16)."""
+        return next(t.dtype for t in module.parameters() if t.is_floating_point())
 
     @staticmethod
     def _cast_like(module: torch.nn.Module, state: Dict[str, torch.Tensor]):
@@ -316,7 +368,7 @@ class TTSEngine:
 
     def _w2v_features(self, audio16: torch.Tensor, n16: torch.Tensor):
         feats, mask = self.seamless(audio16, n16)
-        emb = self.w2v(feats, mask)
+        emb = self.w2v_rt(feats.to(self._float_dtype(self.w2v_rt)), mask)
         return (emb.float() - self.w2v_mean) / self.w2v_std, mask.sum(dim=1)
 
     @torch.no_grad()
@@ -332,7 +384,7 @@ class TTSEngine:
         audio16 = torch.from_numpy(buf16).to(dev)
         n16_t = torch.tensor([n16], device=dev)
         emb, w2v_len = self._w2v_features(audio16, n16_t)
-        _, s_ref = self.repcodec(emb)
+        _, s_ref = self.repcodec_rt(emb.to(self._float_dtype(self.repcodec_rt)))
         ref_mel = self.mel_fn.on_prepadded(torch.from_numpy(pre22).to(dev))
         fb = self.fbank(audio16)
         fb_frames = torch.clamp(torch.div(n16_t - 400, 160, rounding_mode="floor") + 1,
@@ -341,15 +393,17 @@ class TTSEngine:
         fmean = ((fb * fmask[..., None]).sum(dim=1, keepdim=True)
                  / fb_frames[:, None, None])
         fb = (fb - fmean) * fmask[..., None]
-        style = self.campplus(fb, fb_frames).float()
+        style = self.campplus_rt(fb.to(self._float_dtype(self.campplus_rt)),
+                                 fb_frames).float()
         prompt_condition = self.s2mel.regulate(
-            s_ref, w2v_len, torch.tensor([mel_frames], device=dev),
-            self.prompt_mel_frames)
+            s_ref.to(self._float_dtype(self.s2mel)), w2v_len,
+            torch.tensor([mel_frames], device=dev), self.prompt_mel_frames)
+        cond_emb = emb.to(self._float_dtype(self.cond_gpt))
         entry = {
             "emb": emb, "w2v_len": w2v_len, "ref_mel": ref_mel, "style": style,
             "prompt_condition": prompt_condition, "mel_frames": mel_frames,
-            "cond_latents": self.gpt.get_conditioning(emb, w2v_len),
-            "spk_emovec": self.gpt.get_emovec(emb, w2v_len),
+            "cond_latents": self.cond_gpt.get_conditioning(cond_emb, w2v_len),
+            "spk_emovec": self.cond_gpt.get_emovec(cond_emb, w2v_len),
         }
         while len(self._spk_cache) >= self._SPK_CACHE_CAP:      # LRU eviction
             self._spk_cache.pop(next(iter(self._spk_cache)))
@@ -367,7 +421,8 @@ class TTSEngine:
         buf16, n16, _, _ = self._prepare_prompt_buffers(audio, sr)
         emb, length = self._w2v_features(torch.from_numpy(buf16).to(self.device),
                                          torch.tensor([n16], device=self.device))
-        emovec = self.gpt.get_emovec(emb, length)
+        emovec = self.cond_gpt.get_emovec(emb.to(self._float_dtype(self.cond_gpt)),
+                                          length)
         while len(self._emo_cache) >= 16:
             self._emo_cache.pop(next(iter(self._emo_cache)))
         self._emo_cache[key] = emovec
@@ -478,26 +533,68 @@ class TTSEngine:
         """CFM initial noise (tests replace this to share the JAX noise)."""
         return torch.randn(shape, generator=self.generator, device=self.device)
 
-    @torch.no_grad()
-    def _synthesize_segment(self, seg_tokens: List[str], spk: dict,
-                            emovec: torch.Tensor, timers: dict,
-                            generation_kwargs: dict) -> np.ndarray:
-        """decode -> silence trim -> latent -> s2mel -> vocoder for one
-        segment, with the JAX `fuse_pipeline` path's buckets and its one
-        full-bucket retry when the estimated code bucket was too small."""
-        cfg, e, dev = self.cfg, self.cfg.engine, self.device
-        gen = self._generation_config(generation_kwargs)
-        if gen.num_beams > 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) needs the batched decode kernel, "
-                "not ported yet; serve with num_beams=1")
-        ids = self.tokenizer.convert_tokens_to_ids(seg_tokens)
-        text_len = len(ids)
-        bucket = post.pick_bucket(text_len, e.text_buckets)
-        text = torch.zeros((1, bucket), dtype=torch.long)
-        text[0, :min(text_len, bucket)] = torch.tensor(ids[:bucket])
-        text = text.to(dev)
-        text_lens = torch.tensor([min(text_len, bucket)], device=dev)
+    def _decode_cap(self, bucket: int, gen) -> int:
+        """Decode-length cap for a text bucket on the beam path: the bucket's
+        codes-per-token estimate, never below the longest decode this bucket
+        was observed to need (`_observe_code_len`), as a code bucket."""
+        e = self.cfg.engine
+        if not e.auto_code_bucket:
+            return gen.max_mel_tokens
+        est = int(e.codes_per_text_token * bucket) + 16
+        est = max(est, self._cap_hint.get(bucket, 0) + 1)
+        cap = post.pick_bucket(min(est, gen.max_mel_tokens), tuple(e.code_buckets))
+        return min(cap, gen.max_mel_tokens)
+
+    def _beam_fused_pack(self):
+        """The decode pack for beam search, when enabled and available."""
+        if self.cfg.engine.use_fused_beam_decode and self.cfg.generation.num_beams <= 8:
+            return self.fused_pack
+        return None
+
+    def _decode_beam(self, gen, spk, emovec, text, text_lens, bucket, timers):
+        """Beam decode at the text bucket's cap with one full-cap retry when
+        the cap was hit (the retry replays the same random stream), then the
+        host-side silence trim.  Returns (codes (1, cbucket), code_len (1,),
+        cbucket); codes past code_len are 0."""
+        e = self.cfg.engine
+        gen_state = self.generator.get_state()
+
+        def run(max_new):
+            self.generator.set_state(gen_state)
+            res = beam_decode(self.gpt_rt, gen, spk["cond_latents"], emovec, text,
+                              text_lens, max_new, self.generator,
+                              fused_pack=self._beam_fused_pack(),
+                              int8_kv=e.use_int8_kv, readout_pack=self.readout_pack)
+            timers["decode_steps"] += res.steps
+            return res, bool(res.hit_limit[0])
+
+        cap = self._decode_cap(bucket, gen)
+        res, hit = run(cap)
+        self._observe_code_len(bucket, [int(res.lengths[0])], [hit], cap, gen)
+        if hit and cap < gen.max_mel_tokens:
+            res, hit = run(gen.max_mel_tokens)
+        # the stop token is excluded unless the hypothesis never produced one
+        code_len = max(int(res.lengths[0]) - (0 if hit else 1), 1)
+        codes_np, code_lens = post.remove_long_silence(
+            res.codes.cpu().numpy()[:, :code_len], np.asarray([code_len]),
+            self.cfg.gpt.stop_mel_token, e.silent_token)
+        code_len = int(code_lens[0])
+        cbucket = post.pick_bucket(code_len, tuple(e.code_buckets))
+        # pad with 0, an ordinary code: the teacher-forced forward replaces
+        # positions past code_len with the stop token, and the regulator never
+        # gathers past code_len
+        codes = np.zeros((1, cbucket), np.int64)
+        codes[0, :code_len] = codes_np[0, :code_len]
+        return (torch.from_numpy(codes).to(self.device),
+                torch.tensor([code_len], device=self.device), cbucket)
+
+    def _decode_sampled(self, gen, spk, emovec, text, text_lens, text_len,
+                        bucket, timers):
+        """Sampling / greedy decode with the JAX `fuse_pipeline` path's code
+        bucket estimate and its one full-bucket retry when the estimate was
+        hit, then the device-side silence trim.  Returns (codes (1, cbucket),
+        code_len (1,), cbucket)."""
+        e = self.cfg.engine
         codes_b = tuple(e.code_buckets)
         full_cbucket = post.pick_bucket(gen.max_mel_tokens, codes_b)
         if e.auto_code_bucket:
@@ -506,35 +603,59 @@ class TTSEngine:
             cbucket = post.pick_bucket(min(est, gen.max_mel_tokens), codes_b)
         else:
             cbucket = full_cbucket
-        pbuckets = tuple(b for b in e.prompt_frame_buckets
-                         if b < self.prompt_mel_frames) + (self.prompt_mel_frames,)
-        pbucket = post.pick_bucket(spk["mel_frames"], pbuckets)
         gen_state = self.generator.get_state()
         while True:
-            # --- AR decode (a retry replays the same random stream)
-            t0 = time.perf_counter()
+            # a retry replays the same random stream
             self.generator.set_state(gen_state)
             max_new = min(cbucket, gen.max_mel_tokens)
             res = gpt_decode(self.gpt_rt, gen, spk["cond_latents"], emovec, text,
-                             text_lens, max_new, self.generator,
-                             self.fused_pack, self.readout_pack)
-            hit_limit = bool(res.hit_limit[0])
-            timers["decode_steps"] += int(res.lengths.max()) - 1
-            self._sync()
-            timers["gpt_gen_time"] += time.perf_counter() - t0
-            if hit_limit and cbucket < full_cbucket:
+                             text_lens, max_new, self.generator, self.fused_pack,
+                             self.readout_pack, int8_kv=e.use_int8_kv)
+            timers["decode_steps"] += res.steps
+            if bool(res.hit_limit[0]) and cbucket < full_cbucket:
                 self._observe_code_len(bucket, [cbucket], [True], cbucket, gen)
                 cbucket = full_cbucket
                 continue
             break
         code_len0 = torch.clamp(res.lengths - (~res.hit_limit).long(), min=1)
         codes, code_len = post.remove_long_silence_torch(
-            res.codes, code_len0, cfg.gpt.stop_mel_token, e.silent_token)
+            res.codes, code_len0, self.cfg.gpt.stop_mel_token, e.silent_token)
         if cbucket < codes.shape[1]:
             codes = codes[:, :cbucket]
             code_len = torch.clamp(code_len, max=cbucket)
         elif cbucket > codes.shape[1]:
             codes = torch.nn.functional.pad(codes, (0, cbucket - codes.shape[1]))
+        return codes, code_len, cbucket
+
+    @torch.no_grad()
+    def _synthesize_segment(self, seg_tokens: List[str], spk: dict,
+                            emovec: torch.Tensor, timers: dict,
+                            generation_kwargs: dict) -> np.ndarray:
+        """decode (beam or sampling, see the two `_decode_*`) -> silence
+        trim -> latent -> s2mel -> vocoder for one segment."""
+        cfg, e, dev = self.cfg, self.cfg.engine, self.device
+        gen = self._generation_config(generation_kwargs)
+        ids = self.tokenizer.convert_tokens_to_ids(seg_tokens)
+        text_len = len(ids)
+        bucket = post.pick_bucket(text_len, e.text_buckets)
+        text = torch.zeros((1, bucket), dtype=torch.long)
+        text[0, :min(text_len, bucket)] = torch.tensor(ids[:bucket])
+        text = text.to(dev)
+        text_lens = torch.tensor([min(text_len, bucket)], device=dev)
+        pbuckets = tuple(b for b in e.prompt_frame_buckets
+                         if b < self.prompt_mel_frames) + (self.prompt_mel_frames,)
+        pbucket = post.pick_bucket(spk["mel_frames"], pbuckets)
+
+        # --- AR decode
+        t0 = time.perf_counter()
+        if gen.num_beams > 1:
+            codes, code_len, cbucket = self._decode_beam(
+                gen, spk, emovec, text, text_lens, bucket, timers)
+        else:
+            codes, code_len, cbucket = self._decode_sampled(
+                gen, spk, emovec, text, text_lens, text_len, bucket, timers)
+        self._sync()
+        timers["gpt_gen_time"] += time.perf_counter() - t0
 
         # --- teacher-forced GPT latent
         t0 = time.perf_counter()
@@ -560,9 +681,12 @@ class TTSEngine:
         wav = wav.to(torch.int16).reshape(-1).cpu().numpy()
         timers["bigvgan_time"] += time.perf_counter() - t0
         n_frames = int(target_len[0])
-        obs_codes = max(1, int(math.ceil(
-            n_frames / max(cfg.s2mel.mel_scale_factor, 1e-6))))
-        self._observe_code_len(bucket, [obs_codes], [False], cbucket, gen)
+        if gen.num_beams <= 1:
+            # the sampling path also learns from successful decodes (the
+            # JAX fused pipeline's frame-derived observation)
+            obs_codes = max(1, int(math.ceil(
+                n_frames / max(cfg.s2mel.mel_scale_factor, 1e-6))))
+            self._observe_code_len(bucket, [obs_codes], [False], cbucket, gen)
         return wav[: n_frames * cfg.mel.hop_size]
 
     def _s2mel(self, latent, codes, code_len, prompt_condition, prompt_len,

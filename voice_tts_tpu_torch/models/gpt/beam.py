@@ -1,0 +1,311 @@
+"""Beam search / beam sampling for one UnifiedVoice request
+(`voice_tts_tpu/models/gpt/beam.py`: `_process_scores`,
+`warp_candidate_space`, `_length_penalize`, `_candidates`, `_scorer_step`,
+`_finalize_pool`, `beam_decode`).
+
+The reference engine's default is `num_beams=3` (HF beam search / beam
+sampling).  Semantics, as in the JAX package:
+
+- scores are log-softmax of the logits with the repetition penalty applied
+  to them (not to raw logits as in `decode.sample_token`), then, when
+  sampling, temperature / top-k / top-p in each beam's top-nk candidate
+  space;
+- candidate scores = processed + beam score, flattened over (beam, vocab);
+  2K candidates by top-k, or by Gumbel top-k (multinomial without
+  replacement) when sampling, sorted descending;
+- stop-token candidates ranked < K enter the hypothesis pool (one top-k
+  over the union of pool and candidates), the first K others become the
+  next beams; done when the pool is full and its worst score is at least
+  the best running one (early_stopping=False); running beams fill the pool
+  when the length limit ends the search.
+
+Every top-k breaks ties by the lowest index, as `jax.lax.top_k` does (ties
+are common: at step 0 two of three beams sit at -1e9, warped-out lanes at
+float-min), and every argsort is stable, as `jnp.argsort` is.
+
+Two arms, chosen as in the JAX package:
+
+- the K3 arm (a fused pack and K <= 4): each step is one
+  `ops.fused_decode.fused_decode_step_batch` over the K beams, which read
+  their histories through a (K, Tmax) ancestor table instead of a reordered
+  cache, with an optional int8 KV cache and the folded readout;
+- the eager arm (no pack, or K > 4): `UnifiedVoice.decode_step` over a
+  cache that is physically reordered after every step.  It is the plain
+  reference of the K3 arm (`ancestor_table=False` gives the K3 step the same
+  physical reorder, for tests).
+
+Left out here: typical sampling (raises), and `beam_decode_fused_batch`
+(R requests x K beams), which waits for the batched engine.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from voice_tts_tpu.config import GenerationConfig
+from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
+                                                   apply_repetition_penalty)
+from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
+from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
+                                                  ReadoutPack,
+                                                  apply_kv_update_batch,
+                                                  apply_kv_update_q_batch,
+                                                  cache_to_time_major,
+                                                  fused_decode_step_batch,
+                                                  quantize_kv_cache_batch)
+
+NEG = -1e9
+
+# uniform(shape) -> f32 values in [1e-20, 1) for the Gumbel draw
+Uniform = Callable[[tuple], torch.Tensor]
+
+
+def topk_first(x: torch.Tensor, k: int):
+    """`jax.lax.top_k`: the k largest along the last axis, descending, the
+    lowest index first among equal values."""
+    idx = torch.argsort(x, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.log_softmax`, written as it is: x - max - log(sum(exp))."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def _process_scores(logprobs, presence, gen: GenerationConfig):
+    """Repetition penalty on the log-probs.  The JAX version's other branches
+    (typical sampling, and the warpers it applies only together with typical
+    sampling) are not ported: typical sampling raises."""
+    if gen.typical_sampling:
+        raise NotImplementedError("typical sampling is not ported")
+    return apply_repetition_penalty(logprobs, presence, gen.repetition_penalty)
+
+
+def warp_candidate_space(s: torch.Tensor, top_k: int, top_p: float, n_keep: int):
+    """Top-k / top-p warping in each row's top-nk candidate space,
+    nk = max(top_k, n_keep): (top_vals (K, nk) descending with removed lanes
+    at float-min, top_idx (K, nk) vocab ids)."""
+    vocab = s.shape[-1]
+    tk = min(top_k if top_k > 0 else vocab, vocab)
+    nk = min(max(tk, n_keep), vocab)
+    top_vals, top_idx = topk_first(s, nk)
+    fmin = torch.finfo(top_vals.dtype).min
+    rank = torch.arange(nk, device=s.device)[None, :]
+    if nk > tk:
+        # ranks past the warper's k stay selectable at float-min
+        top_vals = torch.where(rank >= tk, fmin, top_vals)
+    if top_p < 1.0:
+        e = torch.exp(top_vals - top_vals.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
+        before = torch.cumsum(probs, dim=-1) - probs
+        top_vals = torch.where((before >= top_p) & (rank != 0), fmin, top_vals)
+    return top_vals, top_idx
+
+
+def _length_penalize(sum_logprobs, length, length_penalty: float):
+    if length_penalty == 0.0:
+        return sum_logprobs
+    n = torch.clamp(torch.as_tensor(length, device=sum_logprobs.device), min=1)
+    return sum_logprobs / torch.pow(n.float(), length_penalty)
+
+
+def _candidates(logits, presence, beam_scores, uniform: Optional[Uniform],
+                gen: GenerationConfig, k: int, vocab: int):
+    """2K candidates sorted by score: (scores (2K,), beams (2K,), tokens (2K,)).
+    Greedy takes the top 2K of the flat (K * V) scores; sampling draws them
+    by Gumbel top-k over the warped candidate space with `uniform`'s values."""
+    logprobs = _log_softmax(logits.float())
+    n_keep = 2 * k
+    if not gen.do_sample or gen.typical_sampling:
+        processed = _process_scores(logprobs, presence, gen)
+        flat = (processed + beam_scores[:, None]).reshape(-1)
+        cand_scores, idx = topk_first(flat, n_keep)
+        return cand_scores, idx // vocab, idx % vocab
+    s = apply_repetition_penalty(logprobs, presence, gen.repetition_penalty)
+    if gen.temperature != 1.0:
+        s = s / gen.temperature
+    top_vals, top_idx = warp_candidate_space(s, gen.top_k, gen.top_p, n_keep)
+    nk = top_vals.shape[-1]
+    flat = (top_vals + beam_scores[:, None]).reshape(-1)
+    g = _log_softmax(flat) - torch.log(-torch.log(uniform(tuple(flat.shape))))
+    _, idx = topk_first(g, n_keep)
+    cand_scores = flat[idx]
+    order = torch.argsort(cand_scores, descending=True, stable=True)
+    idx, cand_scores = idx[order], cand_scores[order]
+    beams = idx // nk
+    return cand_scores, beams, top_idx[beams, idx % nk]
+
+
+def _scorer_step(step: int, done, pool_scores_in, pool_seqs_in, pool_lens_in,
+                 tokens_in, cand_scores, cand_beams, cand_tokens,
+                 gen: GenerationConfig, k: int, eos: int):
+    """BeamSearchScorer.process over 2K sorted candidates.  Returns (pool
+    scores, seqs, lens, next scores, beams, tokens, done)."""
+    dev = cand_scores.device
+    is_eos = cand_tokens == eos
+    ranks = torch.arange(2 * k, device=dev)
+    gen_len = step                       # tokens generated before this one
+    add = is_eos & (ranks < k) & ~done
+    hyp_scores = _length_penalize(cand_scores, gen_len + 1, gen.length_penalty)
+    cand_pool = torch.where(add, hyp_scores, torch.tensor(4 * NEG, device=dev))
+    top_scores, top_idx = topk_first(torch.cat([pool_scores_in, cand_pool]), k)
+    # old pool entries keep their seq / len; new ones take the parent beam's
+    # tokens and the current generated length
+    from_pool = top_idx < k
+    cand_sel = torch.clamp(top_idx - k, 0, 2 * k - 1)
+    pool_idx = torch.clamp(top_idx, 0, k - 1)
+    pool_seqs = torch.where(from_pool[:, None], pool_seqs_in[pool_idx],
+                            tokens_in[cand_beams[cand_sel]])
+    pool_lens = torch.where(from_pool, pool_lens_in[pool_idx],
+                            torch.full_like(pool_lens_in, gen_len))
+    # next beams: the first K non-stop candidates in order
+    sel = torch.argsort(is_eos.long() * (4 * k) + ranks, stable=True)[:k]
+    pool_full = torch.all(top_scores > NEG / 2)
+    best_running = _length_penalize(cand_scores.max(), gen_len + 1,
+                                    gen.length_penalty)
+    done = done | (pool_full & (top_scores.min() >= best_running))
+    return (top_scores, pool_seqs, pool_lens, cand_scores[sel],
+            cand_beams[sel], cand_tokens[sel], done)
+
+
+def _finalize_pool(pool_scores, pool_seqs, pool_lens, beam_scores, tokens,
+                   step: int, done, gen: GenerationConfig, k: int):
+    """Running beams enter the pool when the length limit ran out."""
+    ran_out = ~done
+    for c in range(k):
+        score = _length_penalize(beam_scores[c], step, gen.length_penalty)
+        worst = torch.argmin(pool_scores)
+        do_add = ran_out & (score > pool_scores[worst])
+        new_scores, new_seqs, new_lens = (pool_scores.clone(), pool_seqs.clone(),
+                                          pool_lens.clone())
+        new_scores[worst] = score
+        new_seqs[worst] = tokens[c]
+        new_lens[worst] = step
+        pool_scores = torch.where(do_add, new_scores, pool_scores)
+        pool_seqs = torch.where(do_add, new_seqs, pool_seqs)
+        pool_lens = torch.where(do_add, new_lens, pool_lens)
+    return pool_scores, pool_seqs, pool_lens
+
+
+def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
+                cond_latents: torch.Tensor, emo_vec: torch.Tensor,
+                text_tokens: torch.Tensor, text_lengths: torch.Tensor,
+                max_new: int, generator: Optional[torch.Generator] = None,
+                fused_pack: Optional[FusedDecodePack] = None,
+                int8_kv: bool = False,
+                readout_pack: Optional[ReadoutPack] = None,
+                uniform: Optional[Uniform] = None,
+                ancestor_table: bool = True) -> DecodeResult:
+    """Beam search / sampling for one request (1 x K beams).
+
+    Returns the best hypothesis as a (1, max_new) DecodeResult (`lengths`
+    counts the codes plus the stop token when one ended the hypothesis;
+    `steps` the decode steps after the prefill).  With `fused_pack` and
+    K <= 4 every step runs K3 over the K beams, reading history through the
+    ancestor table (`int8_kv`: an int8 cache with per-(beam, position)
+    scales); otherwise the eager step with a physical cache reorder.
+    `uniform` replaces the Gumbel draw's uniforms (default: `generator`)."""
+    cfg = model.cfg
+    k = gen.num_beams
+    b, bl = text_tokens.shape
+    if b != 1:
+        raise ValueError("beam decode drives one request")
+    dev = text_tokens.device
+    use_fused = fused_pack is not None and k <= 4
+    int8_kv = int8_kv and use_fused
+    p = n_cond_latents(cfg) + 2 + bl + 2
+    t_max = p + 1 + max_new
+    if use_fused:
+        t_max += (-t_max) % BLOCK_T
+    vocab = cfg.number_mel_codes
+    eos = cfg.stop_mel_token
+    if uniform is None:
+        def uniform(shape):
+            return torch.clamp(torch.rand(shape, generator=generator, device=dev),
+                               min=1e-20)
+    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+
+    with torch.no_grad():
+        prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),
+                                             emo_vec.to(param_dtype),
+                                             text_tokens, text_lengths)
+        valid = torch.cat([valid_p, torch.ones((1, t_max - p), dtype=torch.bool,
+                                               device=dev)], dim=1)
+        valid_k = valid.expand(k, t_max)
+        cache1 = model.gpt.init_cache(1, t_max, prompt.dtype, dev)
+        logits = model.prefill(prompt, valid_p, cache1).expand(k, vocab)
+        cache = cache1.expand(-1, -1, k, -1, -1, -1).contiguous()
+        scales = src = None
+        if use_fused:
+            cache = cache_to_time_major(cache)             # (L, 2, K, Tmax, D)
+            attn_bias = torch.where(valid_k, 0.0, -1e30).float()
+            if int8_kv:
+                cache, scales = quantize_kv_cache_batch(cache)
+            if ancestor_table:
+                # prefill wrote identical copies into every row: each row
+                # starts pointing at its own copy
+                src = torch.arange(k, dtype=torch.int32, device=dev)[:, None].repeat(1, t_max)
+
+        own = torch.arange(k, device=dev)
+        presence = torch.zeros((k, vocab), dtype=torch.bool, device=dev)
+        presence[:, 1] = True
+        presence[:, cfg.start_mel_token] = True
+        beam_scores = torch.full((k,), NEG, dtype=torch.float32, device=dev)
+        beam_scores[0] = 0.0
+        tokens = torch.zeros((k, max_new), dtype=torch.long, device=dev)
+        pool_scores = torch.full((k,), 2 * NEG, dtype=torch.float32, device=dev)
+        pool_seqs = torch.full((k, max_new), eos, dtype=torch.long, device=dev)
+        pool_lens = torch.zeros((k,), dtype=torch.long, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        step = 0
+        while True:
+            cand = _candidates(logits, presence, beam_scores, uniform, gen, k, vocab)
+            (pool_scores, pool_seqs, pool_lens, beam_scores, next_beams,
+             last_tokens, done) = _scorer_step(step, done, pool_scores, pool_seqs,
+                                               pool_lens, tokens, *cand, gen, k, eos)
+            tokens = tokens[next_beams]
+            tokens[:, step] = last_tokens
+            presence = presence[next_beams]
+            presence[own, last_tokens] = True
+            if src is not None:
+                # this step's position is each row's own; then every row
+                # inherits its parent's history (no cache movement)
+                src[:, p + step] = own.to(torch.int32)
+                src = src[next_beams]
+            elif use_fused:
+                cache = cache.index_select(2, next_beams)
+                if int8_kv:
+                    scales = scales.index_select(1, next_beams)
+            else:
+                cache = cache.index_select(2, next_beams)
+            step += 1
+            if step >= max_new or bool(done):
+                break
+            if use_fused:
+                emb = model.embed_decode_token(last_tokens, step - 1)
+                hidden, kv_new, logits_pad = fused_decode_step_batch(
+                    emb, fused_pack, cache, attn_bias, p + step, cfg.heads,
+                    kv_scales=scales, beam_src=src, readout_pack=readout_pack)
+                logits = (logits_pad[:, :vocab] if readout_pack is not None
+                          else model.readout(hidden))
+                if int8_kv:
+                    apply_kv_update_q_batch(cache, scales, kv_new, p + step)
+                else:
+                    apply_kv_update_batch(cache, kv_new, p + step)
+            else:
+                logits = model.decode_step(last_tokens, step - 1, p + step,
+                                           valid_k, cache)
+
+        pool_scores, pool_seqs, pool_lens = _finalize_pool(
+            pool_scores, pool_seqs, pool_lens, beam_scores, tokens, step, done,
+            gen, k)
+        best = torch.argmax(pool_scores)
+        gen_len = pool_lens[best]
+        hit_limit = (~done & (gen_len == step)).reshape(1)
+        lengths = torch.where(hit_limit, gen_len, gen_len + 1)
+        posn = torch.arange(max_new, device=dev)[None, :]
+        seq = torch.where(posn < gen_len, pool_seqs[best][None, :], eos)
+    return DecodeResult(seq, lengths, hit_limit, step - 1)

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from voice_tts_tpu.config import ConformerConfig
-from voice_tts_tpu_torch.models.layers import (Conv1d, LayerNorm, Linear,
+from voice_tts_tpu_torch.models.layers import (Conv1d, LayerNorm, Linear, einsum,
                                                lecun_normal_, xavier_uniform_)
 
 _SUB_CONV_STAGES = {
@@ -66,8 +66,8 @@ class RelPositionAttention(nn.Module):
         k = self.linear_k(x).reshape(b, t, h, dk)
         v = self.linear_v(x).reshape(b, t, h, dk)
         p = self.linear_pos(pos_emb).reshape(1, -1, h, dk)
-        ac = torch.einsum("bihd,bjhd->bhij", q + self.pos_bias_u, k)
-        bd = torch.einsum("bihd,pjhd->bhij", q + self.pos_bias_v, p)
+        ac = einsum("bihd,bjhd->bhij", q + self.pos_bias_u, k)
+        bd = einsum("bihd,pjhd->bhij", q + self.pos_bias_v, p)
         scores = (ac + bd) / math.sqrt(dk)
         if mask is not None:
             scores = torch.where(mask[:, None, :, :], scores,
@@ -76,7 +76,7 @@ class RelPositionAttention(nn.Module):
             probs = torch.where(mask[:, None, :, :], probs, 0.0)
         else:
             probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhij,bjhd->bihd", probs, v)
+        out = einsum("bhij,bjhd->bihd", probs, v)
         return self.linear_out(out.reshape(b, t, self.dim))
 
 
@@ -180,7 +180,9 @@ class ConformerEncoder(nn.Module):
         pe = torch.from_numpy(sinusoid_position_encoding(max(tp, 1),
                                                          cfg.output_size)).to(h.device)
         h = h * math.sqrt(cfg.output_size)
-        pos_emb = pe[:, :tp].to(h.dtype)
+        # the table stays f32, as in the JAX module: under bf16 weights the
+        # position projection, and from it the attention, computes in f32
+        pos_emb = pe[:, :tp]
         pad_mask = mask[:, 0, :].to(h.dtype)
         for i in range(cfg.num_blocks):
             h = getattr(self, f"layer_{i}")(h, pos_emb, mask, pad_mask)

@@ -8,9 +8,12 @@ with top-p computed inside the descending top-k candidates (no full-vocab
 sort).  The repetition-penalty presence mask starts with {1, start_mel}
 (HF sees the fake prompt ids and the start token).  With a fused pack
 (batch 1) every step is one `ops.fused_decode.fused_decode_step` — the K1
-kernel chain on a CUDA tensor — with the folded int8 readout.
+kernel chain on a CUDA tensor — with the folded int8 readout and, with
+`int8_kv`, an int8 cache with one scale per (layer, position, k|v) row.
+Beam search is `models/gpt/beam.py`.
 
-Left out here: speculative decode, beam search, int8 KV, batched decode.
+Left out here: speculative decode, batched decode, int8 KV on the unfused
+path.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ from voice_tts_tpu.config import GenerationConfig
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
                                                   ReadoutPack, apply_kv_update,
+                                                  apply_kv_update_q,
                                                   cache_to_time_major,
-                                                  fused_decode_step)
+                                                  fused_decode_step,
+                                                  quantize_kv_cache)
 
 
 class DecodeResult(NamedTuple):
     codes: torch.Tensor      # (B, max_new) generated codes (stop-padded)
     lengths: torch.Tensor    # (B,) codes per row including the stop token
     hit_limit: torch.Tensor  # (B,) True if stopped by max length
+    steps: int               # decode steps after the prefill
 
 
 def apply_repetition_penalty(logits, presence, penalty: float):
@@ -68,15 +74,18 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
            text_tokens: torch.Tensor, text_lengths: torch.Tensor,
            max_new: int, generator: Optional[torch.Generator] = None,
            fused_pack: Optional[FusedDecodePack] = None,
-           readout_pack: Optional[ReadoutPack] = None) -> DecodeResult:
+           readout_pack: Optional[ReadoutPack] = None,
+           int8_kv: bool = False) -> DecodeResult:
     """Greedy / sampling AR decode; text_tokens (B, bucket_len) right-padded.
 
     Compute dtype follows the model's parameters (the int8 / bf16 runtime
-    copy decodes with a bf16 cache); logits and sampling stay f32."""
+    copy decodes with a bf16 cache); logits and sampling stay f32.  `int8_kv`
+    quantizes the fused step's cache after the prefill (fused path only)."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     dev = text_tokens.device
     use_fused = fused_pack is not None and b == 1
+    int8_kv = int8_kv and use_fused
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new
     if use_fused:
@@ -105,21 +114,27 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
         finished = token == cfg.stop_mel_token
         lengths = torch.ones((b,), dtype=torch.long, device=dev)
 
+        scales = None
         if use_fused:
             attn_bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
             cache = cache_to_time_major(cache)
+            if int8_kv:
+                cache, scales = quantize_kv_cache(cache)
         step = 1
         while step < max_new and not bool(finished.all()):
             if use_fused:
                 emb = model.embed_decode_token(token, step - 1)
                 hidden, kv_new, logits_pad = fused_decode_step(
                     emb, fused_pack, cache, attn_bias, p + step, cfg.heads,
-                    readout_pack=readout_pack)
+                    readout_pack=readout_pack, kv_scales=scales)
                 if readout_pack is not None:
                     logits = logits_pad[:, :vocab]
                 else:
                     logits = model.readout(hidden)
-                apply_kv_update(cache, kv_new, p + step)
+                if int8_kv:
+                    apply_kv_update_q(cache, scales, kv_new, p + step)
+                else:
+                    apply_kv_update(cache, kv_new, p + step)
             else:
                 logits = model.decode_step(token, step - 1, p + step, valid, cache)
             token = sample_token(logits, presence, gen, generator)
@@ -129,4 +144,4 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
             lengths = torch.where(finished, lengths, step + 1)
             finished = finished | (token == cfg.stop_mel_token)
             step += 1
-    return DecodeResult(codes, lengths, ~finished)
+    return DecodeResult(codes, lengths, ~finished, step - 1)

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu_torch.models.layers import Linear, normal_
+from voice_tts_tpu_torch.models.layers import Linear, einsum, normal_
 
 
 class PerceiverRMSNorm(nn.Module):
@@ -48,12 +48,12 @@ class PerceiverAttention(nn.Module):
         def split(t):
             return t.reshape(b, -1, self.heads, self.dim_head).transpose(1, 2)
         q, k, v = split(q), split(k), split(v)
-        scores = torch.einsum("bhid,bhjd->bhij", q, k) * (self.dim_head ** -0.5)
+        scores = einsum("bhid,bhjd->bhij", q, k) * (self.dim_head ** -0.5)
         if mask is not None:
             neg = torch.finfo(scores.dtype).max
             scores = torch.where(mask[:, None, None, :], scores, -neg)
         probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhij,bhjd->bhid", probs, v)
+        out = einsum("bhij,bhjd->bhid", probs, v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -93,7 +93,9 @@ class PerceiverResampler(nn.Module):
         b = x.shape[0]
         if self.proj_context is not None:
             x = self.proj_context(x)
-        latents = self.latents[None].expand(b, -1, -1).to(x.dtype)
+        # the latents keep the parameter dtype and promote on contact, as
+        # in the JAX module (torch.cat promotes like jnp.concatenate)
+        latents = self.latents[None].expand(b, -1, -1)
         for i in range(self.depth):
             context = torch.cat([latents, x], dim=-2)
             latents = getattr(self, f"attn_{i}")(latents, context, mask) + latents

@@ -67,6 +67,13 @@ def promote(x: torch.Tensor, *ts: torch.Tensor) -> torch.dtype:
     return dt
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum`: operands of mixed dtypes promote to the common one (a
+    bf16 activation against an f32 one computes in f32)."""
+    dt = promote(*ops)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
+
+
 class Conv1d(nn.Module):
     """torch.nn.Conv1d-equivalent; computes in the weight dtype."""
 

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels under `csrc/`.
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface and loaded with `ctypes` (no PyTorch
-headers: a build takes seconds, not minutes).  The library lands in a build
+The sources are compiled at first use with `nvcc` for `sm_90a`, one
+process per source in parallel, into one shared library with a plain C
+interface and loaded with `ctypes` (no PyTorch headers: a build takes
+seconds, not minutes).  The library lands in a build
 directory keyed by the hash of the sources, so an edited source rebuilds and
 an unchanged one is reused within a checkout.  Nothing here runs at import
 time; a build or load failure raises.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,8 +33,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "vtt_int8_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
-    "vtt_decode_attend": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vtt_decode_attend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _P, _P, _I, _P],
 }
 
 
@@ -74,7 +77,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into a shared library; returns its path.
 
-    Reuses an existing library built from identical sources."""
+    One `nvcc` per source, all started together, then one link.  Reuses an
+    existing library built from identical sources.  `verbose` prints a
+    one-line summary of `ptxas -v` (registers, spills)."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
@@ -83,18 +88,40 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"] + (["-Xptxas", "-v"] if verbose else [])
+    work = BUILD_DIR / f"{out.stem}.tmp{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+        with open(log, "w") as f:
+            jobs.append((src, obj, log, subprocess.Popen(
+                [nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT)))
+    report = []
+    for src, _, log, proc in jobs:
+        proc.wait()
+        text = log.read_text()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{text}")
+        report.append(text)
+    tmp = work / out.name
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                          + [str(obj) for _, obj, _, _ in jobs],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        text = "".join(report)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
+        print(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, {spills} bytes of "
+              f"spill stores in all")
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 

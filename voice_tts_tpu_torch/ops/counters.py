@@ -2,15 +2,17 @@
 
 Each kernel wrapper adds one to its entry each time it launches its kernel,
 and nowhere else, so a run can show that the main path went through the
-kernels.  `fused_decode_step` counts one per decode step (a step is a chain
-of launches, see `ops/fused_decode.py`).
+kernels.  `fused_decode_step` (K1) and `fused_decode_step_batch` (K3)
+count one per decode step (a step is a chain of launches, see
+`ops/fused_decode.py`).
 """
 
 from __future__ import annotations
 
 import collections
 
-KERNELS = ("fused_decode_step", "int8_gemv", "aa_snake_activation")
+KERNELS = ("fused_decode_step", "fused_decode_step_batch", "int8_gemv",
+           "aa_snake_activation")
 
 LAUNCHES: collections.Counter = collections.Counter({k: 0 for k in KERNELS})
 

@@ -1,17 +1,24 @@
-"""Batch-1 decode step of the int8 GPT-2 trunk with the folded readout, K1.
+"""Decode steps of the int8 GPT-2 trunk with the folded readout: K1 (one
+row) and K3 (B rows, with the beam ancestor table).
 
 Port of `voice_tts_tpu/ops/fused_decode.py` (`pack_gpt`, `pack_readout`,
-`cache_to_time_major`, `fused_decode_step` with `readout_pack`,
-`apply_kv_update`), float-KV branch.
+`cache_to_time_major`, the int8-KV helpers, `fused_decode_step` and
+`fused_decode_step_batch` with `readout_pack`, `kv_scales` and `beam_src`,
+the `apply_kv_update*` writers), int8-weight branches.
 
-One step, per layer: LN1 -> QKV -> attention over the live [0, pos) cache
-prefix plus the current token -> projection + residual -> LN2 -> fc ->
-GELU-tanh -> fc2 + residual; then final LN + int8 mel_head -> logits.
+One step, per layer and row: LN1 -> QKV -> attention over the row's live
+[0, pos_b) cache prefix plus the current token -> projection + residual ->
+LN2 -> fc -> GELU-tanh -> fc2 + residual; then final LN + int8 mel_head ->
+logits.  With an ancestor table, row b reads position t of its history from
+cache row `src[b, t]`; with an int8 cache, each cached row is dequantized
+with the scale of the row it is read from.
 
-- `fused_decode_step_plain`: PyTorch ops mirroring the Pallas kernel's
-  numerics (CPU; the reference on the card);
+- `fused_decode_step_batch_plain`: PyTorch ops mirroring the Pallas
+  kernels' numerics (CPU; the reference on the card); K1's plain version is
+  this at B = 1;
 - `csrc/fused_decode.cu`: hand-written kernels, launched as a host-sequenced
-  chain (5 launches per layer + 1 readout) by `fused_decode_step_cuda`.
+  chain (5 launches per layer + 1 readout) by `_decode_chain_cuda`; K1 is
+  the chain at B = 1.
 
 Pack layout.  The JAX pack holds (L, 12, D, D) int8 tiles in (in, out)
 order.  The port stores every tile transposed, (out, in): tiles 0-2 then
@@ -23,11 +30,14 @@ scales, 12-23 biases (fc2 bias once, in row 23), 24-27 LN1/LN2 weight and
 bias.  The readout stores the int8 mel_head as (12 * VT, D) rows (the
 transposed JAX (12, D, VT) tiles, concatenated) with scale and bias as the
 two rows of a (2, 12 * VT) f32 table.
+
+The cache writers update the cache IN PLACE (the JAX versions return
+updated copies) and return it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -37,7 +47,10 @@ from voice_tts_tpu_torch.ops.counters import LAUNCHES
 BLOCK_T = 256          # cache length granularity (Tmax % BLOCK_T == 0)
 TILES_PER_LAYER = 12   # 3 (qkv) + 1 (proj) + 4 (fc) + 4 (fc2)
 RO_TILES = 12          # readout column tiles
+MAX_ROWS, MAX_ROWS_TABLE = 8, 12   # K3 rows without / with an ancestor table
 _EPI_NONE, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
+
+Pos = Union[int, torch.Tensor]
 
 
 class FusedDecodePack(NamedTuple):
@@ -123,13 +136,74 @@ def cache_to_time_major(kv_cache: torch.Tensor) -> torch.Tensor:
     return kv_cache.permute(0, 1, 2, 5, 3, 4).reshape(l, two, b, t, h * hd).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# int8 KV: one symmetric scale per (layer, k|v, row, position)
+# ---------------------------------------------------------------------------
+
+def _quantize_rows(x: torch.Tensor):
+    """x (..., D) float -> (int8 rows, scales (...) f32): scale max|row| / 127
+    floored at 1e-12, round half to even, clip to +-127.  `* (1 / 127)` as
+    XLA compiles the JAX `/ 127.0`; the division by the scale is a true one."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 127.0), min=1e-12)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_kv_cache(tm_cache: torch.Tensor):
+    """(L, 2, 1, T, D) float -> (int8 cache, scales (L, T, 2) f32)."""
+    q, s = _quantize_rows(tm_cache)                  # s (L, 2, 1, T)
+    return q, s[:, :, 0, :].permute(0, 2, 1).contiguous()
+
+
+def quantize_kv_rows(kv_new: torch.Tensor):
+    """(L, 2, D) f32 new-token rows -> (int8 rows, scales (L, 2) f32)."""
+    return _quantize_rows(kv_new)
+
+
+def quantize_kv_cache_batch(tm_cache: torch.Tensor):
+    """(L, 2, B, T, D) float -> (int8 cache, scales (L, B, T, 2) f32)."""
+    q, s = _quantize_rows(tm_cache)                  # s (L, 2, B, T)
+    return q, s.permute(0, 2, 3, 1).contiguous()
+
+
 def apply_kv_update(kv_cache: torch.Tensor, kv_new: torch.Tensor,
                     pos: int) -> torch.Tensor:
-    """Write kv_new (L, 2, D) into the time-major cache at `pos`, IN PLACE
-    (the JAX version returns an updated copy).  Returns the cache."""
+    """Write kv_new (L, 2, D) into the time-major cache at `pos`."""
     kv_cache[:, :, 0, pos, :] = kv_new.to(kv_cache.dtype)
     return kv_cache
 
+
+def apply_kv_update_q(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
+                      kv_new: torch.Tensor, pos: int):
+    """Quantize kv_new (L, 2, D) f32 and write row + scale at `pos` into the
+    int8 cache / (L, Tmax, 2) scale table.  Returns (cache, scales)."""
+    q, s = quantize_kv_rows(kv_new)
+    kv_cache[:, :, 0, pos, :] = q
+    kv_scales[:, pos, :] = s
+    return kv_cache, kv_scales
+
+
+def apply_kv_update_batch(kv_cache: torch.Tensor, kv_new: torch.Tensor,
+                          pos: int) -> torch.Tensor:
+    """Write kv_new (L, 2, B, D) into the batched cache at the shared `pos`."""
+    kv_cache[:, :, :, pos, :] = kv_new.to(kv_cache.dtype)
+    return kv_cache
+
+
+def apply_kv_update_q_batch(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
+                            kv_new: torch.Tensor, pos: int):
+    """Quantize kv_new (L, 2, B, D) f32 and write rows + scales at the shared
+    `pos` into the int8 cache / (L, B, Tmax, 2) scale table."""
+    q, s = _quantize_rows(kv_new)                    # s (L, 2, B)
+    kv_cache[:, :, :, pos, :] = q
+    kv_scales[:, :, pos, :] = s.permute(0, 2, 1)
+    return kv_cache, kv_scales
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
 
 def _ln(x, w, b, eps=1e-5):
     mean = x.mean(dim=-1, keepdim=True)
@@ -138,36 +212,63 @@ def _ln(x, w, b, eps=1e-5):
 
 
 def _dot(src, w_t, scale, bias):
-    """bf16(src) (1, K) @ int8 (F, K)^T, f32 accumulation, * scale + bias."""
+    """bf16(src) (B, K) @ int8 (F, K)^T, f32 accumulation, * scale + bias."""
     y = src.to(torch.bfloat16).float() @ w_t.float().t()
     return y * scale + bias
 
 
-def fused_decode_step_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
-                            heads: int, readout_pack: Optional[ReadoutPack] = None):
-    """Plain PyTorch version; see `fused_decode_step`."""
-    n_layers, _, _, _, d = kv_cache.shape
+def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
+    """The per-row live prefix lengths as a (B,) int64 tensor."""
+    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
+        return pos.reshape(b).to(device=device, dtype=torch.int64)
+    return torch.full((b,), int(pos), dtype=torch.int64, device=device)
+
+
+def fused_decode_step_batch_plain(x, pack: FusedDecodePack, kv_cache, bias,
+                                  pos: Pos, heads: int,
+                                  kv_scales: Optional[torch.Tensor] = None,
+                                  beam_src: Optional[torch.Tensor] = None,
+                                  readout_pack: Optional[ReadoutPack] = None):
+    """Plain PyTorch version; see `fused_decode_step_batch`."""
+    n_layers, _, b, _, d = kv_cache.shape
     hd = d // heads
+    dev = x.device
+    int8_kv = kv_scales is not None
+    pos_b = _pos_rows(pos, b, dev)
+    p_max = int(pos_b.max())
+    t_idx = torch.arange(p_max, device=dev)[None, :]           # (1, P)
+    rows = (beam_src[:, :p_max].long() if beam_src is not None
+            else torch.arange(b, device=dev)[:, None].expand(b, p_max))
+    # positions past a row's own prefix take no weight (an idle pos-0 row
+    # attends to its current token only)
+    mask = torch.where(t_idx < pos_b[:, None], bias[:, :p_max].float(),
+                       torch.tensor(float("-inf"), device=dev))
     w_all, c_all = pack.w, pack.consts
-    xs = x.float().reshape(1, d)
-    kv_new = torch.empty((n_layers, 2, d), dtype=kv_cache.dtype, device=x.device)
+    xs = x.float().reshape(b, d)
+    kv_new = torch.empty((n_layers, 2, b, d), device=dev,
+                         dtype=torch.float32 if int8_kv else kv_cache.dtype)
+
+    def cached(layer, kv):      # (B, P, H, hd) f32, each row via its ancestor
+        c = kv_cache[layer, kv][rows, t_idx].float()
+        if int8_kv:
+            c = c * kv_scales[layer][rows, t_idx, kv][..., None]
+        return c.reshape(b, p_max, heads, hd)
+
     for layer in range(n_layers):
         w, c = w_all[layer], c_all[layer]
         h = _ln(xs, c[24], c[25])
         q = _dot(h, w[0], c[0], c[12])
         k = _dot(h, w[1], c[1], c[13])
         v = _dot(h, w[2], c[2], c[14])
-        kv_new[layer, 0] = k[0].to(kv_cache.dtype)
-        kv_new[layer, 1] = v[0].to(kv_cache.dtype)
-        qh = (q * (hd ** -0.5)).reshape(heads, hd)
-        kc = kv_cache[layer, 0, 0, :pos].float().reshape(pos, heads, hd)
-        vc = kv_cache[layer, 1, 0, :pos].float().reshape(pos, heads, hd)
-        scores = torch.einsum("hd,thd->ht", qh, kc) + bias[:pos, 0][None, :]
-        s_cur = (qh * k.reshape(heads, hd)).sum(-1, keepdim=True)
-        probs = torch.softmax(torch.cat([scores, s_cur], dim=1), dim=1)
-        ctx = (torch.einsum("ht,thd->hd", probs[:, :pos], vc)
-               + probs[:, pos:] * v.reshape(heads, hd))
-        xs = xs + _dot(ctx.reshape(1, d), w[3], c[3], c[15])
+        kv_new[layer, 0] = k.to(kv_new.dtype)
+        kv_new[layer, 1] = v.to(kv_new.dtype)
+        qh = (q * (hd ** -0.5)).reshape(b, heads, hd)
+        scores = torch.einsum("bhd,bthd->bht", qh, cached(layer, 0)) + mask[:, None, :]
+        s_cur = (qh * k.reshape(b, heads, hd)).sum(-1, keepdim=True)
+        probs = torch.softmax(torch.cat([scores, s_cur], dim=-1), dim=-1)
+        ctx = (torch.einsum("bht,bthd->bhd", probs[..., :p_max], cached(layer, 1))
+               + probs[..., p_max:] * v.reshape(b, heads, hd))
+        xs = xs + _dot(ctx.reshape(b, d), w[3], c[3], c[15])
         h = _ln(xs, c[26], c[27])
         hs = [torch.nn.functional.gelu(_dot(h, w[t], c[t], c[t + 12]),
                                        approximate="tanh") for t in range(4, 8)]
@@ -184,121 +285,209 @@ def fused_decode_step_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
     return xs, kv_new, logits
 
 
-def _check_cuda_inputs(x, pack, kv_cache, bias, heads, readout_pack):
-    """Raise unless the CUDA chain can take these tensors."""
+def fused_decode_step_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
+                            heads: int, readout_pack: Optional[ReadoutPack] = None,
+                            kv_scales: Optional[torch.Tensor] = None):
+    """Plain PyTorch version; see `fused_decode_step` (K3's at B = 1)."""
+    n_layers, _, _, t_max, d = kv_cache.shape
+    scales = None if kv_scales is None else kv_scales.reshape(n_layers, 1, t_max, 2)
+    y, kv_new, logits = fused_decode_step_batch_plain(
+        x, pack, kv_cache, bias.reshape(1, t_max), pos, heads,
+        kv_scales=scales, readout_pack=readout_pack)
+    return y, kv_new[:, :, 0], logits
+
+
+# ---------------------------------------------------------------------------
+# the CUDA chain
+# ---------------------------------------------------------------------------
+
+def _check(name, t, dev, dtype, shape, align16=False):
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, x on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align16 and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _decode_chain_cuda(kernel: str, x, pack: FusedDecodePack, kv_cache, bias,
+                       pos: Pos, heads: int, kv_scales, beam_src, readout_pack):
+    """Run the CUDA kernel chain over B rows; `kernel` names the counter.
+    x (B, D); kv_cache (L, 2, B, Tmax, D) bf16 | int8; bias (B, Tmax) f32;
+    kv_scales (L, B, Tmax, 2) f32 or None; beam_src (B, Tmax) int32 or None;
+    pos an int or a (B,) int32 tensor on the device."""
     n_layers, two, b, t_max, d = kv_cache.shape
     dev = x.device
-    if b != 1 or two != 2 or d % heads or x.numel() != d:
-        raise ValueError(f"fused_decode_step: x {tuple(x.shape)} / cache "
+    int8_kv = kv_scales is not None
+    if two != 2 or d % heads or x.shape != (b, d):
+        raise ValueError(f"{kernel}: x {tuple(x.shape)} / cache "
                          f"{tuple(kv_cache.shape)} / heads {heads}")
     hd = d // heads
     if t_max % BLOCK_T or d % 16 or hd % 8 or 32 % (hd // 8):
-        raise ValueError("fused_decode_step: needs Tmax % 256 == 0, D % 16 == 0 "
-                         "and a head width hd with hd % 8 == 0 dividing 256")
-    if kv_cache.dtype != torch.bfloat16:
-        raise TypeError("fused_decode_step: the CUDA kernel reads a bf16 cache")
-    checks = [("pack.w", pack.w, torch.int8, (n_layers, 12, d, d)),
-              ("pack.consts", pack.consts, torch.float32, (n_layers, 28, d)),
-              ("bias", bias, torch.float32, (t_max, 1)),
-              ("kv_cache", kv_cache, torch.bfloat16, None)]
+        raise ValueError(f"{kernel}: needs Tmax % 256 == 0, D % 16 == 0 and a "
+                         "head width hd with hd % 8 == 0 dividing 256")
+    cache_dtype = torch.int8 if int8_kv else torch.bfloat16
+    _check(f"{kernel}: x", x, dev, torch.float32, None)
+    _check(f"{kernel}: kv_cache", kv_cache, dev, cache_dtype, None, align16=True)
+    _check(f"{kernel}: pack.w", pack.w, dev, torch.int8, (n_layers, 12, d, d), True)
+    _check(f"{kernel}: pack.consts", pack.consts, dev, torch.float32, (n_layers, 28, d))
+    _check(f"{kernel}: bias", bias, dev, torch.float32, (b, t_max))
+    if int8_kv:
+        _check(f"{kernel}: kv_scales", kv_scales, dev, torch.float32,
+               (n_layers, b, t_max, 2))
+    if beam_src is not None:
+        _check(f"{kernel}: beam_src", beam_src, dev, torch.int32, (b, t_max))
     if readout_pack is not None:
         v_pad = readout_pack.w.shape[0]
-        checks += [("readout.w", readout_pack.w, torch.int8, (v_pad, d)),
-                   ("readout.consts", readout_pack.consts, torch.float32, (2, v_pad)),
-                   ("readout.lnf", readout_pack.lnf, torch.float32, (2, d))]
-    for name, t, dtype, shape in checks:
-        if t.device != dev:
-            raise ValueError(f"fused_decode_step: {name} on {t.device}, x on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"fused_decode_step: {name} must be {dtype}, got {t.dtype}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"fused_decode_step: {name} must be {shape}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_decode_step: {name} must be contiguous")
-    if any(t.data_ptr() % 16 for t in
-           [pack.w, kv_cache] + ([readout_pack.w] if readout_pack is not None else [])):
-        raise ValueError("fused_decode_step: weight packs and cache must be "
-                         "16-byte aligned")
-
-
-def fused_decode_step_cuda(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
-                           heads: int, readout_pack: Optional[ReadoutPack] = None):
-    """The CUDA kernel chain; see `fused_decode_step`."""
-    _check_cuda_inputs(x, pack, kv_cache, bias, heads, readout_pack)
-    n_layers, _, _, t_max, d = kv_cache.shape
-    if not 0 <= pos < t_max:
-        raise ValueError(f"fused_decode_step: pos {pos} outside [0, {t_max})")
+        _check(f"{kernel}: readout.w", readout_pack.w, dev, torch.int8, (v_pad, d), True)
+        _check(f"{kernel}: readout.consts", readout_pack.consts, dev,
+               torch.float32, (2, v_pad))
+        _check(f"{kernel}: readout.lnf", readout_pack.lnf, dev, torch.float32, (2, d))
+    pos_rows = None
+    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
+        _check(f"{kernel}: pos", pos, dev, torch.int32, (b,))
+        pos_rows, pos = pos, 0
+    elif not 0 <= int(pos) < t_max:
+        raise ValueError(f"{kernel}: pos {int(pos)} outside [0, {t_max})")
     lib = build.kernels()
     call = lib.call
-    stream = build.stream_handle(x.device)
-    dev = x.device
-    xs = x.float().reshape(d).clone()
-    qkv = torch.empty(3 * d, dtype=torch.float32, device=dev)
-    ctx = torch.empty(d, dtype=torch.float32, device=dev)
-    hid = torch.empty(4 * d, dtype=torch.float32, device=dev)
-    kv_new = torch.empty((n_layers, 2, d), dtype=kv_cache.dtype, device=dev)
+    stream = build.stream_handle(dev)
+    xs = x.clone()
+    qkv = torch.empty((b, 3 * d), dtype=torch.float32, device=dev)
+    ctx = torch.empty((b, d), dtype=torch.float32, device=dev)
+    hid = torch.empty((b, 4 * d), dtype=torch.float32, device=dev)
+    kv_new = torch.empty((n_layers, 2, b, d), device=dev,
+                         dtype=torch.float32 if int8_kv else kv_cache.dtype)
     # byte addresses from the base pointers (no per-layer tensor views: the
     # chain is 5 launches a layer and its host cost sets the step time)
-    row = d * 4                     # bytes per f32 row of consts
-    tile = d * d                    # bytes per int8 tile
-    cache_rows = t_max * d * 2      # bytes per (layer, k|v) bf16 cache plane
-    q_scale = float((d // heads) ** -0.5)
+    row = d * 4                              # bytes per f32 row of consts
+    tile = d * d                             # bytes per int8 tile
+    plane = b * t_max * d * kv_cache.element_size()   # one (layer, k|v) plane
+    kv_layer = 2 * b * d * kv_new.element_size()
+    q_scale = float(hd ** -0.5)
     xp, qkvp, ctxp, hidp = xs.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), hid.data_ptr()
     w_base, c_base = pack.w.data_ptr(), pack.consts.data_ptr()
     cache_base, kv_base = kv_cache.data_ptr(), kv_new.data_ptr()
+    scale_base = kv_scales.data_ptr() if int8_kv else None
+    src_p = beam_src.data_ptr() if beam_src is not None else None
+    pos_p = pos_rows.data_ptr() if pos_rows is not None else None
     bias_p = bias.data_ptr()
-    LAUNCHES["fused_decode_step"] += 1
+    LAUNCHES[kernel] += 1
     for layer in range(n_layers):
         w0 = w_base + layer * TILES_PER_LAYER * tile
         c0 = c_base + layer * 28 * row
-        cache_k = cache_base + 2 * layer * cache_rows
+        cache_k = cache_base + 2 * layer * plane
+        scales = (scale_base + layer * b * t_max * 2 * 4) if int8_kv else None
         # LN1 -> qkv (tiles 0-2, scales rows 0-2, biases rows 12-14)
         call("vtt_dq_gemv", xp, c0 + 24 * row, c0 + 25 * row, w0, 1, d,
-             c0, c0 + 12 * row, None, qkvp, 3 * d, _EPI_NONE, stream)
-        call("vtt_decode_attend", qkvp, cache_k, cache_k + cache_rows, bias_p,
-             pos, d, heads, q_scale, ctxp, kv_base + layer * 2 * d * 2, stream)
+             c0, c0 + 12 * row, None, qkvp, 3 * d, b, _EPI_NONE, stream)
+        call("vtt_decode_attend", qkvp, cache_k, cache_k + plane, scales, bias_p,
+             src_p, pos_p, pos, b, t_max, d, heads, q_scale, ctxp,
+             kv_base + layer * kv_layer, int(int8_kv), stream)
         # x += proj(ctx)   (tile 3, scale row 3, bias row 15)
         call("vtt_dq_gemv", ctxp, None, None, w0 + 3 * tile, 1, d,
-             c0 + 3 * row, c0 + 15 * row, xp, xp, d, _EPI_RESIDUAL, stream)
+             c0 + 3 * row, c0 + 15 * row, xp, xp, d, b, _EPI_RESIDUAL, stream)
         # LN2 -> fc -> GELU   (tiles 4-7, scales rows 4-7, biases rows 16-19)
         call("vtt_dq_gemv", xp, c0 + 26 * row, c0 + 27 * row, w0 + 4 * tile,
-             1, d, c0 + 4 * row, c0 + 16 * row, None, hidp, 4 * d, _EPI_GELU,
-             stream)
+             1, d, c0 + 4 * row, c0 + 16 * row, None, hidp, 4 * d, b,
+             _EPI_GELU, stream)
         # x += fc2(h)   (tiles 8-11 = 4 contraction tiles, scale row 8,
         # the bias once from row 23)
         call("vtt_dq_gemv", hidp, None, None, w0 + 8 * tile, 4, d,
-             c0 + 8 * row, c0 + 23 * row, xp, xp, d, _EPI_RESIDUAL, stream)
+             c0 + 8 * row, c0 + 23 * row, xp, xp, d, b, _EPI_RESIDUAL, stream)
     if readout_pack is None:
-        return xs.reshape(1, d), kv_new, None
+        return xs, kv_new, None
     v_pad = readout_pack.w.shape[0]
-    logits = torch.empty(v_pad, dtype=torch.float32, device=dev)
+    logits = torch.empty((b, v_pad), dtype=torch.float32, device=dev)
     lnf = readout_pack.lnf
     call("vtt_dq_gemv", xp, lnf[0].data_ptr(), lnf[1].data_ptr(),
          readout_pack.w.data_ptr(), 1, d, readout_pack.consts[0].data_ptr(),
-         readout_pack.consts[1].data_ptr(), None, logits.data_ptr(), v_pad,
+         readout_pack.consts[1].data_ptr(), None, logits.data_ptr(), v_pad, b,
          _EPI_NONE, stream)
-    return xs.reshape(1, d), kv_new, logits.reshape(1, v_pad)
+    return xs, kv_new, logits
+
+
+def fused_decode_step_cuda(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
+                           heads: int, readout_pack: Optional[ReadoutPack] = None,
+                           kv_scales: Optional[torch.Tensor] = None):
+    """The CUDA kernel chain at B = 1; see `fused_decode_step`."""
+    n_layers, _, b, t_max, d = kv_cache.shape
+    if b != 1 or x.numel() != d:
+        raise ValueError(f"fused_decode_step: x {tuple(x.shape)} / cache "
+                         f"{tuple(kv_cache.shape)}: one row")
+    if bias.shape != (t_max, 1):
+        raise ValueError(f"fused_decode_step: bias must be {(t_max, 1)}, "
+                         f"got {tuple(bias.shape)}")
+    scales = None if kv_scales is None else kv_scales.reshape(n_layers, 1, t_max, 2)
+    y, kv_new, logits = _decode_chain_cuda(
+        "fused_decode_step", x.float().reshape(1, d), pack, kv_cache,
+        bias.reshape(1, t_max), int(pos), heads, scales, None, readout_pack)
+    return y, kv_new[:, :, 0], logits
 
 
 def fused_decode_step(x: torch.Tensor, pack: FusedDecodePack,
                       kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
-                      heads: int, readout_pack: Optional[ReadoutPack] = None):
-    """One decode step of the whole trunk plus the folded readout.
+                      heads: int, readout_pack: Optional[ReadoutPack] = None,
+                      kv_scales: Optional[torch.Tensor] = None):
+    """One decode step of the whole trunk plus the folded readout, K1.
 
     x (1, D) token embedding; kv_cache TIME-MAJOR (L, 2, 1, Tmax, D)
-    (`cache_to_time_major`), Tmax % 256 == 0; bias (Tmax, 1) f32 additive
-    mask (-1e30 on invalid prompt pads); pos — index of the current token
-    (positions [0, pos) are live history).  Returns (hidden (1, D) f32
-    pre-ln_f, kv_new (L, 2, D) in the cache dtype, logits (1, 12 * VT) f32,
-    or None without a readout pack); the caller writes kv_new at `pos`
-    (`apply_kv_update`) and slices the logits to the vocab.  CPU tensors take the plain version; CUDA tensors
-    launch the kernels (errors raise, there is no fallback).
+    (`cache_to_time_major`), Tmax % 256 == 0, bf16 or, with `kv_scales`
+    (L, Tmax, 2) f32, int8 (`quantize_kv_cache`); bias (Tmax, 1) f32
+    additive mask (-1e30 on invalid prompt pads); pos — index of the current
+    token (positions [0, pos) are live history).  Returns (hidden (1, D) f32
+    pre-ln_f, kv_new (L, 2, D) in the cache dtype — f32 with an int8 cache —,
+    logits (1, 12 * VT) f32, or None without a readout pack); the caller
+    writes kv_new at `pos` (`apply_kv_update`, `apply_kv_update_q`) and
+    slices the logits to the vocab.  CPU tensors take the plain version;
+    CUDA tensors launch the kernels (errors raise, there is no fallback).
     """
     if x.is_cuda:
         return fused_decode_step_cuda(x, pack, kv_cache, bias, int(pos), heads,
-                                      readout_pack)
+                                      readout_pack, kv_scales)
     if x.device.type != "cpu":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
     return fused_decode_step_plain(x, pack, kv_cache, bias, int(pos), heads,
-                                   readout_pack)
+                                   readout_pack, kv_scales)
+
+
+def fused_decode_step_batch(x: torch.Tensor, pack: FusedDecodePack,
+                            kv_cache: torch.Tensor, bias: torch.Tensor,
+                            pos: Pos, heads: int,
+                            kv_scales: Optional[torch.Tensor] = None,
+                            beam_src: Optional[torch.Tensor] = None,
+                            readout_pack: Optional[ReadoutPack] = None):
+    """One decode step of the trunk for B rows plus the folded readout, K3.
+
+    x (B, D) token embeddings, B <= 8 (<= 12 with an ancestor table);
+    kv_cache TIME-MAJOR (L, 2, B, Tmax, D), bf16 or, with `kv_scales`
+    (L, B, Tmax, 2) f32, int8 (`quantize_kv_cache_batch`); bias (B, Tmax)
+    f32 additive per-row prompt-pad mask; pos an int shared by all rows or
+    a (B,) int tensor of per-row live prefix lengths (0 marks an idle slot:
+    its outputs are finite and meaningless); beam_src (B, Tmax) int32
+    ancestor table or None: row b reads position t from cache row
+    `beam_src[b, t]` (dequantized with that row's scale).  Returns (hidden
+    (B, D) f32, kv_new (L, 2, B, D) in the cache dtype — f32 with an int8
+    cache —, logits (B, 12 * VT) f32 or None); write kv_new with
+    `apply_kv_update_batch` / `apply_kv_update_q_batch`.  CPU tensors take
+    the plain version; CUDA tensors launch the kernels (errors raise).
+    """
+    b = kv_cache.shape[2]
+    cap = MAX_ROWS_TABLE if beam_src is not None else MAX_ROWS
+    if not 1 <= b <= cap:
+        raise ValueError(f"fused_decode_step_batch: 1 <= B <= {cap}, got {b}")
+    if x.is_cuda:
+        if isinstance(pos, torch.Tensor) and pos.numel() > 1:
+            pos = pos.to(device=x.device, dtype=torch.int32).contiguous()
+        src = None if beam_src is None else beam_src.to(torch.int32).contiguous()
+        return _decode_chain_cuda("fused_decode_step_batch", x.float().contiguous(),
+                                  pack, kv_cache, bias, pos, heads, kv_scales,
+                                  src, readout_pack)
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_decode_step_batch: unsupported device {x.device}")
+    return fused_decode_step_batch_plain(x, pack, kv_cache, bias, pos, heads,
+                                         kv_scales, beam_src, readout_pack)

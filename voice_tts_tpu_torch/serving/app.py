@@ -7,12 +7,16 @@ violation, 500 inference failure, 504 timeout).  One engine replica on one
 device serves requests one at a time: each runs `engine.infer` in a
 single-thread executor behind a lock.
 
-The engine serves the bench decode configuration (`bench_config`: sampling,
-num_beams = 1, int8 fused decode with the folded readout), not the
-production beam-3 profile, whose batched beam decode kernel is not ported
-yet; `/debug/worker-info` reports the served flags.
+The flagship engine serves the production profile by default, as the JAX
+server does (`serving_config`: beam search with 3 beams through K3 with the
+ancestor table, int8 KV, folded readout, bf16 conditioning); `--profile
+bench` serves the bench decode configuration (`bench_config`: sampling,
+num_beams = 1 through K1).  `--tiny` takes the tiny config whatever the
+profile.  `/debug/worker-info` reports the profile, `num_beams` and the
+served flags.
 
     python -m voice_tts_tpu_torch.serving.app --port 8020            # flagship
+    python -m voice_tts_tpu_torch.serving.app --profile bench        # bench
     python -m voice_tts_tpu_torch.serving.app --tiny --device cpu    # demo
 """
 
@@ -33,16 +37,18 @@ from voice_tts_tpu_torch.serving.http import HttpServer, Request, Response
 from voice_tts_tpu_torch.serving.schemas import (TTSRequest, TTSResponse,
                                                  ValidationError)
 
-# the engine flags that select the port's code paths (it always runs the
-# JAX engine's `fuse_pipeline` order, eagerly)
+# the engine flags that select the port's code paths
 _SERVED_FLAGS = ("use_fp16", "use_int8_decode", "use_fused_decode",
-                 "fold_readout", "use_int8_kv")
+                 "use_fused_beam_decode", "fold_readout", "use_int8_kv",
+                 "use_bf16_conditioning", "release_master_trees")
+PROFILES = ("serving", "bench")
 
 
 class TTSService:
-    def __init__(self, engine=None):
+    def __init__(self, engine=None, profile: Optional[str] = None):
         self.server = HttpServer()
         self.engine = engine
+        self.profile = profile
         self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._lock = asyncio.Lock()
         self._register_routes()
@@ -85,8 +91,7 @@ class TTSService:
                     "engine_flags": {k: getattr(e.cfg.engine, k)
                                      for k in _SERVED_FLAGS},
                     "num_beams": e.cfg.generation.num_beams,
-                    "profile": "num_beams=1 decode; the production beam-3 "
-                               "profile is not ported yet",
+                    "profile": self.profile,
                 }],
             })
 
@@ -197,23 +202,31 @@ class BackgroundServer:
                 raise TimeoutError("HTTP server thread did not stop")
 
 
-def build_engine(tiny: bool, device: str, seed: int = 0):
-    """The served engine: random weights at the flagship widths in the bench
-    configuration, or the tiny configuration for demos."""
-    from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
+def build_engine(tiny: bool, device: str, seed: int = 0, profile: str = "serving"):
+    """The served engine: random weights at the flagship widths in the
+    production profile (`serving`, the default) or the bench configuration
+    (`bench`), or the tiny configuration for demos."""
+    from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config,
+                                                   serving_config)
 
+    if profile not in PROFILES:
+        raise ValueError(f"unknown profile {profile!r} (expected one of {PROFILES})")
     if tiny:
         return TTSEngine.tiny(device=device, seed=seed)
-    return TTSEngine.random(bench_config(), device=device, seed=seed)
+    cfg = serving_config() if profile == "serving" else bench_config()
+    return TTSEngine.random(cfg, device=device, seed=seed)
 
 
 async def amain(args):
     import signal
 
-    service = TTSService(build_engine(args.tiny, args.device))
+    profile = "tiny" if args.tiny else args.profile
+    service = TTSService(build_engine(args.tiny, args.device, profile=args.profile),
+                         profile)
     cfg = service.engine.cfg
-    logger.info("serving on %s:%d (%s, flags %s)", args.host, args.port,
-                service.engine.device,
+    logger.info("serving on %s:%d (%s, profile %s, num_beams %d, flags %s)",
+                args.host, args.port, service.engine.device, profile,
+                cfg.generation.num_beams,
                 {k: getattr(cfg.engine, k) for k in _SERVED_FLAGS})
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -231,17 +244,24 @@ async def amain(args):
             task.result()
 
 
-def main():
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="voice-tts-tpu API server (PyTorch port)")
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8020)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--tiny", action="store_true",
                         help="tiny random-weight engine (demo / testing)")
+    parser.add_argument("--profile", type=str, default="serving", choices=PROFILES,
+                        help="'serving' (default): the production profile, "
+                             "beam-3 with int8 KV; 'bench': sampling, one beam")
     parser.add_argument("--log-level", type=str, default="info",
                         choices=["critical", "error", "warning", "info",
                                  "debug", "trace"])
-    args = parser.parse_args()
+    return parser.parse_args(argv)
+
+
+def main():
+    args = parse_args()
     logger.set_level(args.log_level)
     asyncio.run(amain(args))
 
