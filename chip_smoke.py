@@ -12,27 +12,43 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    nvcc per source, in parallel);
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the flagship shapes of the paths, with the tolerance printed, both timed
-   with CUDA events: K2, K4, K1 (bf16 cache; int8 KV at pos 300 and 1500),
-   K3 (beam-3 through an ancestor table with int8 KV and with a bf16 cache,
-   pos 1500; eight rows at their own positions, one of them 0);
+   with CUDA events, beside its bound (the bytes it must move over 3.35
+   TB/s, or its operations over the peak rate, whichever is larger): K2, K4,
+   K1 (bf16 cache; int8 KV at pos 300 and 1500), K3 (beam-3 through an
+   ancestor table with int8 KV and with a bf16 cache, pos 1500; eight rows
+   at their own positions, one of them 0), K7 (the int4 loader alone at the
+   four GEMVs of a layer, beside `torch._weight_int4pack_mm`; the int4 K1
+   chain at g128 and g640, pos 300; the int4 K3 chain at beam-3 through a
+   table), K6 (the verify of K = 4 tokens at pos 300 and 1500);
 4. tiny engines: the tiny engine on the card against the same weights on
-   the CPU, greedy, same CFM noise: one beam (K1), and the production flags
-   (beam-3 through K3, int8 KV, bf16 conditioning);
+   the CPU, greedy, same CFM noise: one beam (K1), the production flags
+   (beam-3 through K3, int8 KV, bf16 conditioning), spec decode with
+   K = 4 (int4 drafts through K1 and K7, the verify through K6), and the
+   int4 decode pack (K1 with K7);
 5. production slice: the flagship engine (random weights) in the serving
    profile, the server default, behind the HTTP server in a background
    thread: GET /health, GET /debug/worker-info, three POST /tts, then one
    request under the CUDA profiler; the launch counters must show K3 once
    per beam decode step, K1 never, K2 109 times per vocode;
 6. bench slice: the same with `--profile bench` (sampling, one beam): K1
-   once per decode step, K3 never, K2 109 times per vocode.
+   once per decode step, K3 never, K2 109 times per vocode;
+7. spec slice: the bench configuration with `spec_decode_k = 4` (int4
+   drafts, one int8 verify a round), three POST /tts and one profiled: K6
+   once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
+   K2 109 times per vocode; prints the acceptance rate, the codes per round
+   and the stage times beside the bench slice's.
 
 The third-to-last stdout line repeats the card's name and power limit; the
 second-to-last is the kernel JSON: under "kernels" the kernels of the
 served paths, each with its launch count from the path that runs it (K3 and
-K2 from the production slice, K1 from the bench slice; `launches_by_path`
-has both), its largest error against the plain version and both times;
-under "off_path" K4, which neither flagship slice reaches.  The last line
-is `{"ok": true, "device": {...}}`.
+K2 from the production slice, K1 from the bench slice, K6 and K7 from the
+spec slice; `launches_by_path` has all three), its largest error against
+the plain version, both times, its bound and `library_ms` (null where no
+one PyTorch call computes the function: K1, K2, K3, K6; K7's is
+`torch._weight_int4pack_mm` at the loader's GEMVs); under "off_path" K4,
+which no flagship slice reaches, with the time of
+`torch._weight_int8pack_mm` as its `library_ms` where the build has it.
+The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -86,8 +102,98 @@ def cuda_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def library_time_ms(torch, fn, iters: int):
+    """CUDA-event time of one PyTorch library call that computes the same
+    function as a kernel (a yardstick only: the port never calls it), or
+    None where this PyTorch build has no CUDA implementation of it."""
+    try:
+        return cuda_time_ms(torch, fn, iters)
+    except (NotImplementedError, RuntimeError) as e:
+        print(f"library call unavailable: {str(e).splitlines()[0][:200]}")
+        return None
+
+
 def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+# H100 SXM data sheet: device memory rate and dense peak rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, n_ops: float, op_type: str = "bf16") -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the peak rate for their type, the larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S[op_type]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def pack_bytes(pack) -> int:
+    """Bytes of a trunk pack that one step reads: the weight tiles, an int4
+    pack's group scales, and of the (L, 28, D) f32 consts only the rows the
+    chain reads: the biases 12-19 and 23, LN1/LN2 24-27, and beside int8
+    tiles their dequant scales 0-8 (fc2's one scale is row 8).  Rows 9-11
+    and 20-22 repeat fc2's scale or hold zeros, and an int4 pack's rows 0-11
+    are zeros, kept for the JAX row layout."""
+    n_layers, _, d = pack.consts.shape
+    gscales = getattr(pack, "gscales", None)
+    rows_read = 13 if gscales is not None else 22
+    return (nbytes(pack.w, gscales)
+            + n_layers * rows_read * d * pack.consts.element_size())
+
+
+def readout_bytes(ro, nrows: int) -> int:
+    """Bytes of the folded readout for the VOCAB real columns (the padded
+    columns up to 12 tiles carry no logit): their int8 rows, scale and bias,
+    the final LN, and nrows f32 logits written."""
+    d = ro.w.shape[1]
+    return VOCAB * (d + 8) + nbytes(ro.lnf) + nrows * VOCAB * 4
+
+
+def decode_step_bound(torch, pack, ro, cache, scales, bias, pos, src=None,
+                      rows=None, verify=False):
+    """Bound of one decode step (K1, K3, K6, int8 or int4 pack): the pack's
+    bytes a step reads (`pack_bytes`) and the readout's once, the cached k|v
+    rows the step reads (one sequence's prefix for the verify; each row's
+    own prefix, or through an ancestor table the distinct (cache row,
+    position) pairs it names), their int8 scales, the bias and table entries
+    read, the inputs and outputs; operations 2 per weight's multiply-add per
+    row plus attention."""
+    n_layers, _, cb, _, d = cache.shape
+    nrows = rows if rows is not None else cb
+    pos_b = [int(p) for p in (pos.tolist() if isinstance(pos, torch.Tensor)
+                              else [pos] * (1 if verify else cb))]
+    if verify:
+        cached = pos_b[0]
+    elif src is not None:
+        p = pos_b[0]
+        head = src[:, :p].sort(dim=0).values
+        cached = int(((head[1:] != head[:-1]).sum(dim=0) + 1).sum()) if p else 0
+    else:
+        cached = sum(pos_b)
+    # one cached k or v row: D values, plus its f32 scale beside an int8 cache
+    per_row = cache.element_size() * d + (4 if scales is not None else 0)
+    kv_out = 4 if scales is not None else cache.element_size()
+    n_bytes = (pack_bytes(pack) + (readout_bytes(ro, nrows) if ro is not None else 0)
+               + n_layers * 2 * cached * per_row
+               + 4 * (pos_b[0] if verify else sum(pos_b))        # bias
+               + (4 * sum(pos_b) if src is not None else 0)      # table
+               + nrows * d * 4 * 2                               # x, hidden
+               + n_layers * 2 * nrows * d * kv_out)              # kv_new
+    macs = n_layers * 12 * d * d + (VOCAB * d if ro is not None else 0)
+    # q.k and p.v: 4 operations per value of each attended position
+    attended = (nrows * pos_b[0] + nrows * (nrows + 1) // 2 if verify
+                else sum(pos_b) + nrows)
+    return bound(n_bytes, 2 * nrows * macs + 4 * n_layers * d * attended)
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +285,18 @@ def check_k1(torch, dev, results):
         worst = max(worst, compare_step(torch, tag, out, run(fd.fused_decode_step_plain)))
         ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step), 20)
         plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_plain), 3)
-        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        b = decode_step_bound(torch, pack, ro, cache, scales, bias, pos)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         cases.append({"kv": "int8" if int8_kv else "bf16", "pos": pos,
-                      "t_max": t_max, "ms": ms, "plain_ms": plain_ms})
+                      "t_max": t_max, "ms": ms, "plain_ms": plain_ms, **b})
     results.append({
         "name": "fused_decode_step", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:555",
         "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "bound_ms": cases[0]["bound_ms"], "bound_by": cases[0]["bound_by"],
+        "library_ms": None,
         "ms_of": "one bf16-KV decode step at pos 300, Tmax 512", "cases": cases})
 
 
@@ -231,16 +341,256 @@ def check_k3(torch, dev, results):
                                         run(fd.fused_decode_step_batch_plain)))
         ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_batch), 20)
         plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_batch_plain), 3)
-        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+        bnd = decode_step_bound(torch, pack, ro, cache, scales, bias, pos, src=src)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         cases.append({"case": name, "rows": b, "kv": "int8" if int8_kv else "bf16",
-                      "table": table, "ms": ms, "plain_ms": plain_ms})
+                      "table": table, "ms": ms, "plain_ms": plain_ms, **bnd})
     results.append({
         "name": "fused_decode_step_batch", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:1098",
         "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "bound_ms": cases[0]["bound_ms"], "bound_by": cases[0]["bound_by"],
+        "library_ms": None,
         "ms_of": "one beam-3 step through the table, int8 KV, pos 1500, Tmax 1792",
         "cases": cases})
+
+
+def random_trunk_int4(torch, dev, seed: int, group: int):
+    """A random int4 pack at the flagship widths (L 24, D 1280) with scale
+    groups of `group` contraction rows, scaled like `pack_gpt_int4` of a
+    GPT-2 trunk, and the int8 readout of `random_trunk`."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack8, ro, g = random_trunk(torch, dev, seed)
+    L, _, _, D = pack8.w.shape
+    w = torch.randint(-128, 128, (L, 12, D, D // 2), generator=g, device=dev,
+                      dtype=torch.int8)              # every byte: two nibbles
+    gs = 0.02 * 3 / 7 * (1 + 0.1 * torch.randn(L, 12, D, D // group, generator=g,
+                                                device=dev)).abs()
+    consts = pack8.consts.clone()
+    consts[:, 0:12] = 0.0                          # unused by the int4 pack
+    return fd.FusedDecodePackInt4(w, consts, gs), ro, g
+
+
+# one int4 GEMV alone: f32 sums of <= 5120 terms in another order (lanes,
+# then a warp reduction) against the plain version's, with no bf16 rounding
+# between them
+GEMV4_TOL = 1e-4
+# the library product rounds the group scales and its output to bf16 (8
+# significant bits each)
+GEMV4_LIB_TOL = 1e-2
+
+
+def int4_library_call(torch, w, gs, gsz: int):
+    """`torch._weight_int4pack_mm` on the nibbles of w (n_kt, F, D/2) and the
+    scales gs (n_kt, F, G), as a function of a bf16 row block: the library's
+    unsigned nibbles u = q + 8 with its zero at 0 dequantize to q * scale (its
+    scales in bf16).  None where this PyTorch build has no CUDA version."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    qs = [torch.cat(fd._unpack_int4(w[kt]), dim=1) for kt in range(w.shape[0])]
+    u = (torch.cat(qs, dim=1) + 8).to(torch.int32)                # (F, K)
+    scale = torch.cat(list(gs), dim=1).t()                        # (K/gsz, F)
+    sz = torch.stack([scale, torch.zeros_like(scale)], -1).to(torch.bfloat16)
+    try:
+        try:                                  # (F, K/2) bytes, PyTorch >= 2.5
+            packed = torch._convert_weight_to_int4pack(
+                ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+        except RuntimeError:                  # (F, K) int32, earlier builds
+            packed = torch._convert_weight_to_int4pack(u, 8)
+    except (NotImplementedError, RuntimeError, AttributeError) as e:
+        print(f"library call unavailable: {str(e).splitlines()[0][:200]}")
+        return None
+    sz = sz.contiguous()
+    return lambda xb: torch._weight_int4pack_mm(xb, packed, gsz, sz)
+
+
+def int4_gemv_cases(torch, dev, pack):
+    """The K7 loader alone at the four int4 GEMVs of one layer of the int4
+    K1 chain (B = 1; qkv 1280 -> 3840, proj 1280 -> 1280, fc 1280 -> 5120,
+    fc2 5120 -> 1280 as four contraction tiles) with a zero bias, each
+    against its plain version (`_dot4` a contraction tile, GEMV4_TOL), with
+    its bound and the time of `torch._weight_int4pack_mm` on the same
+    nibbles and scales (checked against the plain version, GEMV4_LIB_TOL)."""
+    from voice_tts_tpu_torch.ops import build
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    lib, stream = build.kernels(), build.stream_handle(dev)
+    _, _, d, half = pack.w.shape
+    n_groups = pack.gscales.shape[-1]
+    gsz = d // n_groups
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases = []
+    for name, t0, n_tiles, n_kt in (("qkv", 0, 3, 1), ("proj", 3, 1, 1),
+                                    ("fc", 4, 4, 1), ("fc2", 8, 4, 4)):
+        f, k = (d, n_kt * d) if n_kt > 1 else (n_tiles * d, d)
+        w = pack.w[0, t0:t0 + n_tiles].reshape(n_kt, f, half)
+        gs = pack.gscales[0, t0:t0 + n_tiles].reshape(n_kt, f, n_groups)
+        x = torch.randn(1, k, generator=g, device=dev) * 0.5
+        bias = torch.zeros(f, device=dev)
+        out = torch.empty(1, f, device=dev)
+
+        def kernel():
+            lib.call("vtt_dq_gemv", x.data_ptr(), None, None, w.data_ptr(), n_kt,
+                     d, gs.data_ptr(), gsz, bias.data_ptr(), None, out.data_ptr(),
+                     f, 1, fd._EPI_NONE, stream)
+            return out
+
+        def plain():
+            y = bias
+            for kt in range(n_kt):
+                y = y + fd._dot4(x[:, kt * d:(kt + 1) * d], w[kt], gs[kt], 0.0)
+            return y
+        y = kernel().clone()
+        torch.cuda.synchronize()
+        ref = plain()
+        tag = f"K7 int4 GEMV {name} 1x{k}->{f} g{gsz}"
+        err, scale = max_err(torch, y, ref), float(ref.abs().max())
+        print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol "
+              f"{GEMV4_TOL} * max|ref|)")
+        if not err <= GEMV4_TOL * scale:
+            fail(f"{tag} disagrees with the plain version")
+        ms = cuda_time_ms(torch, kernel, 50)
+        plain_ms = cuda_time_ms(torch, plain, 20)
+        lib_ms = lib_err = None
+        lib_fn = int4_library_call(torch, w, gs, gsz)
+        if lib_fn is not None:
+            xb = x.to(torch.bfloat16)
+            lib_err = max_err(torch, lib_fn(xb), ref)
+            print(f"{tag} torch._weight_int4pack_mm: max_abs_err {lib_err:.4g} "
+                  f"(tol {GEMV4_LIB_TOL} * max|ref|)")
+            if lib_err <= GEMV4_LIB_TOL * scale:
+                lib_ms = library_time_ms(torch, lambda: lib_fn(xb), 50)
+            else:
+                print(f"{tag}: the library call computes another function here; "
+                      f"no library time")
+        # the nibbles and their scales read once, x and the bias read, the
+        # f32 output written; 2 K F operations
+        bnd = bound(nbytes(w, gs, x, bias, out), 2 * k * f)
+        print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms")
+        cases.append({"gemv": name, "k": k, "f": f, "group": gsz, "ms": ms,
+                      "plain_ms": plain_ms, "max_abs_err": err, "library_ms": lib_ms,
+                      "library_max_abs_err": lib_err, **bnd})
+    return cases
+
+
+def check_k7(torch, dev, results):
+    """K7, the int4 weight loader: alone at the four GEMVs of a layer of the
+    int4 K1 chain (the entry's headline times, beside the library's int4
+    product); then the int4 K1 chain (B = 1, bf16 cache, folded int8
+    readout) at pos 300 / Tmax 512 with g128 and g640 scale groups, and the
+    int4 K3 chain at B = 3 through an ancestor table with int8 KV at pos
+    1500 / Tmax 1792."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    H, cases, gemvs, worst = 20, [], [], 0.0
+    for name, group, b, t_max, pos in (("K1 g128", 128, 1, 512, 300),
+                                       ("K1 g640", 640, 1, 512, 300),
+                                       ("K3 g128", 128, 3, 1792, 1500)):
+        pack, ro, g = random_trunk_int4(torch, dev, 7, group)
+        L, _, D, _ = pack.w.shape
+        if not gemvs and group == 128:
+            gemvs = int4_gemv_cases(torch, dev, pack)
+        cache = torch.randn(L, 2, b, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.zeros((b, t_max), device=dev)
+        bias[:, 70:82] = -1e30                   # invalid prompt pads
+        x = torch.randn(b, D, generator=g, device=dev) * 0.5
+        scales = src = None
+        if b > 1:
+            cache, scales = fd.quantize_kv_cache_batch(cache)
+            src = torch.randint(0, b, (b, t_max), generator=g, device=dev,
+                                dtype=torch.int32)
+            kernel, plain = fd.fused_decode_step_batch, fd.fused_decode_step_batch_plain
+
+            def run(fn):
+                return fn(x, pack, cache, bias, pos, H, scales, src, ro)
+        else:
+            kernel, plain = fd.fused_decode_step, fd.fused_decode_step_plain
+            bias = bias.reshape(t_max, 1)
+
+            def run(fn):
+                return fn(x, pack, cache, bias, pos, H, ro)
+        out = run(kernel)
+        torch.cuda.synchronize()
+        tag = f"K7 int4 {name} B={b} pos={pos} Tmax={t_max}"
+        worst = max(worst, compare_step(torch, tag, out, run(plain)))
+        ms = cuda_time_ms(torch, lambda: run(kernel), 20)
+        plain_ms = cuda_time_ms(torch, lambda: run(plain), 3)
+        bnd = decode_step_bound(torch, pack, ro, cache, scales, bias, pos, src=src,
+                                rows=b)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        cases.append({"case": name, "group": group, "rows": b, "pos": pos,
+                      "t_max": t_max, "ms": ms, "plain_ms": plain_ms, **bnd})
+    layer = bound(sum(c["bound_bytes"] for c in gemvs),
+                  sum(c["bound_ops"] for c in gemvs))
+    lib_times = [c["library_ms"] for c in gemvs]
+    results.append({
+        "name": "fused_decode_int4", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "voice_tts_tpu/ops/fused_decode.py:137",
+        "max_abs_err": max([worst] + [c["max_abs_err"] for c in gemvs]),
+        "ms": sum(c["ms"] for c in gemvs),
+        "plain_ms": sum(c["plain_ms"] for c in gemvs),
+        "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
+        "library_ms": None if None in lib_times else sum(lib_times),
+        "library_call": "torch._weight_int4pack_mm",
+        "ms_of": "the int4 loader alone at the four GEMVs of one layer of the "
+                 "int4 (g128) K1 chain, summed; launches count int4 chains, "
+                 "96 loader launches each; the chains' times under cases",
+        "gemvs": gemvs, "cases": cases})
+
+
+def check_k6(torch, dev, results):
+    """K6, the speculative verify: K = 4 tokens of one sequence through the
+    int8 trunk, bf16 cache, at pos 300 / Tmax 512 and pos 1500 / Tmax 1792
+    (hidden rows and the bf16 kv rows against the plain version)."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack, _, g = random_trunk(torch, dev, 8)
+    L, _, _, D = pack.w.shape
+    H, K = 20, 4
+    cases, worst = [], 0.0
+    for t_max, pos in ((512, 300), (1792, 1500)):
+        cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.zeros((t_max, 1), device=dev)
+        bias[70:82] = -1e30
+        x = torch.randn(K, D, generator=g, device=dev) * 0.5
+
+        def run(fn):
+            return fn(x, pack, cache, bias, pos, H)
+        out = run(fd.fused_decode_verify)
+        torch.cuda.synchronize()
+        ref = run(fd.fused_decode_verify_plain)
+        tag = f"K6 verify K={K} pos={pos} Tmax={t_max}"
+        if not all(bool(torch.isfinite(v).all()) for v in out):
+            fail(f"{tag}: non-finite output")
+        for name, a, r in (("hidden", out[0], ref[0]), ("kv_new", out[1], ref[1])):
+            err, scale = max_err(torch, a, r), float(r.float().abs().max())
+            print(f"{tag} {name}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, "
+                  f"tol {DECODE_TOL} * max|ref|)")
+            if not err <= DECODE_TOL * scale:
+                fail(f"{tag} {name} disagrees with the plain version")
+            worst = max(worst, err)
+        ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify), 20)
+        plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify_plain), 3)
+        bnd = decode_step_bound(torch, pack, None, cache, None, bias, pos, rows=K,
+                                verify=True)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        cases.append({"k": K, "pos": pos, "t_max": t_max, "ms": ms,
+                      "plain_ms": plain_ms, **bnd})
+    results.append({
+        "name": "fused_decode_verify", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "voice_tts_tpu/ops/fused_decode.py:1322",
+        "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "bound_ms": cases[0]["bound_ms"], "bound_by": cases[0]["bound_by"],
+        "library_ms": None,
+        "ms_of": "one K = 4 verify, bf16 KV, pos 300, Tmax 512", "cases": cases})
 
 
 def check_k4(torch, dev, results):
@@ -269,14 +619,29 @@ def check_k4(torch, dev, results):
             worst = max(worst, err)
             ms = cuda_time_ms(torch, lambda: im.int8_gemv(x, w, s), 50)
             plain_ms = cuda_time_ms(torch, lambda: im.int8_gemv_plain(x, w, s), 50)
-            print(f"K4 N={n} D={D} F={f}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-            shapes.append({"n": n, "d": D, "f": f, "ms": ms, "plain_ms": plain_ms})
+            # the library's int8 weight-only product: the same function on
+            # the same values, w as (F, D) and the scales in bf16
+            w_t, s_b = w.t().contiguous(), s.reshape(-1).to(torch.bfloat16)
+            lib_ms = library_time_ms(
+                torch, lambda: torch._weight_int8pack_mm(x, w_t, s_b), 50)
+            # x and s read, w read, the bf16 output written; 2 N D F operations
+            b = bound(nbytes(x, w, s) + n * f * 2, 2 * n * D * f)
+            print(f"K4 N={n} D={D} F={f}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+                  f"bound {b['bound_ms']:.4f} ms, library {lib_ms} ms")
+            shapes.append({"n": n, "d": D, "f": f, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, **b})
+    total = bound(sum(t["bound_bytes"] for t in shapes),
+                  sum(t["bound_ops"] for t in shapes))
+    lib_times = [t["library_ms"] for t in shapes]
     results.append({
         "name": "int8_gemv", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/int8_gemv.cu",
         "replaces": "voice_tts_tpu/ops/int8_matmul.py:44",
         "max_abs_err": worst, "ms": sum(t["ms"] for t in shapes),
         "plain_ms": sum(t["plain_ms"] for t in shapes),
+        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
+        "library_ms": None if None in lib_times else sum(lib_times),
+        "library_call": "torch._weight_int8pack_mm",
         "ms_of": "sum over the 9 (N, F) shapes", "shapes": shapes})
 
 
@@ -294,6 +659,7 @@ def check_k2(torch, dev, results):
 
     g = torch.Generator(device=dev).manual_seed(3)
     worst, vocode_ms, vocode_plain_ms = 0.0, 0.0, 0.0
+    vocode_bytes = vocode_ops = 0
     # ~5 s at 22.05 kHz: the slice's 256-code bucket -> 448 mel frames.  A
     # vocode runs 18 activations per stage (3 resblocks x 3 dilations x 2)
     # and one more at the last stage's shape; (24, 7) checks a short signal.
@@ -319,13 +685,21 @@ def check_k2(torch, dev, results):
         print(f"K2 C={c} T={t}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
         vocode_ms += count * ms
         vocode_plain_ms += count * plain_ms
+        # x read and y written in f32, alpha and beta read; per sample the
+        # 12-tap upsampling (two outputs of 6 taps, 24), the snake of the two
+        # (4 operations each) and the 12-tap downsampling (24): 56
+        vocode_bytes += count * (2 * nbytes(x) + nbytes(alpha, br))
+        vocode_ops += count * 56 * c * t
+    b = bound(vocode_bytes, vocode_ops, "f32")
     print(f"K2 per vocode (109 activations, 448 frames): {vocode_ms:.4f} ms "
-          f"kernel, {vocode_plain_ms:.4f} ms plain")
+          f"kernel, {vocode_plain_ms:.4f} ms plain, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
     results.append({
         "name": "aa_snake_activation", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/aa_snake.cu",
         "replaces": "voice_tts_tpu/ops/aa_activation.py:210",
         "max_abs_err": worst, "ms": vocode_ms, "plain_ms": vocode_plain_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
         "ms_of": "the 109 activations of one 448-frame vocode"})
 
 
@@ -440,6 +814,30 @@ def check_tiny_engine_production(torch, dev):
     _compare_wavs("tiny engine (production, beam-3)", ref, out, WAV_TOL)
 
 
+def check_tiny_engine_spec(torch, dev):
+    """The tiny engine with spec decode (K = 4: int4 drafts through K1 and
+    K7, one verify a round through K6), and with the int4 decode pack (K1
+    with K7), each on the card against the CPU, greedy, same weights and CFM
+    noise: the same decode steps (and spec rounds) and WAVs within
+    WAV_TOL."""
+    base = dict(use_int8_decode=True, use_fused_decode=True, use_fp16=True,
+                fuse_pipeline=True)
+    prompt = tone_prompt(1.0, 16000)
+    for tag, flags in (("spec_decode_k 4", dict(spec_decode_k=4)),
+                       ("use_int4_decode", dict(use_int4_decode=True,
+                                                fold_readout=True))):
+        cpu, gpu = _tiny_pair(torch, dev, **base, **flags)
+        ref = cpu.infer(prompt, "hello world.", do_sample=False)
+        out = gpu.infer(prompt, "hello world.", do_sample=False)
+        torch.cuda.synchronize()
+        _compare_wavs(f"tiny engine ({tag})", ref, out, WAV_TOL)
+        rounds = [m.get("spec_rounds") for m in (ref.metrics, out.metrics)]
+        accepted = [m.get("spec_accepted") for m in (ref.metrics, out.metrics)]
+        print(f"tiny engine ({tag}) spec rounds {rounds}, accepted drafts {accepted}")
+        if rounds[0] != rounds[1] or accepted[0] != accepted[1]:
+            fail(f"tiny engine ({tag}): the card's speculative rounds differ from the CPU's")
+
+
 def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
     import http.client
 
@@ -479,7 +877,7 @@ def serve_three(torch, engine, profile: str, counters):
     """Serve `engine` over HTTP from a background thread: GET /health, GET
     /debug/worker-info, then three POST /tts with the counters set to 0
     just before and read just after.  Returns (launches, decode steps,
-    AA activations per vocode, prompt, text)."""
+    AA activations per vocode, prompt, text, each request's metrics)."""
     import numpy as np
     from voice_tts_tpu_torch.audio import decode_audio_bytes
     from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
@@ -504,7 +902,7 @@ def serve_three(torch, engine, profile: str, counters):
         prompt_hex = tone_prompt(5.0, 22050).hex()
         text = "欢迎大家来体验这个语音合成系统谢谢大家."
         counters.reset()
-        steps = 0
+        steps, metrics = 0, []
         for i in range(3):
             t1 = time.perf_counter()
             status, body = http(port, "POST", "/tts", json.dumps(
@@ -517,6 +915,7 @@ def serve_three(torch, engine, profile: str, counters):
             if sr != 22050 or wav.size == 0 or not np.all(np.isfinite(wav)):
                 fail(f"[{profile}] POST /tts #{i}: bad WAV (sr {sr}, {wav.size} samples)")
             m = engine.last_metrics
+            metrics.append(dict(m))
             steps += m["decode_steps"]
             print(f"[{profile}] POST /tts #{i}: 200, {wav.size} samples "
                   f"({resp['audio_length']:.3f} s), rtf {resp['rtf']:.4f} (server), "
@@ -528,7 +927,7 @@ def serve_three(torch, engine, profile: str, counters):
         service.close()
     print(f"[{profile}] launches over 3 requests: {launches} (decode steps "
           f"{steps}, {n_act} AA activations per vocode)")
-    return launches, steps, n_act, bytes.fromhex(prompt_hex), text
+    return launches, steps, n_act, bytes.fromhex(prompt_hex), text, metrics
 
 
 def run_production_slice(torch, dev, counters):
@@ -543,7 +942,8 @@ def run_production_slice(torch, dev, counters):
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
-    launches, steps, n_act, prompt, text = serve_three(torch, engine, "serving", counters)
+    launches, steps, n_act, prompt, text, _ = serve_three(torch, engine, "serving",
+                                                          counters)
     if launches["fused_decode_step_batch"] != steps or steps == 0:
         fail("K3 was not launched once per beam decode step")
     if launches["fused_decode_step"] != 0:
@@ -566,13 +966,54 @@ def run_bench_slice(torch, dev, counters):
     torch.cuda.synchronize()
     print(f"[bench] engine build: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches, steps, n_act, _, _ = serve_three(torch, engine, "bench", counters)
+    launches, steps, n_act, _, _, metrics = serve_three(torch, engine, "bench",
+                                                        counters)
     if launches["fused_decode_step"] != steps or steps == 0:
         fail("K1 was not launched once per decode step")
     if launches["fused_decode_step_batch"] != 0:
         fail("K3 was launched on the one-beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
         fail("K2 was not launched on every vocoder activation")
+    return launches, metrics
+
+
+def run_spec_slice(torch, dev, counters, bench_metrics):
+    """The bench configuration with self-speculative decode, K = 4: each
+    round three int4 draft steps (K1 chains with the int4 loader, K7), one
+    int8 verify of the four tokens (K6), then the acceptance step."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
+
+    cfg = bench_config()
+    cfg.engine.spec_decode_k = 4
+    t0 = time.perf_counter()
+    engine = TTSEngine.random(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[spec] engine build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    launches, steps, n_act, prompt, text, metrics = serve_three(torch, engine, "spec",
+                                                                counters)
+    rounds = sum(m["spec_rounds"] for m in metrics)
+    accepted = sum(m["spec_accepted"] for m in metrics)
+    if rounds == 0 or launches["fused_decode_verify"] != rounds:
+        fail("K6 was not launched once per speculative round")
+    if (launches["fused_decode_int4"] != 3 * rounds
+            or launches["fused_decode_step"] != 3 * rounds):
+        fail("the int4 K1 chain (K1 with K7) was not launched three times a round")
+    if launches["fused_decode_step_batch"] != 0:
+        fail("K3 was launched on the speculative path")
+    if launches["aa_snake_activation"] != 3 * n_act:
+        fail("K2 was not launched on every vocoder activation")
+    print("[spec] " + json.dumps({
+        "rounds": rounds, "accepted_drafts": accepted,
+        "acceptance_rate": accepted / (3 * rounds),
+        "codes_per_round": steps / rounds,
+        "gpt_gen_time": [m["gpt_gen_time"] for m in metrics],
+        "rtf": [m["rtf"] for m in metrics],
+        "decode_steps": [m["decode_steps"] for m in metrics],
+        "bench_gpt_gen_time": [m["gpt_gen_time"] for m in bench_metrics],
+        "bench_rtf": [m["rtf"] for m in bench_metrics],
+        "bench_decode_steps": [m["decode_steps"] for m in bench_metrics]}))
+    profile_request(torch, engine, prompt, text)
     return launches
 
 
@@ -597,16 +1038,23 @@ def main():
     check_k4(torch, dev, results)
     check_k1(torch, dev, results)
     check_k3(torch, dev, results)
+    check_k7(torch, dev, results)
+    check_k6(torch, dev, results)
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
+    check_tiny_engine_spec(torch, dev)
     by_path = {"serving": run_production_slice(torch, dev, counters)}
     torch.cuda.empty_cache()
-    by_path["bench"] = run_bench_slice(torch, dev, counters)
+    by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
+    torch.cuda.empty_cache()
+    by_path["spec"] = run_spec_slice(torch, dev, counters, bench_metrics)
     # each kernel's launches come from the path that runs it: K3 and K2 from
-    # the production slice, K1 from the bench slice; K4 serves int8 products
-    # of <= 32 rows, the tiny engines' prefill, not the flagship slices (their
-    # prefill has 84 rows), and is reported beside the paths' kernels
-    owner = {"fused_decode_step": "bench"}
+    # the production slice, K1 from the bench slice, K6 and K7 from the spec
+    # slice; K4 serves int8 products of <= 32 rows, the tiny engines' prefill,
+    # not the flagship slices (their prefill has 84 rows), and is reported
+    # beside the paths' kernels
+    owner = {"fused_decode_step": "bench", "fused_decode_verify": "spec",
+             "fused_decode_int4": "spec"}
     on_path, off_path = [], []
     for r in results:
         r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]

@@ -8,6 +8,7 @@ arm with float and int8 KV, and the port's int8-KV K3 arm against JAX's
 fused int8-KV beam (Pallas in interpret mode)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from voice_tts_tpu.config import GenerationConfig
+from voice_tts_tpu.config import GenerationConfig as JaxGenerationConfig
+from voice_tts_tpu.config import TTSConfig as JaxTTSConfig
 from voice_tts_tpu.models.gpt import beam as jbeam
 from voice_tts_tpu.models.gpt.unified_voice import UnifiedVoice as JUV
 from voice_tts_tpu.ops.fused_decode import pack_gpt as jax_pack_gpt
 from voice_tts_tpu.ops.fused_decode import pack_readout as jax_pack_readout
 from voice_tts_tpu.utils.quantize import quantize_gpt_params
+from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.engine.engine import TTSEngine, build_models, tiny_config
 from voice_tts_tpu_torch.models.gpt import beam as pbeam
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
@@ -29,9 +32,17 @@ from voice_tts_tpu_torch.utils.convert import convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
 CFG = tiny_config()
+JAX_CFG = JaxTTSConfig.from_dict(CFG.to_dict())
 K = 3
 SAMPLE = GenerationConfig(num_beams=K)                   # reference defaults
 GREEDY = dataclasses.replace(SAMPLE, do_sample=False)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_gen(gen: GenerationConfig) -> JaxGenerationConfig:
+    """The JAX package's GenerationConfig with the same fields (one object
+    per port config, so the jitted JAX functions compile once for it)."""
+    return JaxGenerationConfig(**dataclasses.asdict(gen))
 
 
 def t(x):
@@ -64,7 +75,7 @@ def test_candidates_match_jax(gen, step0):
     presence = _presence(rng)
     key = jax.random.PRNGKey(5)
     ref = jbeam._candidates(jnp.asarray(logits), jnp.asarray(presence),
-                            jnp.asarray(beam_scores), key, gen, K, 68)
+                            jnp.asarray(beam_scores), key, jax_gen(gen), K, 68)
     nk = max(gen.top_k, 2 * K)
 
     def uniform(shape):
@@ -114,7 +125,7 @@ def test_scorer_step_matches_jax(case):
     for gen in (GREEDY, lp_gen):
         ref = jbeam._scorer_step(step, jnp.asarray(done), *map(jnp.asarray, (
             pool_scores, pool_seqs, pool_lens, tokens, cand_scores, cand_beams,
-            cand_tokens)), gen, K, eos)
+            cand_tokens)), jax_gen(gen), K, eos)
         out = pbeam._scorer_step(step, torch.tensor(done), *map(t, (
             pool_scores, pool_seqs, pool_lens, tokens, cand_scores, cand_beams,
             cand_tokens)), gen, K, eos)
@@ -132,7 +143,7 @@ def test_finalize_pool_matches_jax(done):
     tokens = rng.integers(0, 60, (K, 8)).astype(np.int32)
     ref = jbeam._finalize_pool(*map(jnp.asarray, (pool_scores, pool_seqs, pool_lens,
                                                   beam_scores, tokens)),
-                               8, jnp.asarray(done), GREEDY, K)
+                               8, jnp.asarray(done), jax_gen(GREEDY), K)
     out = pbeam._finalize_pool(*map(t, (pool_scores, pool_seqs, pool_lens,
                                         beam_scores, tokens)),
                                8, torch.tensor(done), GREEDY, K)
@@ -149,7 +160,7 @@ def gpts():
     """One tiny GPT: the JAX int8 runtime tree with its packs, and the port's
     int8 runtime module and packs converted from the same f32 weights."""
     c = CFG.gpt
-    model = JUV(c)
+    model = JUV(JAX_CFG.gpt)
     params = jax.jit(lambda k: model.init(
         k, jnp.zeros((1, 6, c.condition_module.input_size)),
         jnp.zeros((1, 6, c.emo_condition_module.input_size)),
@@ -195,7 +206,7 @@ def test_beam_decode_greedy_matches_jax_xla_arm(gpts):
     arm, `fused_pack=None`): identical codes, lengths and limit flag; the
     best hypothesis ends on a stop token before the limit."""
     model, jrt, _, _, _, _, _, inputs = gpts
-    ref = jbeam.beam_decode(jrt, model, GREEDY, *map(jnp.asarray, inputs),
+    ref = jbeam.beam_decode(jrt, model, jax_gen(GREEDY), *map(jnp.asarray, inputs),
                             jax.random.PRNGKey(0), max_new=20)
     out = _port_decode(gpts, 20)
     _same(out, ref)
@@ -220,7 +231,7 @@ def test_k3_arm_int8_kv_matches_jax_fused_beam(gpts):
     """The port's K3 arm with int8 KV and the folded readout against JAX's
     fused beam (the Pallas K3 in interpret mode) with the same: equal codes."""
     model, jrt, jpack, jro, _, pack, ro, inputs = gpts
-    ref = jbeam.beam_decode(jrt, model, GREEDY, *map(jnp.asarray, inputs),
+    ref = jbeam.beam_decode(jrt, model, jax_gen(GREEDY), *map(jnp.asarray, inputs),
                             jax.random.PRNGKey(0), max_new=12, fused_pack=jpack,
                             int8_kv=True, readout_pack=jro)
     out = _port_decode(gpts, 12, fused_pack=pack, readout_pack=ro, int8_kv=True)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from voice_tts_tpu.config import TTSConfig as JaxTTSConfig
 from voice_tts_tpu.models.conditioning.campplus import CAMPPlus as JCAMPPlus
 from voice_tts_tpu.models.conditioning.repcodec import RepCodec as JRepCodec
 from voice_tts_tpu.models.conditioning.repcodec import \
@@ -26,6 +27,7 @@ from voice_tts_tpu_torch.models.s2mel.dit import DiT
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 
 CFG = tiny_config()
+JAX_CFG = JaxTTSConfig.from_dict(CFG.to_dict())   # the same widths
 
 
 def close(out, ref, tol):
@@ -52,7 +54,7 @@ def port_with(ports, family, params):
 @pytest.fixture(scope="module")
 def gpt(ports):
     c = CFG.gpt
-    model = JUV(c)
+    model = JUV(JAX_CFG.gpt)
     params = jax.jit(lambda k: model.init(
         k, jnp.zeros((1, 6, c.condition_module.input_size)),
         jnp.zeros((1, 6, c.emo_condition_module.input_size)),
@@ -144,7 +146,7 @@ def test_gpt_latent_and_prefill_logits(gpt):
 def test_s2mel_regulator_and_cfm_solve(ports):
     c = CFG.s2mel
     d = c.dit
-    model = JS2Mel(c)
+    model = JS2Mel(JAX_CFG.s2mel)
     sem = CFG.semantic_codec.hidden_size
     params = jax.jit(model.init, static_argnums=4)(
         jax.random.PRNGKey(1), jnp.zeros((1, 6, sem)), jnp.asarray([6]),
@@ -187,7 +189,7 @@ def test_s2mel_regulator_and_cfm_solve(ports):
 
 
 def test_bigvgan(ports):
-    model = JBigVGAN(CFG.vocoder)
+    model = JBigVGAN(JAX_CFG.vocoder)
     params = jax.jit(model.init)(jax.random.PRNGKey(2),
                                  jnp.zeros((1, CFG.vocoder.num_mels, 8)))
     port = port_with(ports, "vocoder", params)
@@ -200,7 +202,7 @@ def test_bigvgan(ports):
 
 def test_w2v_bert(ports):
     c = CFG.w2v_bert
-    model = JW2V(c)
+    model = JW2V(JAX_CFG.w2v_bert)
     params = jax.jit(model.init)(jax.random.PRNGKey(3),
                                  jnp.zeros((1, 8, c.feature_projection_input_dim)))
     port = port_with(ports, "w2v", params)
@@ -214,7 +216,7 @@ def test_w2v_bert(ports):
 
 def test_repcodec_codes_exact(ports):
     c = CFG.semantic_codec
-    model = JRepCodec(c)
+    model = JRepCodec(JAX_CFG.semantic_codec)
     params = jax.jit(model.init)(jax.random.PRNGKey(4), jnp.zeros((1, 8, c.hidden_size)))
     port = port_with(ports, "repcodec", params)
     x = np.random.default_rng(5).standard_normal((1, 40, c.hidden_size)).astype(np.float32)
@@ -231,7 +233,7 @@ def test_repcodec_codes_exact(ports):
 
 def test_campplus(ports):
     c = CFG.campplus
-    model = JCAMPPlus(c)
+    model = JCAMPPlus(JAX_CFG.campplus)
     params = jax.jit(model.init)(jax.random.PRNGKey(5), jnp.zeros((1, 16, c.feat_dim)))
     port = port_with(ports, "campplus", params)
     fb = np.random.default_rng(6).standard_normal((1, 50, c.feat_dim)).astype(np.float32)

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from voice_tts_tpu.config import MelConfig
+from voice_tts_tpu_torch.config import MelConfig
 from voice_tts_tpu_torch.audio import filters
 from voice_tts_tpu_torch.audio.stft import frame_power_spectrum, frame_signal
 

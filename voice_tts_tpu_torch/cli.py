@@ -50,7 +50,7 @@ def main(argv=None) -> int:
         print(f"ERROR: voice file {args.voice} does not exist", file=sys.stderr)
         return 1
 
-    from voice_tts_tpu.text.emotion import create_emotion_vector
+    from voice_tts_tpu_torch.text.emotion import create_emotion_vector
     from voice_tts_tpu_torch.serving.app import build_engine
 
     engine = build_engine(args.tiny, args.device, profile=args.profile)

@@ -1,11 +1,14 @@
-// K1 and K3: GPT-2 decode step of the int8 trunk for B rows (B = 1 for K1,
-// up to 12 for K3), with the folded readout, a bf16 or int8 KV cache and,
-// for beam search, an ancestor table.
+// K1, K3, K6 and K7: GPT-2 decode step of the int8 or int4 trunk for B rows
+// (B = 1 for K1, up to 12 for K3, K = 2..8 tokens of one sequence for the
+// speculative verify K6), with the folded readout, a bf16 or int8 KV cache
+// and, for beam search, an ancestor table.
 //
 // Replaces: voice_tts_tpu/ops/fused_decode.py `fused_decode_step` (Pallas
-// `_kernel_merged` + `_attend`: K1, float-KV and int8-KV branches) and
+// `_kernel_merged` + `_attend`: K1, float-KV and int8-KV branches),
 // `fused_decode_step_batch` (Pallas `_kernel_batch` + `_attend_batch`: K3,
-// with `beam_src`, `kv_scales` and `readout_pack`), int8-weight branches.
+// with `beam_src`, `kv_scales` and `readout_pack`), `fused_decode_verify`
+// (Pallas `_kernel_batch` + `_attend_verify`: K6) and the int4 weight branch
+// of all three (`pack_gpt_int4` tiles dequantized in `_dot_one_tile`: K7).
 //
 // The Pallas kernels run the whole trunk in one call because TPU grid steps
 // run in order on one core and a residual can live in VMEM scratch across
@@ -18,6 +21,10 @@
 //   dq_gemv  [LN2 prologue, GELU]       x   -> h (B, 4D)
 //   dq_gemv  [residual epilogue]        h   -> x += fc2(h)   (K = 4D, 4 k-tiles)
 //   dq_gemv  [final-LN prologue]        x   -> logits (B, 12 * VT)
+//
+// K6 is the same chain over its K rows with `verify_attend` in place of
+// `attend`; an int4 pack (K7) runs `dq_gemv4` in place of `dq_gemv` for the
+// trunk's products (the readout stays int8).
 //
 // Numerics reproduced from the Pallas kernels: the activation is rounded to
 // bf16 before every product, f32 accumulation, then `* scale + bias`; the fc2
@@ -55,6 +62,31 @@
 // read by hd/8 lanes as 16-byte (bf16) or 8-byte (int8) loads through the
 // ancestor table, scores of a chunk of positions go to shared memory for an
 // online softmax, and the weighted sum of V stays in registers across chunks.
+//
+// K7, int4 weights (`dq_gemv4`).  Bound: device memory, half the int8
+// trunk: 236 MB of nibble pairs plus 14.7 MB of g128 scales a step at
+// L = 24, D = 1280, so about 0.075 ms at 3.35 TB/s.  A tile is stored (out,
+// in/2): one output column's D/2 bytes run along the contraction axis, byte
+// k holding contraction row k in its low nibble and row k + D/2 in its high
+// nibble; its group scales (G per tile, one per `gsize` contraction rows of
+// each half) sit beside it, contiguous.  The design is dq_gemv's: one warp
+// per output column streams the column's bytes once for all B rows, 4 bytes
+// a lane; each nibble is sign-extended in registers (((v & 15) ^ 8) - 8 and
+// v >> 4, the JAX kernel's unpack), and each lane keeps one f32 partial per
+// row for the low group and one for the high group, multiplied by the
+// group's scale at the group's end and added to the row's f32 sum, as the
+// JAX default scheme (`int4_expand=False`) sums its per-group products.
+//
+// K6, the verify attention (`verify_attend`).  Bound: device memory, the
+// int8 trunk once for all K rows (472 MB) plus the bf16 prefix (37 MB at
+// pos 300): about 0.15 ms at 3.35 TB/s.  One block per (head, query row j):
+// row j attends the committed prefix [0, pos) of the sequence's cache row
+// under the bias, as `attend` does, then rows i <= j of the K current
+// tokens with their unrounded f32 k/v read from `qkv` (never through the
+// cache: the JAX kernel keeps the causal tail in f32); the k/v rows written
+// for the cache are rounded to bf16.  Each of the K blocks of a head reads
+// the whole prefix: the Pallas kernel's shared slab (one block per head
+// reading each prefix row once for all K rows) is left to a later change.
 #include <type_traits>
 
 #include "common.cuh"
@@ -64,6 +96,7 @@ namespace {
 constexpr int GEMV_WARPS = 8;
 constexpr int ATT_WARPS = 8;
 constexpr int ATT_CHUNK = 256;
+constexpr int MAX_VERIFY = 8;   // K6 rows
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
@@ -94,23 +127,15 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   }
 }
 
-// out[r, f] = epi(sum_k bf16(ln(x[r]))[k] * W[f, k] * scale[f] + bias[f])
-// for rows r < nrows <= NB.  x, out, res: (nrows, K) / (nrows, F) f32;
-// W: [n_ktiles][F][ktile] int8; ln_w == nullptr -> no LN.  Dynamic shared
-// memory: nrows * K bf16 activations, then (LN only) K f32 of staging.
-template <int EPI, int NB>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-               const float* __restrict__ ln_b, const int8_t* __restrict__ w,
-               int n_ktiles, int ktile, const float* __restrict__ scale,
-               const float* __restrict__ bias, const float* res, float* out,
-               int f_total, int nrows) {
-  extern __shared__ uint4 smem4[];
-  __shared__ float scratch[32];
-  const int k_total = n_ktiles * ktile;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  float* stage = reinterpret_cast<float*>(xs + (size_t)nrows * k_total);
-
+// Stage the nrows input rows x (nrows, k_total) f32 into shared memory as
+// bf16 (xs), through the LN prologue when ln_w != nullptr (`stage` holds
+// k_total floats of staging).  The caller synchronises afterwards.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x,
+                                           const float* __restrict__ ln_w,
+                                           const float* __restrict__ ln_b,
+                                           __nv_bfloat16* xs, float* stage,
+                                           float* scratch, int k_total,
+                                           int nrows) {
   for (int r = 0; r < nrows; ++r) {
     const float* xr = x + (size_t)r * k_total;
     __nv_bfloat16* xb = xs + (size_t)r * k_total;
@@ -139,6 +164,45 @@ dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
       }
     }
   }
+}
+
+// Lane 0 of a column's warp: out[r, col] = epi(acc summed over the warp ...)
+template <int EPI, int NB>
+__device__ __forceinline__ void gemv_epilogue(const float* acc, int nrows,
+                                              int lane, int col, float scale,
+                                              float bias, const float* res,
+                                              float* out, int f_total) {
+#pragma unroll
+  for (int r = 0; r < NB; ++r) {
+    if (r < nrows) {
+      const float a = vtt::warp_sum(acc[r]);
+      if (lane == 0) {
+        float y = a * scale + bias;
+        if (EPI == EPI_GELU) y = gelu_tanh(y);
+        if (EPI == EPI_RESIDUAL) y = res[(size_t)r * f_total + col] + y;
+        out[(size_t)r * f_total + col] = y;
+      }
+    }
+  }
+}
+
+// out[r, f] = epi(sum_k bf16(ln(x[r]))[k] * W[f, k] * scale[f] + bias[f])
+// for rows r < nrows <= NB.  x, out, res: (nrows, K) / (nrows, F) f32;
+// W: [n_ktiles][F][ktile] int8; ln_w == nullptr -> no LN.  Dynamic shared
+// memory: nrows * K bf16 activations, then (LN only) K f32 of staging.
+template <int EPI, int NB>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, const int8_t* __restrict__ w,
+               int n_ktiles, int ktile, const float* __restrict__ scale,
+               const float* __restrict__ bias, const float* res, float* out,
+               int f_total, int nrows) {
+  extern __shared__ uint4 smem4[];
+  __shared__ float scratch[32];
+  const int k_total = n_ktiles * ktile;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* stage = reinterpret_cast<float*>(xs + (size_t)nrows * k_total);
+  stage_rows(x, ln_w, ln_b, xs, stage, scratch, k_total, nrows);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -167,87 +231,115 @@ dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
       }
     }
   }
+  gemv_epilogue<EPI, NB>(acc, nrows, lane, col, scale[col], bias[col], res, out,
+                         f_total);
+}
+
+// The signed low and high nibble of one packed byte, as f32.
+__device__ __forceinline__ void unpack_int4(const signed char b, float& lo, float& hi) {
+  const int v = b;
+  lo = (float)(((v & 15) ^ 8) - 8);
+  hi = (float)(v >> 4);
+}
+
+// The int4 GEMV (K7): out[r, f] = epi(sum over the groups of a tile, in
+// group order, of (sum_k bf16(ln(x[r]))[k] * nibble[f, k]) * gscale[f, g],
+// summed over the contraction tiles, + bias[f]).  W: [n_ktiles][F][ktile/2]
+// nibble pairs (byte k: contraction row k low, row k + ktile/2 high);
+// gscale: [n_ktiles][F][G], G = ktile / gsize, the low half's G/2 groups
+// first.  Shared memory as dq_gemv_kernel's.
+template <int EPI, int NB>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+dq_gemv4_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+                const float* __restrict__ ln_b, const int8_t* __restrict__ w,
+                int n_ktiles, int ktile, const float* __restrict__ gscale,
+                int gsize, const float* __restrict__ bias, const float* res,
+                float* out, int f_total, int nrows) {
+  extern __shared__ uint4 smem4[];
+  __shared__ float scratch[32];
+  const int k_total = n_ktiles * ktile;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* stage = reinterpret_cast<float*>(xs + (size_t)nrows * k_total);
+  stage_rows(x, ln_w, ln_b, xs, stage, scratch, k_total, nrows);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * GEMV_WARPS + warp;
+  if (col >= f_total) return;
+  const int half = ktile / 2;            // packed bytes of a column per tile
+  const int n_groups = ktile / gsize;
+  const int per_half = n_groups / 2;
+  float acc[NB];
 #pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nrows) {
-      const float a = vtt::warp_sum(acc[r]);
-      if (lane == 0) {
-        float y = a * scale[col] + bias[col];
-        if (EPI == EPI_GELU) y = gelu_tanh(y);
-        if (EPI == EPI_RESIDUAL) y = res[(size_t)r * f_total + col] + y;
-        out[(size_t)r * f_total + col] = y;
+  for (int r = 0; r < NB; ++r) acc[r] = 0.0f;
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    const int8_t* wcol = w + ((size_t)kt * f_total + col) * half;
+    const float* scol = gscale + ((size_t)kt * f_total + col) * n_groups;
+    const __nv_bfloat16* xk = xs + (size_t)kt * ktile;
+    for (int g = 0; g < per_half; ++g) {
+      float plo[NB], phi[NB];
+#pragma unroll
+      for (int r = 0; r < NB; ++r) plo[r] = phi[r] = 0.0f;
+      for (int c = g * gsize + lane * 4; c < (g + 1) * gsize; c += 32 * 4) {
+        const char4 q = *reinterpret_cast<const char4*>(wcol + c);
+        float lo[4], hi[4];
+        unpack_int4(q.x, lo[0], hi[0]);
+        unpack_int4(q.y, lo[1], hi[1]);
+        unpack_int4(q.z, lo[2], hi[2]);
+        unpack_int4(q.w, lo[3], hi[3]);
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          if (r < nrows) {
+            const __nv_bfloat16* xr = xk + (size_t)r * k_total;
+            float xl[4], xh[4];
+            bf16x4_to_f32(*reinterpret_cast<const uint2*>(xr + c), xl);
+            bf16x4_to_f32(*reinterpret_cast<const uint2*>(xr + half + c), xh);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              plo[r] += xl[j] * lo[j];
+              phi[r] += xh[j] * hi[j];
+            }
+          }
+        }
+      }
+      const float s_lo = scol[g], s_hi = scol[per_half + g];
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        acc[r] += plo[r] * s_lo;
+        acc[r] += phi[r] * s_hi;
       }
     }
   }
+  gemv_epilogue<EPI, NB>(acc, nrows, lane, col, 1.0f, bias[col], res, out,
+                         f_total);
 }
 
-// One block per (head, row).  Lane layout: a cache row of hd values is read
-// by lpr = hd/8 lanes, 8 values each; a warp covers 32/lpr rows at once.
-// Online softmax over the row's prefix [0, pos_b) in chunks of ATT_CHUNK
-// positions (scores in shared memory, the running weighted sum of V in
-// registers), then the current token's k/v from `qkv`, unrounded.
-// qkv: (B, 3D) f32 [q | k | v]; cache_k, cache_v: this layer's (B, Tmax, D)
-// planes; scales: this layer's (B, Tmax, 2) f32 (int8 cache only); bias:
-// (B, Tmax) f32 additive mask; src: (B, Tmax) i32 ancestor rows or null
-// (row b reads itself); pos_rows: (B,) i32 or null (every row at pos_all);
-// ctx: (B, D) f32; kv_new: (2, B, D), bf16 beside a bf16 cache, f32 beside
-// an int8 one.  A row at pos 0 attends to its current token only.
-// Needs hd % 8 == 0 and 32 % (hd / 8) == 0.
+// The online softmax of one block's query over the prefix [0, pos) of a
+// cache row, shared by `attend` and `verify_attend`.  Lane layout: a cache
+// row of hd values is read by lpr = hd/8 lanes, 8 values each (`sub`); a
+// warp covers rows = 32/lpr positions at once (`g`).  Position t is read
+// from cache row srcrow[t] (the ancestor table) or `self_row`, and from an
+// int8 cache dequantized with that row's scale; brow is the row's additive
+// bias.  Scores of a chunk of ATT_CHUNK positions go to shared memory (p,
+// srow); on return m and l hold the running max and sum (the same in every
+// thread) and acc this lane's 8 partial weighted sums of V.
 template <typename CacheT>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
-              const CacheT* __restrict__ cache_v, const float* __restrict__ scales,
-              const float* __restrict__ bias, const int* __restrict__ src,
-              const int* __restrict__ pos_rows, int pos_all, int t_max, int d,
-              int hd, float q_scale, float* __restrict__ ctx,
-              void* __restrict__ kv_new) {
+__device__ __forceinline__ void attend_prefix(
+    const float* q, const CacheT* __restrict__ cache_k,
+    const CacheT* __restrict__ cache_v, const float* __restrict__ scales,
+    const float* __restrict__ brow, const int* __restrict__ srcrow,
+    int self_row, int pos, int t_max, int d, size_t col, int lpr, int rows,
+    int g, int sub, int warp, float* p, int* srow, float* scratch, float& m,
+    float& l, float* acc) {
   constexpr bool kInt8 = std::is_same<CacheT, int8_t>::value;
-  __shared__ float p[ATT_CHUNK];
-  __shared__ int srow[ATT_CHUNK];  // source cache row of each chunk position
-  __shared__ float scratch[32];
-  extern __shared__ float part[];  // ATT_WARPS * hd partial sums of V
-  const int h = blockIdx.x, b = blockIdx.y, nrows = gridDim.y;
-  const int pos = min(pos_rows != nullptr ? pos_rows[b] : pos_all, t_max);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lpr = hd / 8, rows = 32 / lpr;
-  const int g = lane / lpr, sub = lane % lpr;
-  const size_t col = (size_t)h * hd + sub * 8;
-  const float* qrow = qkv + (size_t)b * 3 * d;
-  const float* k_cur = qrow + d + h * hd;
-  const float* v_cur = qrow + 2 * d + h * hd;
-  const float* brow = bias + (size_t)b * t_max;
-  const int* srcrow = src != nullptr ? src + (size_t)b * t_max : nullptr;
-
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-    const size_t ko = (size_t)b * d + h * hd + i;
-    const size_t vo = (size_t)(nrows + b) * d + h * hd + i;
-    if constexpr (kInt8) {
-      static_cast<float*>(kv_new)[ko] = k_cur[i];
-      static_cast<float*>(kv_new)[vo] = v_cur[i];
-    } else {
-      static_cast<__nv_bfloat16*>(kv_new)[ko] = __float2bfloat16_rn(k_cur[i]);
-      static_cast<__nv_bfloat16*>(kv_new)[vo] = __float2bfloat16_rn(v_cur[i]);
-    }
-  }
-  float q[8], acc[8];
+  m = -INFINITY;
+  l = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    q[j] = qrow[col + j] * q_scale;
-    acc[j] = 0.0f;
-  }
-  // the current token's score, from the lanes of warp 0's first row group
-  float sc = 0.0f;
-  if (warp == 0 && g == 0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc += q[j] * k_cur[sub * 8 + j];
-  }
-  const float s_cur = vtt::block_sum(sc, scratch);
-
-  float m = -INFINITY, l = 0.0f;
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
   for (int c0 = 0; c0 < pos; c0 += ATT_CHUNK) {
     const int n = min(ATT_CHUNK, pos - c0);
     for (int tt = threadIdx.x; tt < n; tt += blockDim.x) {
-      srow[tt] = srcrow != nullptr ? srcrow[c0 + tt] : b;
+      srow[tt] = srcrow != nullptr ? srcrow[c0 + tt] : self_row;
     }
     __syncthreads();
     for (int r0 = warp * rows; r0 < n; r0 += ATT_WARPS * rows) {
@@ -300,8 +392,12 @@ attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
     m = m_new;
     __syncthreads();  // p and srow are rewritten by the next chunk
   }
+}
 
-  // sum the row groups of each warp (lanes sharing `sub`), then the warps
+// Sum the lanes' partial weighted sums of V into part[w * hd + i] (the row
+// groups of each warp first, lanes sharing `sub`), then a barrier.
+__device__ __forceinline__ void store_partials(float* acc, float* part, int lpr,
+                                               int g, int sub, int warp, int hd) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     for (int o = lpr; o < 32; o <<= 1) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
@@ -311,6 +407,68 @@ attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
     for (int j = 0; j < 8; ++j) part[warp * hd + sub * 8 + j] = acc[j];
   }
   __syncthreads();
+}
+
+// One block per (head, row): online softmax over the row's prefix
+// [0, pos_b) (`attend_prefix`), then the current token's k/v from `qkv`,
+// unrounded.  qkv: (B, 3D) f32 [q | k | v]; cache_k, cache_v: this layer's
+// (B, Tmax, D) planes; scales: this layer's (B, Tmax, 2) f32 (int8 cache
+// only); bias: (B, Tmax) f32 additive mask; src: (B, Tmax) i32 ancestor rows
+// or null (row b reads itself); pos_rows: (B,) i32 or null (every row at
+// pos_all); ctx: (B, D) f32; kv_new: (2, B, D), bf16 beside a bf16 cache,
+// f32 beside an int8 one.  A row at pos 0 attends to its current token only.
+// Needs hd % 8 == 0 and 32 % (hd / 8) == 0.
+template <typename CacheT>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
+              const CacheT* __restrict__ cache_v, const float* __restrict__ scales,
+              const float* __restrict__ bias, const int* __restrict__ src,
+              const int* __restrict__ pos_rows, int pos_all, int t_max, int d,
+              int hd, float q_scale, float* __restrict__ ctx,
+              void* __restrict__ kv_new) {
+  constexpr bool kInt8 = std::is_same<CacheT, int8_t>::value;
+  __shared__ float p[ATT_CHUNK];
+  __shared__ int srow[ATT_CHUNK];  // source cache row of each chunk position
+  __shared__ float scratch[32];
+  extern __shared__ float part[];  // ATT_WARPS * hd partial sums of V
+  const int h = blockIdx.x, b = blockIdx.y, nrows = gridDim.y;
+  const int pos = min(pos_rows != nullptr ? pos_rows[b] : pos_all, t_max);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lpr = hd / 8, rows = 32 / lpr;
+  const int g = lane / lpr, sub = lane % lpr;
+  const size_t col = (size_t)h * hd + sub * 8;
+  const float* qrow = qkv + (size_t)b * 3 * d;
+  const float* k_cur = qrow + d + h * hd;
+  const float* v_cur = qrow + 2 * d + h * hd;
+
+  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
+    const size_t ko = (size_t)b * d + h * hd + i;
+    const size_t vo = (size_t)(nrows + b) * d + h * hd + i;
+    if constexpr (kInt8) {
+      static_cast<float*>(kv_new)[ko] = k_cur[i];
+      static_cast<float*>(kv_new)[vo] = v_cur[i];
+    } else {
+      static_cast<__nv_bfloat16*>(kv_new)[ko] = __float2bfloat16_rn(k_cur[i]);
+      static_cast<__nv_bfloat16*>(kv_new)[vo] = __float2bfloat16_rn(v_cur[i]);
+    }
+  }
+  float q[8], acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) q[j] = qrow[col + j] * q_scale;
+  // the current token's score, from the lanes of warp 0's first row group
+  float sc = 0.0f;
+  if (warp == 0 && g == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc += q[j] * k_cur[sub * 8 + j];
+  }
+  const float s_cur = vtt::block_sum(sc, scratch);
+
+  float m, l;
+  attend_prefix<CacheT>(q, cache_k, cache_v, scales, bias + (size_t)b * t_max,
+                        src != nullptr ? src + (size_t)b * t_max : nullptr, b,
+                        pos, t_max, d, col, lpr, rows, g, sub, warp, p, srow,
+                        scratch, m, l, acc);
+  store_partials(acc, part, lpr, g, sub, warp, hd);
   const float m_f = fmaxf(m, s_cur);
   const float alpha = expf(m - m_f);
   const float p_cur = expf(s_cur - m_f);
@@ -323,71 +481,185 @@ attend_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ cache_k,
   }
 }
 
-template <int EPI, int NB>
-cudaError_t launch_gemv_nb(const float* x, const float* ln_w, const float* ln_b,
-                           const int8_t* w, int n_ktiles, int ktile,
-                           const float* scale, const float* bias,
-                           const float* res, float* out, int f_total, int nrows,
-                           cudaStream_t stream) {
-  const size_t k_total = (size_t)n_ktiles * ktile;
-  const size_t smem = nrows * k_total * sizeof(__nv_bfloat16)
-                      + (ln_w != nullptr ? k_total * sizeof(float) : 0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dq_gemv_kernel<EPI, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+// K6's attention, one block per (head, query row j) of K <= MAX_VERIFY rows
+// of ONE sequence at positions pos .. pos + K - 1: the committed prefix
+// [0, pos) of the sequence's cache row under the bias (`attend_prefix`),
+// then rows i <= j of the K current tokens with their unrounded k/v from
+// `qkv` (B = K rows, as in attend_kernel).  cache_k, cache_v: this layer's
+// (1, Tmax, D) bf16 planes; bias: (1, Tmax); kv_new: (2, K, D) bf16.
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+verify_attend_kernel(const float* __restrict__ qkv,
+                     const __nv_bfloat16* __restrict__ cache_k,
+                     const __nv_bfloat16* __restrict__ cache_v,
+                     const float* __restrict__ bias, int pos, int t_max, int d,
+                     int hd, float q_scale, float* __restrict__ ctx,
+                     __nv_bfloat16* __restrict__ kv_new) {
+  __shared__ float p[ATT_CHUNK];
+  __shared__ int srow[ATT_CHUNK];
+  __shared__ float scratch[32];
+  __shared__ float s_tail[MAX_VERIFY];  // scores of the causal tail rows
+  extern __shared__ float part[];       // ATT_WARPS * hd partial sums of V
+  const int h = blockIdx.x, j = blockIdx.y, kk = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lpr = hd / 8, rows = 32 / lpr;
+  const int g = lane / lpr, sub = lane % lpr;
+  const size_t col = (size_t)h * hd + sub * 8;
+  const size_t stride = (size_t)3 * d;  // one qkv row
+  const float* qrow = qkv + (size_t)j * stride;
+
+  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
+    kv_new[(size_t)j * d + h * hd + i] = __float2bfloat16_rn(qrow[d + h * hd + i]);
+    kv_new[(size_t)(kk + j) * d + h * hd + i] =
+        __float2bfloat16_rn(qrow[2 * d + h * hd + i]);
   }
-  const int grid = (f_total + GEMV_WARPS - 1) / GEMV_WARPS;
-  dq_gemv_kernel<EPI, NB><<<grid, GEMV_WARPS * 32, smem, stream>>>(
-      x, ln_w, ln_b, w, n_ktiles, ktile, scale, bias, res, out, f_total, nrows);
+  float q[8], acc[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) q[jj] = qrow[col + jj] * q_scale;
+  // tail row i is scored by row group g of warp w with i = w * rows + g
+  // (ATT_WARPS * rows >= 8 >= K for every hd this kernel takes)
+  const int i_tail = warp * rows + g;
+  float st = 0.0f;
+  if (i_tail <= j) {
+    const float* k_i = qkv + i_tail * stride + d + h * hd + sub * 8;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) st += q[jj] * k_i[jj];
+  }
+  for (int o = lpr / 2; o > 0; o >>= 1) st += __shfl_xor_sync(0xffffffffu, st, o);
+  if (i_tail <= j && sub == 0) s_tail[i_tail] = st;
+
+  float m, l;
+  attend_prefix<__nv_bfloat16>(q, cache_k, cache_v, nullptr, bias, nullptr, 0,
+                               min(pos, t_max), t_max, d, col, lpr, rows, g,
+                               sub, warp, p, srow, scratch, m, l, acc);
+  store_partials(acc, part, lpr, g, sub, warp, hd);  // its barrier publishes s_tail
+  float m_f = m;
+  for (int i = 0; i <= j; ++i) m_f = fmaxf(m_f, s_tail[i]);
+  const float alpha = expf(m - m_f);
+  float l_f = l * alpha;
+  for (int i = 0; i <= j; ++i) l_f += expf(s_tail[i] - m_f);
+  float* crow = ctx + (size_t)j * d + h * hd;
+  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+    float a = 0.0f;
+    for (int w = 0; w < ATT_WARPS; ++w) a += part[w * hd + c];
+    a *= alpha;
+    for (int i = 0; i <= j; ++i) {
+      a += expf(s_tail[i] - m_f) * qkv[i * stride + 2 * d + h * hd + c];
+    }
+    crow[c] = a / l_f;
+  }
+}
+
+// One GEMV launch: int8 weights with a per-column scale (gsize == 0) or
+// int4 nibble pairs with group scales of gsize contraction rows (gsize > 0).
+struct GemvArgs {
+  const float* x;
+  const float* ln_w;
+  const float* ln_b;
+  const int8_t* w;
+  int n_ktiles, ktile;
+  const float* scale;
+  int gsize;
+  const float* bias;
+  const float* res;
+  float* out;
+  int f_total, nrows;
+};
+
+template <int EPI, int NB>
+cudaError_t launch_gemv_nb(const GemvArgs& a, cudaStream_t stream) {
+  const size_t k_total = (size_t)a.n_ktiles * a.ktile;
+  const size_t smem = a.nrows * k_total * sizeof(__nv_bfloat16)
+                      + (a.ln_w != nullptr ? k_total * sizeof(float) : 0);
+  const int grid = (a.f_total + GEMV_WARPS - 1) / GEMV_WARPS;
+  if (a.gsize == 0) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          dq_gemv_kernel<EPI, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    dq_gemv_kernel<EPI, NB><<<grid, GEMV_WARPS * 32, smem, stream>>>(
+        a.x, a.ln_w, a.ln_b, a.w, a.n_ktiles, a.ktile, a.scale, a.bias, a.res,
+        a.out, a.f_total, a.nrows);
+  } else {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          dq_gemv4_kernel<EPI, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    dq_gemv4_kernel<EPI, NB><<<grid, GEMV_WARPS * 32, smem, stream>>>(
+        a.x, a.ln_w, a.ln_b, a.w, a.n_ktiles, a.ktile, a.scale, a.gsize,
+        a.bias, a.res, a.out, a.f_total, a.nrows);
+  }
   return cudaGetLastError();
 }
 
 // rows are rounded up to an instantiated accumulator count
 template <int EPI>
-cudaError_t launch_gemv(const float* x, const float* ln_w, const float* ln_b,
-                        const int8_t* w, int n_ktiles, int ktile,
-                        const float* scale, const float* bias, const float* res,
-                        float* out, int f_total, int nrows, cudaStream_t stream) {
-#define VTT_GEMV(NB)                                                        \
-  return launch_gemv_nb<EPI, NB>(x, ln_w, ln_b, w, n_ktiles, ktile, scale, \
-                                 bias, res, out, f_total, nrows, stream)
-  if (nrows <= 1) VTT_GEMV(1);
-  if (nrows <= 2) VTT_GEMV(2);
-  if (nrows <= 3) VTT_GEMV(3);
-  if (nrows <= 4) VTT_GEMV(4);
-  if (nrows <= 8) VTT_GEMV(8);
-  VTT_GEMV(12);
-#undef VTT_GEMV
+cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
+  if (a.nrows <= 1) return launch_gemv_nb<EPI, 1>(a, stream);
+  if (a.nrows <= 2) return launch_gemv_nb<EPI, 2>(a, stream);
+  if (a.nrows <= 3) return launch_gemv_nb<EPI, 3>(a, stream);
+  if (a.nrows <= 4) return launch_gemv_nb<EPI, 4>(a, stream);
+  if (a.nrows <= 8) return launch_gemv_nb<EPI, 8>(a, stream);
+  return launch_gemv_nb<EPI, 12>(a, stream);
 }
 
 }  // namespace
 
 // Dequantizing GEMV over 1 <= nrows <= 12 rows with optional LN prologue
-// and epilogue (0 none, 1 GELU-tanh, 2 residual add `res`).  ktile % 4 == 0,
-// w 4-byte aligned.  ln_w / ln_b / res may be null where unused.
+// and epilogue (0 none, 1 GELU-tanh, 2 residual add `res`).  gsize == 0:
+// int8 weights [n_ktiles][F][ktile] and one scale per output column
+// (`scale`, F floats); ktile % 4 == 0, w 4-byte aligned.  gsize > 0: int4
+// nibble pairs [n_ktiles][F][ktile / 2] and group scales
+// [n_ktiles][F][ktile / gsize] (`scale`), an even number of groups a tile,
+// gsize % 4 == 0.  ln_w / ln_b / res may be null where unused.
 VTT_EXPORT int vtt_dq_gemv(const float* x, const float* ln_w, const float* ln_b,
                            const int8_t* w, int n_ktiles, int ktile,
-                           const float* scale, const float* bias,
+                           const float* scale, int gsize, const float* bias,
                            const float* res, float* out, int f_total, int nrows,
                            int epilogue, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (nrows < 1 || nrows > 12 || ktile % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (gsize != 0 && (gsize < 0 || gsize % 4 != 0 || ktile % gsize != 0
+                     || (ktile / gsize) % 2 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const GemvArgs a{x, ln_w, ln_b, w, n_ktiles, ktile, scale, gsize, bias, res,
+                   out, f_total, nrows};
   switch (epilogue) {
     case EPI_NONE:
-      return (int)launch_gemv<EPI_NONE>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                        scale, bias, res, out, f_total, nrows, s);
+      return (int)launch_gemv<EPI_NONE>(a, s);
     case EPI_GELU:
-      return (int)launch_gemv<EPI_GELU>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                        scale, bias, res, out, f_total, nrows, s);
+      return (int)launch_gemv<EPI_GELU>(a, s);
     case EPI_RESIDUAL:
-      return (int)launch_gemv<EPI_RESIDUAL>(x, ln_w, ln_b, w, n_ktiles, ktile,
-                                            scale, bias, res, out, f_total,
-                                            nrows, s);
+      return (int)launch_gemv<EPI_RESIDUAL>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K6's attention of one layer for 2 <= nrows <= 8 rows of one sequence at
+// positions pos .. pos + nrows - 1; see verify_attend_kernel.  bf16 cache,
+// hd as in vtt_decode_attend.
+VTT_EXPORT int vtt_verify_attend(const float* qkv, const void* cache_k,
+                                 const void* cache_v, const float* bias,
+                                 int pos, int nrows, int t_max, int d,
+                                 int heads, float q_scale, float* ctx,
+                                 void* kv_new, void* stream) {
+  const int hd = d / heads;
+  if (d % heads != 0 || hd % 8 != 0 || 32 % (hd / 8) != 0 || nrows < 1
+      || nrows > MAX_VERIFY || pos < 0 || pos + nrows > t_max) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)ATT_WARPS * hd * sizeof(float);
+  verify_attend_kernel<<<dim3(heads, nrows), ATT_WARPS * 32, smem,
+                         (cudaStream_t)stream>>>(
+      qkv, static_cast<const __nv_bfloat16*>(cache_k),
+      static_cast<const __nv_bfloat16*>(cache_v), bias, pos, t_max, d, hd,
+      q_scale, ctx, static_cast<__nv_bfloat16*>(kv_new));
+  return (int)cudaGetLastError();
 }
 
 // Attention of one layer for nrows rows; see attend_kernel.  hd = d / heads

@@ -12,13 +12,20 @@ buckets and padded shapes.  The decode is either
   step one K3 launch over the beams with the ancestor table, as the JAX
   engine's beam branch; or
 - sampling / greedy (`num_beams == 1`): the K1 step, with the JAX
-  `fuse_pipeline` path's code bucket estimate and retry.
+  `fuse_pipeline` path's code bucket estimate and retry; with
+  `spec_decode_k >= 2` the self-speculative decode instead (int4 drafts
+  through K1, one int8 verify pass through K6 a round).
 
 New speakers run the conditioning path (resample, seamless features,
 w2v-bert, RepCodec, kaldi fbank + CAMPPlus, mel, regulator,
 conformer-perceiver), cached by prompt content hash; with
 `use_bf16_conditioning` on bf16 copies of w2v-bert, RepCodec and CAMPPlus
 and on the bf16 runtime GPT.  Stage timers keep the reference's names.
+
+With `use_int4_decode` the decode pack is int4 (`pack_gpt_int4` of the f32
+master, K7) through K1 or K3; with `spec_decode_k >= 2` it stays int8 and
+the int4 pack is the draft.  `int4_expand` takes False or "i8sh" (the same
+numerics); True, a TPU-only dequant scheme, raises.
 
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
 setting of the Mosaic kernels, which the CUDA chain does not have),
@@ -42,19 +49,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from voice_tts_tpu.config import TTSConfig
-from voice_tts_tpu.logging import logger
-from voice_tts_tpu.text.tokenizer import TextTokenizer
 from voice_tts_tpu_torch.audio import (KaldiFbank, MelSpectrogram, Resampler,
                                        SeamlessFeatures, encode_wav_int16,
                                        load_prompt_audio)
+from voice_tts_tpu_torch.config import TTSConfig
 from voice_tts_tpu_torch.engine import post
+from voice_tts_tpu_torch.logging import logger
 from voice_tts_tpu_torch.models.conditioning.campplus import CAMPPlus
 from voice_tts_tpu_torch.models.conditioning.repcodec import (RepCodec,
                                                               repcodec_vq2emb)
 from voice_tts_tpu_torch.models.conditioning.w2v_bert import Wav2Vec2Bert
 from voice_tts_tpu_torch.models.gpt.beam import beam_decode
 from voice_tts_tpu_torch.models.gpt.decode import decode as gpt_decode
+from voice_tts_tpu_torch.models.gpt.decode import spec_decode
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.models.layers import init_weights
 from voice_tts_tpu_torch.models.s2mel.cfm import cfm_inference
@@ -63,14 +70,15 @@ from voice_tts_tpu_torch.models.s2mel.s2mel import (S2Mel, assemble_condition,
                                                     place_prompt_mel,
                                                     slice_generated)
 from voice_tts_tpu_torch.models.vocoder.bigvgan import BigVGAN
-from voice_tts_tpu_torch.ops.fused_decode import pack_gpt, pack_readout
+from voice_tts_tpu_torch.ops.fused_decode import (check_int4_expand, pack_gpt,
+                                                  pack_gpt_int4, pack_readout)
+from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
 from voice_tts_tpu_torch.utils.convert import FAMILIES, convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
 # JAX-engine flags whose paths the port does not carry yet
-_UNPORTED_FLAGS = ("use_int4_decode", "spec_decode_k", "use_packed_vocoder",
-                   "use_shared_act_vocoder", "use_fused_vocoder",
-                   "use_bf16_s2mel")
+_UNPORTED_FLAGS = ("use_packed_vocoder", "use_shared_act_vocoder",
+                   "use_fused_vocoder", "use_bf16_s2mel")
 
 
 @dataclasses.dataclass
@@ -216,17 +224,39 @@ class TTSEngine:
         self.w2v = self.models["w2v"]
 
         # GPT runtime copy for decode + teacher-forced latent: int8 trunk +
-        # bf16 rest, or bf16, or the f32 master (as the JAX engine builds)
-        self.fused_pack = self.readout_pack = None
+        # bf16 rest, or bf16, or the f32 master (as the JAX engine builds);
+        # the decode packs, int4 ones from the f32 master, are built here,
+        # before `release_master_trees` drops it
+        self.fused_pack = self.readout_pack = self.spec_draft_pack = None
         if e.use_int8_decode:
-            state = quantize_gpt_state(self.gpt.state_dict())
+            master = self.gpt.state_dict()
+            state = quantize_gpt_state(master)
             self.gpt_rt = UnifiedVoice(cfg.gpt, int8=True).to(dev)
             self._cast_like(self.gpt_rt, state)
             self.gpt_rt.load_state_dict(state)
             if e.use_fused_decode:
-                self.fused_pack = pack_gpt(state, cfg.gpt.layers)
+                if e.use_int4_decode or e.spec_decode_k >= 2:
+                    check_int4_expand(e.int4_expand)
+                if e.use_int4_decode:
+                    self.fused_pack = pack_gpt_int4(master, cfg.gpt.layers,
+                                                    group=e.int4_group)
+                else:
+                    self.fused_pack = pack_gpt(state, cfg.gpt.layers)
                 if e.fold_readout:
                     self.readout_pack = pack_readout(state)
+                if e.spec_decode_k >= 2:
+                    if e.use_int4_decode:
+                        raise ValueError(
+                            "spec_decode_k needs the int8 target pack; unset "
+                            "use_int4_decode (int4 becomes the DRAFT)")
+                    if e.use_int8_kv:
+                        raise ValueError(
+                            "spec_decode_k has no int8-KV support; unset "
+                            "use_int8_kv (the speculative verify kernel "
+                            "reads/writes the bf16 cache)")
+                    self.spec_draft_pack = pack_gpt_int4(master, cfg.gpt.layers,
+                                                         group=e.int4_group)
+            del master
         elif e.use_fp16:
             self.gpt_rt = UnifiedVoice(cfg.gpt).to(dev)
             self.gpt_rt.load_state_dict(self.gpt.state_dict())
@@ -322,9 +352,12 @@ class TTSEngine:
         return cls.random(tiny_config(**engine_overrides), device, seed)
 
     @classmethod
-    def from_jax_params(cls, cfg: TTSConfig, params: Dict[str, dict], tokenizer,
+    def from_jax_params(cls, cfg, params: Dict[str, dict], tokenizer,
                         extras: Optional[Dict] = None, device="cuda") -> "TTSEngine":
-        """Engine from a JAX engine's f32 parameter trees (`engine.params`)."""
+        """Engine from a JAX engine's f32 parameter trees (`engine.params`);
+        `cfg` is any config with `to_dict()` (the JAX engine's), read into
+        the port's `TTSConfig`."""
+        cfg = TTSConfig.from_dict(cfg.to_dict())
         models = build_models(cfg)
         for fam in FAMILIES:
             load_family(models[fam], convert(fam, params[fam]))
@@ -608,9 +641,18 @@ class TTSEngine:
             # a retry replays the same random stream
             self.generator.set_state(gen_state)
             max_new = min(cbucket, gen.max_mel_tokens)
-            res = gpt_decode(self.gpt_rt, gen, spk["cond_latents"], emovec, text,
-                             text_lens, max_new, self.generator, self.fused_pack,
-                             self.readout_pack, int8_kv=e.use_int8_kv)
+            if self.spec_draft_pack is not None:      # spec_decode_k >= 2
+                res = spec_decode(self.gpt_rt, gen, spk["cond_latents"], emovec,
+                                  text, text_lens, max_new, self.generator,
+                                  self.fused_pack, self.spec_draft_pack,
+                                  e.spec_decode_k)
+                timers["spec_rounds"] = timers.get("spec_rounds", 0) + res.rounds
+                timers["spec_accepted"] = timers.get("spec_accepted", 0) + res.accepted
+            else:
+                res = gpt_decode(self.gpt_rt, gen, spk["cond_latents"], emovec,
+                                 text, text_lens, max_new, self.generator,
+                                 self.fused_pack, self.readout_pack,
+                                 int8_kv=e.use_int8_kv)
             timers["decode_steps"] += res.steps
             if bool(res.hit_limit[0]) and cbucket < full_cbucket:
                 self._observe_code_len(bucket, [cbucket], [True], cbucket, gen)

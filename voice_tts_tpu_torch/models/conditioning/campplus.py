@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import CAMPPlusConfig
+from voice_tts_tpu_torch.config import CAMPPlusConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, lecun_normal_
 
 

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import RepCodecConfig
+from voice_tts_tpu_torch.config import RepCodecConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, normal_
 
 

@@ -44,7 +44,7 @@ from typing import Callable, Optional
 
 import torch
 
-from voice_tts_tpu.config import GenerationConfig
+from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
                                                    apply_repetition_penalty)
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import ConformerConfig
+from voice_tts_tpu_torch.config import ConformerConfig
 from voice_tts_tpu_torch.models.layers import (Conv1d, LayerNorm, Linear, einsum,
                                                lecun_normal_, xavier_uniform_)
 

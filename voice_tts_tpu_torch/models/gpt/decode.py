@@ -1,5 +1,6 @@
-"""Autoregressive decode loop for UnifiedVoice, `num_beams == 1`
-(`voice_tts_tpu/models/gpt/decode.py:151-319`).
+"""Autoregressive decode loops for UnifiedVoice, `num_beams == 1`
+(`voice_tts_tpu/models/gpt/decode.py:151-553`): `decode` and the
+self-speculative `spec_decode`.
 
 A Python loop over a preallocated KV cache.  Logit processing follows the
 HF order for the reference defaults: repetition penalty -> temperature ->
@@ -12,8 +13,13 @@ kernel chain on a CUDA tensor — with the folded int8 readout and, with
 `int8_kv`, an int8 cache with one scale per (layer, position, k|v) row.
 Beam search is `models/gpt/beam.py`.
 
-Left out here: speculative decode, batched decode, int8 KV on the unfused
-path.
+`spec_decode` drafts K - 1 tokens with an int4 pack through K1 (K7's
+loader), verifies all K in one int8 pass (`fused_decode_verify`, K6) and
+keeps the target's distribution by rejection sampling over the warped
+distributions (`speculative_accept`).
+
+Left out here: batched decode, int8 KV on the unfused path, typical
+sampling.
 """
 
 from __future__ import annotations
@@ -22,13 +28,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from voice_tts_tpu.config import GenerationConfig
+from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
-                                                  ReadoutPack, apply_kv_update,
+                                                  Pack, ReadoutPack,
+                                                  apply_kv_update,
                                                   apply_kv_update_q,
+                                                  apply_kv_update_span,
                                                   cache_to_time_major,
                                                   fused_decode_step,
+                                                  fused_decode_verify,
                                                   quantize_kv_cache)
 
 
@@ -73,7 +82,7 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
            cond_latents: torch.Tensor, emo_vec: torch.Tensor,
            text_tokens: torch.Tensor, text_lengths: torch.Tensor,
            max_new: int, generator: Optional[torch.Generator] = None,
-           fused_pack: Optional[FusedDecodePack] = None,
+           fused_pack: Optional[Pack] = None,
            readout_pack: Optional[ReadoutPack] = None,
            int8_kv: bool = False) -> DecodeResult:
     """Greedy / sampling AR decode; text_tokens (B, bucket_len) right-padded.
@@ -145,3 +154,191 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
             finished = finished | (token == cfg.stop_mel_token)
             step += 1
     return DecodeResult(codes, lengths, ~finished, step - 1)
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decode
+# ---------------------------------------------------------------------------
+
+class SpecDecodeResult(NamedTuple):
+    codes: torch.Tensor      # (1, max_new) generated codes (stop-padded)
+    lengths: torch.Tensor    # (1,) codes including the stop token
+    hit_limit: torch.Tensor  # (1,) True if stopped by max length
+    steps: int               # codes emitted after the prefill's first code
+    rounds: int              # draft + verify rounds
+    accepted: int            # drafted tokens accepted, over all rounds
+
+
+def warped_logprobs(logits: torch.Tensor, presence: torch.Tensor,
+                    gen: GenerationConfig) -> torch.Tensor:
+    """(B, V) logits -> full-vocab log-probs of the warped distribution:
+    repetition penalty -> temperature -> top-k -> top-p inside the top-k
+    candidates, scattered back with -inf (not `finfo.min`: rejection
+    sampling needs true zeros outside the support).  Greedy: the
+    log-softmax of the penalized logits."""
+    if gen.typical_sampling:
+        raise NotImplementedError("typical sampling is not ported")
+    logits = apply_repetition_penalty(logits.float(), presence, gen.repetition_penalty)
+    if gen.do_sample:
+        if gen.temperature != 1.0:
+            logits = logits / gen.temperature
+        k = min(gen.top_k if gen.top_k > 0 else logits.shape[-1], logits.shape[-1])
+        top_vals, top_idx = torch.topk(logits, k, dim=-1)        # descending
+        if gen.top_p < 1.0:
+            probs = torch.softmax(top_vals, dim=-1)
+            before = torch.cumsum(probs, dim=-1) - probs
+            top_vals = top_vals.masked_fill(before >= gen.top_p, float("-inf"))
+        logits = torch.full_like(logits, float("-inf")).scatter(-1, top_idx, top_vals)
+    return torch.log_softmax(logits, dim=-1)
+
+
+def _draw(logp: torch.Tensor, gen: GenerationConfig,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(B, V) log-weights -> (B,) tokens: categorical, or argmax when greedy."""
+    if gen.do_sample:
+        return torch.multinomial(torch.softmax(logp, dim=-1), 1,
+                                 generator=generator)[:, 0]
+    return torch.argmax(logp, dim=-1)
+
+
+def speculative_accept(lp_target: torch.Tensor, lp_draft: torch.Tensor,
+                       drafts: torch.Tensor, uniforms: Optional[torch.Tensor]):
+    """The acceptance step of speculative sampling over K - 1 drafts.
+
+    lp_target (K, V): the target's warped log-probs at the K verified
+    positions; lp_draft (K - 1, V): the draft's, at the drafted positions;
+    drafts (K - 1,) the drafted tokens; uniforms (K - 1,) draws in (0, 1)
+    for sampling, or None for greedy (a draft is accepted while it is the
+    target's argmax).  Draft i is accepted when u_i < q(d_i) / p(d_i),
+    compared as logs.  Returns (n_acc, log-weights of the next token's
+    distribution): the residual max(q - p, 0) at the first rejection (the
+    target row there when the residual is empty, or under greedy), or the
+    target's last row (the bonus token) when every draft was accepted.
+    Both are device tensors (n_acc 0-d): the step does not wait for the
+    device."""
+    kk = lp_target.shape[0]
+    idx = torch.arange(kk - 1, device=lp_target.device)
+    if uniforms is None:
+        accept = lp_target[:-1].argmax(dim=-1) == drafts
+    else:
+        accept = torch.log(uniforms) < (lp_target[idx, drafts] - lp_draft[idx, drafts])
+    n_acc = torch.cumprod(accept.to(torch.int64), dim=0).sum()
+    row = torch.clamp(n_acc, max=kk - 2)           # the first rejected position
+    corr = lp_target[row]
+    if uniforms is not None:
+        resid = torch.clamp(torch.exp(corr) - torch.exp(lp_draft[row]), min=0.0)
+        corr = torch.where(resid.sum() > 0, torch.log(torch.clamp(resid, min=1e-30)),
+                           corr)
+    return n_acc, torch.where(n_acc == kk - 1, lp_target[kk - 1], corr)
+
+
+def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
+                cond_latents: torch.Tensor, emo_vec: torch.Tensor,
+                text_tokens: torch.Tensor, text_lengths: torch.Tensor,
+                max_new: int, generator: Optional[torch.Generator],
+                pack_target: FusedDecodePack, pack_draft: Pack,
+                k_spec: int = 4) -> SpecDecodeResult:
+    """Self-speculative AR decode, batch 1 (JAX `spec_decode`).
+
+    Each round drafts k_spec - 1 tokens, one K1 step each with `pack_draft`
+    (the int4 pack in the engine), then runs ONE verify pass of the int8
+    `pack_target` over [last token, drafts] (K6), and emits the accepted
+    drafts plus one token from the residual or the bonus distribution: every
+    emitted token is distributed as sampling from the target.  Draft and
+    target share the cache: the draft rows are scratch that the verify pass
+    overwrites at the same positions.  Both read out through
+    `model.readout`.  Stop-token and cap semantics as `decode` (drafts past
+    a stop are dropped)."""
+    cfg = model.cfg
+    b, bl = text_tokens.shape
+    if b != 1:
+        raise ValueError("speculative decode is the single-request path (batch 1)")
+    kk = k_spec
+    if not 2 <= kk <= 8:
+        raise ValueError(f"k_spec must be in 2..8, got {kk}")
+    if gen.typical_sampling:
+        raise NotImplementedError("typical sampling is not ported")
+    dev = text_tokens.device
+    p = n_cond_latents(cfg) + 2 + bl + 2
+    t_max = p + 1 + max_new + kk          # drafts may overhang max_new
+    t_max += (-t_max) % BLOCK_T
+    vocab = cfg.number_mel_codes
+    eos = cfg.stop_mel_token
+    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+
+    with torch.no_grad():
+        prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),
+                                             emo_vec.to(param_dtype),
+                                             text_tokens, text_lengths)
+        valid = torch.cat([valid_p, torch.ones((1, t_max - p), dtype=torch.bool,
+                                               device=dev)], dim=1)
+        cache = model.gpt.init_cache(1, t_max, prompt.dtype, dev)
+        logits0 = model.prefill(prompt, valid_p, cache)
+        cache = cache_to_time_major(cache)
+        bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
+
+        presence = torch.zeros((1, vocab), dtype=torch.bool, device=dev)
+        presence[:, 1] = True
+        presence[:, cfg.start_mel_token] = True
+        token = _draw(warped_logprobs(logits0, presence, gen), gen, generator)
+        presence[0, token] = True
+        # the codes are kept on the host, where each round's emission lands
+        # after its one device sync
+        codes = torch.full((1, max_new), eos, dtype=torch.long)
+        codes[0, 0] = int(token[0])
+        finished = int(codes[0, 0]) == eos
+        length, step, rounds, accepted = 1, 1, 0, 0
+        while step < max_new and not finished:
+            pos0 = p + step                 # the last emitted token's position
+            # ---- draft kk - 1 tokens
+            tok, pres_d = token, presence.clone()
+            embs, ckpts, d_toks, d_lps = [], [], [], []
+            for i in range(kk - 1):
+                emb = model.embed_decode_token(tok, step - 1 + i)
+                embs.append(emb)
+                ckpts.append(pres_d.clone())
+                hidden, kv_new, _ = fused_decode_step(emb, pack_draft, cache, bias,
+                                                      pos0 + i, cfg.heads)
+                apply_kv_update(cache, kv_new, pos0 + i)
+                lp_d = warped_logprobs(model.readout(hidden), pres_d, gen)
+                tok = _draw(lp_d, gen, generator)
+                d_toks.append(tok)
+                d_lps.append(lp_d)
+                pres_d[0, tok] = True
+            embs.append(model.embed_decode_token(tok, step - 1 + kk - 1))
+            ckpts.append(pres_d)
+            # ---- one verify pass over [token, d_0 .. d_{kk-2}]
+            hid_v, kv_v = fused_decode_verify(torch.cat(embs), pack_target, cache,
+                                              bias, pos0, cfg.heads)
+            apply_kv_update_span(cache, kv_v, pos0)
+            # the target's warped distributions, each under the presence
+            # its position saw (row-wise: one call for the kk rows)
+            lp_t = warped_logprobs(model.readout(hid_v), torch.cat(ckpts), gen)
+            # ---- accept, then the residual or bonus token
+            drafts = torch.cat(d_toks)
+            u = (torch.clamp(torch.rand(kk - 1, generator=generator, device=dev),
+                             min=1e-20) if gen.do_sample else None)
+            n_acc_t, next_lp = speculative_accept(lp_t, torch.cat(d_lps), drafts, u)
+            t_star = _draw(next_lp[None], gen, generator)
+            round_t = torch.cat([drafts, t_star])       # d_0 .. d_{kk-2}, t_star
+            # the round's one device sync
+            n_acc, *round_toks = torch.cat([n_acc_t.reshape(1), round_t]).tolist()
+            # ---- emit [d_0 .. d_{n_acc-1}, t_star], honouring stop and cap
+            emitted = round_toks[:n_acc] + round_toks[-1:]
+            count = len(emitted)
+            if eos in emitted:
+                count = emitted.index(eos) + 1
+            count = min(count, max_new - step)
+            finished = eos in emitted[:count]
+            codes[0, step:step + count] = torch.tensor(emitted[:count])
+            presence = ckpts[n_acc].clone()
+            presence[0, t_star] = True
+            # the next round's first token, left on the device
+            token = round_t[count - 1:count] if count <= n_acc else t_star
+            step += count
+            length = step
+            rounds += 1
+            accepted += n_acc
+    return SpecDecodeResult(codes.to(dev), torch.tensor([length], device=dev),
+                            torch.tensor([not finished], device=dev), step - 1,
+                            rounds, accepted)

@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from voice_tts_tpu.config import GPTConfig
+from voice_tts_tpu_torch.config import GPTConfig
 from voice_tts_tpu_torch.models.gpt.conformer import ConformerEncoder
 from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack
 from voice_tts_tpu_torch.models.gpt.perceiver import PerceiverResampler

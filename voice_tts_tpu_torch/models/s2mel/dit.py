@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import DiTConfig, WaveNetConfig
+from voice_tts_tpu_torch.config import DiTConfig, WaveNetConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, Linear, RMSNorm
 from voice_tts_tpu_torch.models.s2mel.wavenet import WN
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import LengthRegulatorConfig
+from voice_tts_tpu_torch.config import LengthRegulatorConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, Linear
 
 

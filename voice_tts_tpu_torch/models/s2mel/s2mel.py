@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from voice_tts_tpu.config import S2MelConfig
+from voice_tts_tpu_torch.config import S2MelConfig
 from voice_tts_tpu_torch.models.layers import Linear
 from voice_tts_tpu_torch.models.s2mel.dit import DiT
 from voice_tts_tpu_torch.models.s2mel.length_regulator import InterpolateRegulator

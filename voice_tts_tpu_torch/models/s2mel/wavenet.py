@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voice_tts_tpu.config import WaveNetConfig
+from voice_tts_tpu_torch.config import WaveNetConfig
 from voice_tts_tpu_torch.models.layers import Conv1d
 
 

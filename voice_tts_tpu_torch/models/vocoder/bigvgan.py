@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from voice_tts_tpu.config import BigVGANConfig
+from voice_tts_tpu_torch.config import BigVGANConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, ConvTranspose1d
 from voice_tts_tpu_torch.ops.aa_activation import aa_snake_activation
 

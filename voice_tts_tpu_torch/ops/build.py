@@ -33,9 +33,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "vtt_int8_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "vtt_decode_attend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P, _P, _I, _P],
+    "vtt_verify_attend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
 
 

@@ -2,17 +2,19 @@
 
 Each kernel wrapper adds one to its entry each time it launches its kernel,
 and nowhere else, so a run can show that the main path went through the
-kernels.  `fused_decode_step` (K1) and `fused_decode_step_batch` (K3)
-count one per decode step (a step is a chain of launches, see
-`ops/fused_decode.py`).
+kernels.  `fused_decode_step` (K1), `fused_decode_step_batch` (K3) and
+`fused_decode_verify` (K6) count one per step (a step is a chain of
+launches, see `ops/fused_decode.py`); `fused_decode_int4` (K7) counts each
+of those chains that ran with an int4 pack, in addition to the chain's own
+count.
 """
 
 from __future__ import annotations
 
 import collections
 
-KERNELS = ("fused_decode_step", "fused_decode_step_batch", "int8_gemv",
-           "aa_snake_activation")
+KERNELS = ("fused_decode_step", "fused_decode_step_batch", "fused_decode_verify",
+           "fused_decode_int4", "int8_gemv", "aa_snake_activation")
 
 LAUNCHES: collections.Counter = collections.Counter({k: 0 for k in KERNELS})
 

@@ -1,10 +1,16 @@
-"""Decode steps of the int8 GPT-2 trunk with the folded readout: K1 (one
-row) and K3 (B rows, with the beam ancestor table).
+"""Decode steps of the int8 or int4 GPT-2 trunk with the folded readout: K1
+(one row), K3 (B rows, with the beam ancestor table), K6 (the speculative
+verify of K tokens of one sequence) and K7 (the int4 weight branch of all
+three).
 
-Port of `voice_tts_tpu/ops/fused_decode.py` (`pack_gpt`, `pack_readout`,
-`cache_to_time_major`, the int8-KV helpers, `fused_decode_step` and
-`fused_decode_step_batch` with `readout_pack`, `kv_scales` and `beam_src`,
-the `apply_kv_update*` writers), int8-weight branches.
+Port of `voice_tts_tpu/ops/fused_decode.py` (`pack_gpt`, `pack_gpt_int4`,
+`pack_readout`, `cache_to_time_major`, the int8-KV helpers,
+`fused_decode_step` and `fused_decode_step_batch` with `readout_pack`,
+`kv_scales` and `beam_src`, `fused_decode_verify`, the `apply_kv_update*`
+writers).  The int4 branch has the numerics of the JAX default dequant
+scheme (`int4_expand=False`, and "i8sh", which gives the same values);
+`int4_expand=True`, which rounds each dequantized weight to bf16, is a
+TPU-only scheme the port does not carry (`check_int4_expand`).
 
 One step, per layer and row: LN1 -> QKV -> attention over the row's live
 [0, pos_b) cache prefix plus the current token -> projection + residual ->
@@ -16,9 +22,13 @@ with the scale of the row it is read from.
 - `fused_decode_step_batch_plain`: PyTorch ops mirroring the Pallas
   kernels' numerics (CPU; the reference on the card); K1's plain version is
   this at B = 1;
+- `fused_decode_verify_plain`: the same trunk over the K rows with K6's
+  attention (shared committed prefix, then a causal tail over the K rows'
+  unrounded k/v);
 - `csrc/fused_decode.cu`: hand-written kernels, launched as a host-sequenced
   chain (5 launches per layer + 1 readout) by `_decode_chain_cuda`; K1 is
-  the chain at B = 1.
+  the chain at B = 1, K6 the chain at K rows with the verify attention, and
+  an int4 pack (K7) selects the int4 weight loader of the same GEMV.
 
 Pack layout.  The JAX pack holds (L, 12, D, D) int8 tiles in (in, out)
 order.  The port stores every tile transposed, (out, in): tiles 0-2 then
@@ -29,7 +39,12 @@ tiles, each output column's weights contiguous for 16-byte loads.
 scales, 12-23 biases (fc2 bias once, in row 23), 24-27 LN1/LN2 weight and
 bias.  The readout stores the int8 mel_head as (12 * VT, D) rows (the
 transposed JAX (12, D, VT) tiles, concatenated) with scale and bias as the
-two rows of a (2, 12 * VT) f32 table.
+two rows of a (2, 12 * VT) f32 table.  The int4 pack keeps the same (out,
+in) order with two contraction rows to a byte: (L, 12, D, D/2) int8, where
+byte k of an output column holds contraction row k in its low nibble and
+row k + D/2 in its high nibble (the JAX nibble pairing), and its group
+scales are the JAX (L, 12, G, D) table transposed to (L, 12, D, G), so that
+one output column's G scales are contiguous.
 
 The cache writers update the cache IN PLACE (the JAX versions return
 updated copies) and return it.
@@ -56,6 +71,23 @@ Pos = Union[int, torch.Tensor]
 class FusedDecodePack(NamedTuple):
     w: torch.Tensor        # (L, 12, D, D) int8, each tile (out, in)
     consts: torch.Tensor   # (L, 28, D) f32
+
+
+class FusedDecodePackInt4(NamedTuple):
+    w: torch.Tensor        # (L, 12, D, D/2) int8 nibble pairs, each tile (out, in/2)
+    consts: torch.Tensor   # (L, 28, D) f32: rows 0-11 zero, the rest as pack_gpt's
+    gscales: torch.Tensor  # (L, 12, D, G) f32 group scales, G = D // group
+
+
+Pack = Union[FusedDecodePack, FusedDecodePackInt4]
+
+GROUP = 128
+
+
+def group_size(d: int) -> int:
+    """Scale-group width along the contraction dim: 128, shrunk so each
+    packed half (d/2 rows) holds a whole number of groups on tiny configs."""
+    return min(GROUP, d // 2)
 
 
 class ReadoutPack(NamedTuple):
@@ -102,6 +134,72 @@ def pack_gpt(state: Dict[str, torch.Tensor], layers: int) -> FusedDecodePack:
                            state[p + "ln_2.weight"], state[p + "ln_2.bias"]]).float()
         cs.append(torch.cat([scales, biases, lns]))
     return FusedDecodePack(torch.stack(ws), torch.stack(cs).contiguous())
+
+
+def pack_gpt_int4(state: Dict[str, torch.Tensor], layers: int,
+                  group: int = 0) -> FusedDecodePackInt4:
+    """Pack the f32 GPT trunk of a UnifiedVoice state (the master, not the
+    int8 copy) into int4 tiles with one scale per `group` contraction rows
+    and output column (0 = `group_size(D)`, g128 at the flagship width):
+    scale max|w| / 7 floored at 1e-12, round half to even, clip to [-8, 7].
+    `* (1 / 7)`: XLA compiles the jitted JAX `/ 7.0` into a product with the
+    f32 reciprocal, so the same product keeps nibbles and scales bit-equal;
+    the division by the scale is a true one on both sides."""
+    ws, cs, ss = [], [], []
+    for i in range(layers):
+        p = f"gpt.h_{i}."
+        d = state[p + "attn_c_attn.weight"].shape[0]
+        gsz = group or group_size(d)
+        if (d // 2) % gsz:
+            raise ValueError(f"int4 group {gsz} must divide the packed half {d // 2}")
+
+        def col_tiles(m, n):  # (D, n*D) -> (n, D_in, D_out), the JAX tiles
+            return m.float().reshape(d, n, d).permute(1, 0, 2)
+
+        tiles = torch.cat([
+            col_tiles(state[p + "attn_c_attn.weight"], 3),
+            state[p + "attn_c_proj.weight"].float()[None],
+            col_tiles(state[p + "mlp_c_fc.weight"], 4),
+            state[p + "mlp_c_proj.weight"].float().reshape(4, d, d),
+        ])                                               # (12, D_in, D_out)
+        grouped = tiles.reshape(12, d // gsz, gsz, d)
+        scale = torch.clamp(grouped.abs().amax(dim=2) * (1.0 / 7.0), min=1e-12)
+        q = torch.clamp(torch.round(grouped / scale[:, :, None, :]), -8, 7)
+        q = q.reshape(12, d, d).to(torch.int32)
+        packed = ((q[:, :d // 2] & 15) | ((q[:, d // 2:] & 15) << 4)).to(torch.int8)
+        ws.append(packed.transpose(1, 2).contiguous())   # (12, D_out, D/2)
+        ss.append(scale.transpose(1, 2).contiguous())    # (12, D_out, G)
+
+        def rows(v, n):
+            return v.reshape(n, d).float()
+
+        biases = torch.cat([
+            rows(state[p + "attn_c_attn.bias"], 3),
+            rows(state[p + "attn_c_proj.bias"], 1),
+            rows(state[p + "mlp_c_fc.bias"], 4),
+            torch.zeros((3, d), dtype=torch.float32, device=tiles.device),
+            rows(state[p + "mlp_c_proj.bias"], 1),
+        ])
+        lns = torch.stack([state[p + "ln_1.weight"], state[p + "ln_1.bias"],
+                           state[p + "ln_2.weight"], state[p + "ln_2.bias"]]).float()
+        cs.append(torch.cat([torch.zeros((12, d), dtype=torch.float32,
+                                         device=tiles.device), biases, lns]))
+    return FusedDecodePackInt4(torch.stack(ws), torch.stack(cs).contiguous(),
+                               torch.stack(ss))
+
+
+def check_int4_expand(int4_expand) -> None:
+    """Accept the JAX int4 dequant schemes the port computes: False and
+    "i8sh" (the same nibble values and sums).  True rounds each dequantized
+    weight to bf16 before the product, a TPU-only scheme (an MXU expansion
+    of the scales) with other results: refused."""
+    if int4_expand is True:
+        raise ValueError("int4_expand=True is a TPU-only int4 dequant scheme "
+                         "(whole-tile bf16 dequant on the MXU); the port "
+                         "computes int4_expand=False / 'i8sh'")
+    if int4_expand not in (False, "i8sh"):
+        raise ValueError(f"int4_expand must be False, True or 'i8sh', got "
+                         f"{int4_expand!r}")
 
 
 def pack_readout(state: Dict[str, torch.Tensor]) -> ReadoutPack:
@@ -184,6 +282,14 @@ def apply_kv_update_q(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
     return kv_cache, kv_scales
 
 
+def apply_kv_update_span(kv_cache: torch.Tensor, kv_new: torch.Tensor,
+                         pos: int) -> torch.Tensor:
+    """Write kv_new (L, 2, K, D) at the span [pos, pos + K) of the batch-1
+    time-major cache (the speculative verify's commit)."""
+    kv_cache[:, :, 0, pos:pos + kv_new.shape[2], :] = kv_new.to(kv_cache.dtype)
+    return kv_cache
+
+
 def apply_kv_update_batch(kv_cache: torch.Tensor, kv_new: torch.Tensor,
                           pos: int) -> torch.Tensor:
     """Write kv_new (L, 2, B, D) into the batched cache at the shared `pos`."""
@@ -217,6 +323,71 @@ def _dot(src, w_t, scale, bias):
     return y * scale + bias
 
 
+def _unpack_int4(w: torch.Tensor):
+    """(F, K/2) nibble pairs -> (low, high) signed nibble values, f32."""
+    wi = w.to(torch.int32)
+    return (((wi & 15) ^ 8) - 8).float(), (wi >> 4).float()
+
+
+def _dot4(src, w_t, gscale, bias):
+    """bf16(src) (B, K) @ an int4 tile (F, K/2) with its (F, G) group scales,
+    as the JAX default scheme: each group's sum of the bf16 activation times
+    the signed nibbles in f32, times the group's scale, added in group order
+    (low half, high half) to an f32 sum; then the bias."""
+    xb = src.to(torch.bfloat16).float()
+    lo, hi = _unpack_int4(w_t)
+    half = lo.shape[1]
+    per_half = gscale.shape[1] // 2
+    gsz = half // per_half
+    y = torch.zeros((xb.shape[0], lo.shape[0]), dtype=torch.float32, device=xb.device)
+    for g in range(per_half):
+        sl = slice(g * gsz, (g + 1) * gsz)
+        y = y + (xb[:, sl] @ lo[:, sl].t()) * gscale[:, g]
+        y = y + (xb[:, half + g * gsz:half + (g + 1) * gsz] @ hi[:, sl].t()
+                 ) * gscale[:, per_half + g]
+    return y + bias
+
+
+def _layer_dot(pack: Pack, layer: int):
+    """dot(src, t): the product of `src` with weight tile t of `layer`, the
+    dequant scale and bias row t + 12, for an int8 or an int4 pack."""
+    w, c = pack.w[layer], pack.consts[layer]
+    if isinstance(pack, FusedDecodePackInt4):
+        gs = pack.gscales[layer]
+        return lambda src, t: _dot4(src, w[t], gs[t], c[t + 12])
+    return lambda src, t: _dot(src, w[t], c[t], c[t + 12])
+
+
+def _trunk_plain(xs, pack: Pack, kv_new, attend):
+    """Every layer of one step over the rows of xs (B, D) f32: LN1 -> QKV ->
+    `attend(layer, q, k, v)` -> projection + residual -> LN2 -> fc -> GELU-tanh
+    -> fc2 + residual.  Writes each layer's k/v rows into kv_new (L, 2, B, D)
+    and returns the hidden rows."""
+    for layer in range(pack.w.shape[0]):
+        dot, c = _layer_dot(pack, layer), pack.consts[layer]
+        h = _ln(xs, c[24], c[25])
+        q, k, v = dot(h, 0), dot(h, 1), dot(h, 2)
+        kv_new[layer, 0] = k.to(kv_new.dtype)
+        kv_new[layer, 1] = v.to(kv_new.dtype)
+        xs = xs + dot(attend(layer, q, k, v), 3)
+        h = _ln(xs, c[26], c[27])
+        hs = [torch.nn.functional.gelu(dot(h, t), approximate="tanh")
+              for t in range(4, 8)]
+        acc = None
+        for t in range(8, 12):
+            part = dot(hs[t - 8], t)
+            acc = part if acc is None else acc + part
+        xs = xs + acc
+    return xs
+
+
+def _readout_plain(xs, readout_pack: Optional[ReadoutPack]):
+    if readout_pack is None:
+        return None
+    hf = _ln(xs, readout_pack.lnf[0], readout_pack.lnf[1])
+    return _dot(hf, readout_pack.w, readout_pack.consts[0], readout_pack.consts[1])
+
+
 def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
     """The per-row live prefix lengths as a (B,) int64 tensor."""
     if isinstance(pos, torch.Tensor) and pos.numel() > 1:
@@ -224,7 +395,7 @@ def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int64, device=device)
 
 
-def fused_decode_step_batch_plain(x, pack: FusedDecodePack, kv_cache, bias,
+def fused_decode_step_batch_plain(x, pack: Pack, kv_cache, bias,
                                   pos: Pos, heads: int,
                                   kv_scales: Optional[torch.Tensor] = None,
                                   beam_src: Optional[torch.Tensor] = None,
@@ -243,8 +414,6 @@ def fused_decode_step_batch_plain(x, pack: FusedDecodePack, kv_cache, bias,
     # attends to its current token only)
     mask = torch.where(t_idx < pos_b[:, None], bias[:, :p_max].float(),
                        torch.tensor(float("-inf"), device=dev))
-    w_all, c_all = pack.w, pack.consts
-    xs = x.float().reshape(b, d)
     kv_new = torch.empty((n_layers, 2, b, d), device=dev,
                          dtype=torch.float32 if int8_kv else kv_cache.dtype)
 
@@ -254,38 +423,52 @@ def fused_decode_step_batch_plain(x, pack: FusedDecodePack, kv_cache, bias,
             c = c * kv_scales[layer][rows, t_idx, kv][..., None]
         return c.reshape(b, p_max, heads, hd)
 
-    for layer in range(n_layers):
-        w, c = w_all[layer], c_all[layer]
-        h = _ln(xs, c[24], c[25])
-        q = _dot(h, w[0], c[0], c[12])
-        k = _dot(h, w[1], c[1], c[13])
-        v = _dot(h, w[2], c[2], c[14])
-        kv_new[layer, 0] = k.to(kv_new.dtype)
-        kv_new[layer, 1] = v.to(kv_new.dtype)
+    def attend(layer, q, k, v):
         qh = (q * (hd ** -0.5)).reshape(b, heads, hd)
         scores = torch.einsum("bhd,bthd->bht", qh, cached(layer, 0)) + mask[:, None, :]
         s_cur = (qh * k.reshape(b, heads, hd)).sum(-1, keepdim=True)
         probs = torch.softmax(torch.cat([scores, s_cur], dim=-1), dim=-1)
         ctx = (torch.einsum("bht,bthd->bhd", probs[..., :p_max], cached(layer, 1))
                + probs[..., p_max:] * v.reshape(b, heads, hd))
-        xs = xs + _dot(ctx.reshape(b, d), w[3], c[3], c[15])
-        h = _ln(xs, c[26], c[27])
-        hs = [torch.nn.functional.gelu(_dot(h, w[t], c[t], c[t + 12]),
-                                       approximate="tanh") for t in range(4, 8)]
-        acc = None
-        for t in range(8, 12):
-            part = _dot(hs[t - 8], w[t], c[t], c[t + 12])
-            acc = part if acc is None else acc + part
-        xs = xs + acc
-    if readout_pack is None:
-        return xs, kv_new, None
-    hf = _ln(xs, readout_pack.lnf[0], readout_pack.lnf[1])
-    logits = _dot(hf, readout_pack.w, readout_pack.consts[0],
-                  readout_pack.consts[1])
-    return xs, kv_new, logits
+        return ctx.reshape(b, d)
+
+    xs = _trunk_plain(x.float().reshape(b, d), pack, kv_new, attend)
+    return xs, kv_new, _readout_plain(xs, readout_pack)
 
 
-def fused_decode_step_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
+def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
+                              pos: int, heads: int):
+    """Plain PyTorch version; see `fused_decode_verify`.  Row j attends the
+    committed prefix [0, pos) under the bias, then rows i <= j of the K
+    current tokens with their unrounded f32 k/v (JAX `_attend_verify`)."""
+    n_layers, _, _, _, d = kv_cache.shape
+    kk = x.shape[0]
+    hd = d // heads
+    dev = x.device
+    pos = int(pos)
+    pre_bias = bias[:pos, 0].float()
+    causal = torch.ones((kk, kk), dtype=torch.bool, device=dev).tril()
+    neg = torch.tensor(float("-inf"), device=dev)
+    kv_new = torch.empty((n_layers, 2, kk, d), device=dev, dtype=kv_cache.dtype)
+
+    def attend(layer, q, k, v):
+        qh = (q * (hd ** -0.5)).reshape(kk, heads, hd)
+        ck = kv_cache[layer, 0, 0, :pos].float().reshape(pos, heads, hd)
+        cv = kv_cache[layer, 1, 0, :pos].float().reshape(pos, heads, hd)
+        s_pre = torch.einsum("jhd,thd->jht", qh, ck) + pre_bias
+        s_tail = torch.einsum("jhd,ihd->jhi", qh, k.reshape(kk, heads, hd))
+        s_tail = torch.where(causal[:, None, :], s_tail, neg)
+        probs = torch.softmax(torch.cat([s_pre, s_tail], dim=-1), dim=-1)
+        ctx = (torch.einsum("jht,thd->jhd", probs[..., :pos], cv)
+               + torch.einsum("jhi,ihd->jhd", probs[..., pos:],
+                              v.reshape(kk, heads, hd)))
+        return ctx.reshape(kk, d)
+
+    xs = _trunk_plain(x.float().reshape(kk, d), pack, kv_new, attend)
+    return xs, kv_new
+
+
+def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: int,
                             heads: int, readout_pack: Optional[ReadoutPack] = None,
                             kv_scales: Optional[torch.Tensor] = None):
     """Plain PyTorch version; see `fused_decode_step` (K3's at B = 1)."""
@@ -314,16 +497,23 @@ def _check(name, t, dev, dtype, shape, align16=False):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _decode_chain_cuda(kernel: str, x, pack: FusedDecodePack, kv_cache, bias,
-                       pos: Pos, heads: int, kv_scales, beam_src, readout_pack):
-    """Run the CUDA kernel chain over B rows; `kernel` names the counter.
-    x (B, D); kv_cache (L, 2, B, Tmax, D) bf16 | int8; bias (B, Tmax) f32;
-    kv_scales (L, B, Tmax, 2) f32 or None; beam_src (B, Tmax) int32 or None;
-    pos an int or a (B,) int32 tensor on the device."""
-    n_layers, two, b, t_max, d = kv_cache.shape
+def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
+                       heads: int, kv_scales, beam_src, readout_pack,
+                       verify: bool = False):
+    """Run the CUDA kernel chain over the B rows of x (B, D); `kernel` names
+    the counter.  kv_cache (L, 2, B, Tmax, D) bf16 | int8; bias (B, Tmax)
+    f32; kv_scales (L, B, Tmax, 2) f32 or None; beam_src (B, Tmax) int32 or
+    None; pos an int or a (B,) int32 tensor on the device.  With `verify`
+    the B rows are K tokens of one sequence at pos, pos + 1, ...: the cache
+    and the bias hold that one sequence, (L, 2, 1, Tmax, D) and (1, Tmax),
+    and each layer's attention is the verify kernel.  An int4 pack selects
+    the int4 weight loader for the trunk (the readout stays int8)."""
+    n_layers, two, cb, t_max, d = kv_cache.shape
+    b = x.shape[0]
     dev = x.device
     int8_kv = kv_scales is not None
-    if two != 2 or d % heads or x.shape != (b, d):
+    int4 = isinstance(pack, FusedDecodePackInt4)
+    if two != 2 or d % heads or x.shape != (b, d) or cb != (1 if verify else b):
         raise ValueError(f"{kernel}: x {tuple(x.shape)} / cache "
                          f"{tuple(kv_cache.shape)} / heads {heads}")
     hd = d // heads
@@ -333,9 +523,19 @@ def _decode_chain_cuda(kernel: str, x, pack: FusedDecodePack, kv_cache, bias,
     cache_dtype = torch.int8 if int8_kv else torch.bfloat16
     _check(f"{kernel}: x", x, dev, torch.float32, None)
     _check(f"{kernel}: kv_cache", kv_cache, dev, cache_dtype, None, align16=True)
-    _check(f"{kernel}: pack.w", pack.w, dev, torch.int8, (n_layers, 12, d, d), True)
+    _check(f"{kernel}: pack.w", pack.w, dev, torch.int8,
+           (n_layers, 12, d, d // 2 if int4 else d), True)
     _check(f"{kernel}: pack.consts", pack.consts, dev, torch.float32, (n_layers, 28, d))
-    _check(f"{kernel}: bias", bias, dev, torch.float32, (b, t_max))
+    gsz = 0                                  # 0 selects the int8 loader
+    if int4:
+        n_groups = pack.gscales.shape[-1]
+        gsz = d // max(n_groups, 1)
+        if n_groups < 2 or n_groups % 2 or gsz * n_groups != d or gsz % 4:
+            raise ValueError(f"{kernel}: int4 groups {n_groups} at D {d}: needs an "
+                             "even count of groups of a multiple of 4 rows")
+        _check(f"{kernel}: pack.gscales", pack.gscales, dev, torch.float32,
+               (n_layers, 12, d, n_groups))
+    _check(f"{kernel}: bias", bias, dev, torch.float32, (cb, t_max))
     if int8_kv:
         _check(f"{kernel}: kv_scales", kv_scales, dev, torch.float32,
                (n_layers, b, t_max, 2))
@@ -351,8 +551,9 @@ def _decode_chain_cuda(kernel: str, x, pack: FusedDecodePack, kv_cache, bias,
     if isinstance(pos, torch.Tensor) and pos.numel() > 1:
         _check(f"{kernel}: pos", pos, dev, torch.int32, (b,))
         pos_rows, pos = pos, 0
-    elif not 0 <= int(pos) < t_max:
-        raise ValueError(f"{kernel}: pos {int(pos)} outside [0, {t_max})")
+    elif not 0 <= int(pos) <= t_max - (b if verify else 1):
+        raise ValueError(f"{kernel}: pos {int(pos)} with {b if verify else 1} "
+                         f"row(s) outside [0, {t_max})")
     lib = build.kernels()
     call = lib.call
     stream = build.stream_handle(dev)
@@ -365,53 +566,67 @@ def _decode_chain_cuda(kernel: str, x, pack: FusedDecodePack, kv_cache, bias,
     # byte addresses from the base pointers (no per-layer tensor views: the
     # chain is 5 launches a layer and its host cost sets the step time)
     row = d * 4                              # bytes per f32 row of consts
-    tile = d * d                             # bytes per int8 tile
-    plane = b * t_max * d * kv_cache.element_size()   # one (layer, k|v) plane
+    tile = d * d // 2 if int4 else d * d     # bytes per weight tile
+    # dequant scales of tile t at s0 + t * s_tile: a consts row (int8), or
+    # the tile's (D, G) group-scale block (int4)
+    s_tile = d * pack.gscales.shape[-1] * 4 if int4 else row
+    plane = cb * t_max * d * kv_cache.element_size()  # one (layer, k|v) plane
     kv_layer = 2 * b * d * kv_new.element_size()
     q_scale = float(hd ** -0.5)
     xp, qkvp, ctxp, hidp = xs.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), hid.data_ptr()
     w_base, c_base = pack.w.data_ptr(), pack.consts.data_ptr()
+    g_base = pack.gscales.data_ptr() if int4 else None
     cache_base, kv_base = kv_cache.data_ptr(), kv_new.data_ptr()
     scale_base = kv_scales.data_ptr() if int8_kv else None
     src_p = beam_src.data_ptr() if beam_src is not None else None
     pos_p = pos_rows.data_ptr() if pos_rows is not None else None
     bias_p = bias.data_ptr()
     LAUNCHES[kernel] += 1
+    if int4:
+        LAUNCHES["fused_decode_int4"] += 1
     for layer in range(n_layers):
         w0 = w_base + layer * TILES_PER_LAYER * tile
         c0 = c_base + layer * 28 * row
+        s0 = g_base + layer * TILES_PER_LAYER * s_tile if int4 else c0
         cache_k = cache_base + 2 * layer * plane
-        scales = (scale_base + layer * b * t_max * 2 * 4) if int8_kv else None
-        # LN1 -> qkv (tiles 0-2, scales rows 0-2, biases rows 12-14)
+        # LN1 -> qkv (tiles 0-2, biases rows 12-14)
         call("vtt_dq_gemv", xp, c0 + 24 * row, c0 + 25 * row, w0, 1, d,
-             c0, c0 + 12 * row, None, qkvp, 3 * d, b, _EPI_NONE, stream)
-        call("vtt_decode_attend", qkvp, cache_k, cache_k + plane, scales, bias_p,
-             src_p, pos_p, pos, b, t_max, d, heads, q_scale, ctxp,
-             kv_base + layer * kv_layer, int(int8_kv), stream)
-        # x += proj(ctx)   (tile 3, scale row 3, bias row 15)
+             s0, gsz, c0 + 12 * row, None, qkvp, 3 * d, b, _EPI_NONE, stream)
+        if verify:
+            call("vtt_verify_attend", qkvp, cache_k, cache_k + plane, bias_p,
+                 pos, b, t_max, d, heads, q_scale, ctxp,
+                 kv_base + layer * kv_layer, stream)
+        else:
+            scales = (scale_base + layer * b * t_max * 2 * 4) if int8_kv else None
+            call("vtt_decode_attend", qkvp, cache_k, cache_k + plane, scales,
+                 bias_p, src_p, pos_p, pos, b, t_max, d, heads, q_scale, ctxp,
+                 kv_base + layer * kv_layer, int(int8_kv), stream)
+        # x += proj(ctx)   (tile 3, bias row 15)
         call("vtt_dq_gemv", ctxp, None, None, w0 + 3 * tile, 1, d,
-             c0 + 3 * row, c0 + 15 * row, xp, xp, d, b, _EPI_RESIDUAL, stream)
-        # LN2 -> fc -> GELU   (tiles 4-7, scales rows 4-7, biases rows 16-19)
+             s0 + 3 * s_tile, gsz, c0 + 15 * row, xp, xp, d, b, _EPI_RESIDUAL,
+             stream)
+        # LN2 -> fc -> GELU   (tiles 4-7, biases rows 16-19)
         call("vtt_dq_gemv", xp, c0 + 26 * row, c0 + 27 * row, w0 + 4 * tile,
-             1, d, c0 + 4 * row, c0 + 16 * row, None, hidp, 4 * d, b,
+             1, d, s0 + 4 * s_tile, gsz, c0 + 16 * row, None, hidp, 4 * d, b,
              _EPI_GELU, stream)
-        # x += fc2(h)   (tiles 8-11 = 4 contraction tiles, scale row 8,
-        # the bias once from row 23)
+        # x += fc2(h)   (tiles 8-11 = 4 contraction tiles; int8: one scale
+        # row 8; int4: each tile's own group scales; the bias once, row 23)
         call("vtt_dq_gemv", hidp, None, None, w0 + 8 * tile, 4, d,
-             c0 + 8 * row, c0 + 23 * row, xp, xp, d, b, _EPI_RESIDUAL, stream)
+             s0 + 8 * s_tile, gsz, c0 + 23 * row, xp, xp, d, b, _EPI_RESIDUAL,
+             stream)
     if readout_pack is None:
         return xs, kv_new, None
     v_pad = readout_pack.w.shape[0]
     logits = torch.empty((b, v_pad), dtype=torch.float32, device=dev)
     lnf = readout_pack.lnf
     call("vtt_dq_gemv", xp, lnf[0].data_ptr(), lnf[1].data_ptr(),
-         readout_pack.w.data_ptr(), 1, d, readout_pack.consts[0].data_ptr(),
+         readout_pack.w.data_ptr(), 1, d, readout_pack.consts[0].data_ptr(), 0,
          readout_pack.consts[1].data_ptr(), None, logits.data_ptr(), v_pad, b,
          _EPI_NONE, stream)
     return xs, kv_new, logits
 
 
-def fused_decode_step_cuda(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
+def fused_decode_step_cuda(x, pack: Pack, kv_cache, bias, pos: int,
                            heads: int, readout_pack: Optional[ReadoutPack] = None,
                            kv_scales: Optional[torch.Tensor] = None):
     """The CUDA kernel chain at B = 1; see `fused_decode_step`."""
@@ -429,13 +644,14 @@ def fused_decode_step_cuda(x, pack: FusedDecodePack, kv_cache, bias, pos: int,
     return y, kv_new[:, :, 0], logits
 
 
-def fused_decode_step(x: torch.Tensor, pack: FusedDecodePack,
+def fused_decode_step(x: torch.Tensor, pack: Pack,
                       kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
                       heads: int, readout_pack: Optional[ReadoutPack] = None,
                       kv_scales: Optional[torch.Tensor] = None):
     """One decode step of the whole trunk plus the folded readout, K1.
 
-    x (1, D) token embedding; kv_cache TIME-MAJOR (L, 2, 1, Tmax, D)
+    x (1, D) token embedding; pack the int8 trunk (`pack_gpt`) or the int4
+    one (`pack_gpt_int4`, K7); kv_cache TIME-MAJOR (L, 2, 1, Tmax, D)
     (`cache_to_time_major`), Tmax % 256 == 0, bf16 or, with `kv_scales`
     (L, Tmax, 2) f32, int8 (`quantize_kv_cache`); bias (Tmax, 1) f32
     additive mask (-1e30 on invalid prompt pads); pos — index of the current
@@ -455,7 +671,7 @@ def fused_decode_step(x: torch.Tensor, pack: FusedDecodePack,
                                    readout_pack, kv_scales)
 
 
-def fused_decode_step_batch(x: torch.Tensor, pack: FusedDecodePack,
+def fused_decode_step_batch(x: torch.Tensor, pack: Pack,
                             kv_cache: torch.Tensor, bias: torch.Tensor,
                             pos: Pos, heads: int,
                             kv_scales: Optional[torch.Tensor] = None,
@@ -463,7 +679,8 @@ def fused_decode_step_batch(x: torch.Tensor, pack: FusedDecodePack,
                             readout_pack: Optional[ReadoutPack] = None):
     """One decode step of the trunk for B rows plus the folded readout, K3.
 
-    x (B, D) token embeddings, B <= 8 (<= 12 with an ancestor table);
+    x (B, D) token embeddings, B <= 8 (<= 12 with an ancestor table); pack
+    int8 (`pack_gpt`) or int4 (`pack_gpt_int4`, K7);
     kv_cache TIME-MAJOR (L, 2, B, Tmax, D), bf16 or, with `kv_scales`
     (L, B, Tmax, 2) f32, int8 (`quantize_kv_cache_batch`); bias (B, Tmax)
     f32 additive per-row prompt-pad mask; pos an int shared by all rows or
@@ -491,3 +708,38 @@ def fused_decode_step_batch(x: torch.Tensor, pack: FusedDecodePack,
         raise ValueError(f"fused_decode_step_batch: unsupported device {x.device}")
     return fused_decode_step_batch_plain(x, pack, kv_cache, bias, pos, heads,
                                          kv_scales, beam_src, readout_pack)
+
+
+def fused_decode_verify(x: torch.Tensor, pack: FusedDecodePack,
+                        kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
+                        heads: int):
+    """The speculative verify step, K6: K = 2..8 tokens of ONE sequence in
+    one pass over the int8 trunk.
+
+    x (K, D) embeddings of the tokens at positions pos .. pos + K - 1;
+    kv_cache TIME-MAJOR (L, 2, 1, Tmax, D) bf16, Tmax % 256 == 0 (positions
+    [0, pos) are the committed history); bias (Tmax, 1) f32 additive mask.
+    Row j attends the prefix, then rows i <= j of the K tokens with their
+    unrounded k/v.  Returns (hidden (K, D) f32, kv_new (L, 2, K, D) bf16);
+    commit with `apply_kv_update_span`.  No readout and no int8 KV (the
+    JAX engine refuses spec decode with int8 KV).  CPU tensors take the
+    plain version; CUDA tensors launch the kernels (errors raise)."""
+    kk = x.shape[0]
+    if not 2 <= kk <= 8:
+        raise ValueError(f"fused_decode_verify: 2 <= K <= 8 tokens, got {kk}")
+    if not isinstance(pack, FusedDecodePack):
+        raise TypeError("fused_decode_verify: the verify pass takes the int8 "
+                        f"pack (FusedDecodePack), got {type(pack).__name__}")
+    t_max = kv_cache.shape[3]
+    if bias.shape != (t_max, 1):
+        raise ValueError(f"fused_decode_verify: bias must be {(t_max, 1)}, "
+                         f"got {tuple(bias.shape)}")
+    if x.is_cuda:
+        y, kv_new, _ = _decode_chain_cuda(
+            "fused_decode_verify", x.float().contiguous(), pack, kv_cache,
+            bias.reshape(1, t_max), int(pos), heads, None, None, None,
+            verify=True)
+        return y, kv_new
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_decode_verify: unsupported device {x.device}")
+    return fused_decode_verify_plain(x, pack, kv_cache, bias, int(pos), heads)

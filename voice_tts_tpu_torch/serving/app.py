@@ -30,17 +30,18 @@ import threading
 import time
 from typing import Optional
 
-from voice_tts_tpu.logging import logger
-from voice_tts_tpu.text.emotion import create_emotion_vector
+from voice_tts_tpu_torch.logging import logger
 from voice_tts_tpu_torch.serving.audio_input import ApiError, get_audio_data
 from voice_tts_tpu_torch.serving.http import HttpServer, Request, Response
 from voice_tts_tpu_torch.serving.schemas import (TTSRequest, TTSResponse,
                                                  ValidationError)
+from voice_tts_tpu_torch.text.emotion import create_emotion_vector
 
 # the engine flags that select the port's code paths
 _SERVED_FLAGS = ("use_fp16", "use_int8_decode", "use_fused_decode",
-                 "use_fused_beam_decode", "fold_readout", "use_int8_kv",
-                 "use_bf16_conditioning", "release_master_trees")
+                 "use_int4_decode", "use_fused_beam_decode", "fold_readout",
+                 "use_int8_kv", "use_bf16_conditioning", "release_master_trees",
+                 "spec_decode_k")
 PROFILES = ("serving", "bench")
 
 
