@@ -37,15 +37,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
    K2 109 times per vocode; prints the acceptance rate, the codes per round
    and the stage times beside the bench slice's.
+8. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
+   (`fused_blocks`) and K9 attention (`fused_attention`): a 2.5 s prompt
+   twice (T 704: K8 once per velocity evaluation, 25 a request, no K9) and
+   a 5 s prompt (T 896 > 768: K9 in every block, 325, no K8), K1 once per
+   decode step, K2 109 times per vocode, one more request profiled at each
+   T; prints the stage timers beside the bench slice's;
+9. K11 engine: a second engine on the DiT slice's weights with
+   `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
+   K11 325 times.
+
+The kernel phase also holds K9 and K11 (bf16 and f32, T 896 and 3104)
+beside `F.scaled_dot_product_attention` with the same boolean mask, and K8
+(the 13-block trunk at B 2, T 704); the tiny-engine phase runs K9 and K11
+whole requests and K8 on the s2mel stage with bf16 s2mel (D 256 DiT).
 
 The third-to-last stdout line repeats the card's name and power limit; the
 second-to-last is the kernel JSON: under "kernels" the kernels of the
 served paths, each with its launch count from the path that runs it (K3 and
 K2 from the production slice, K1 from the bench slice, K6 and K7 from the
-spec slice; `launches_by_path` has all three), its largest error against
-the plain version, both times, its bound and `library_ms` (null where no
-one PyTorch call computes the function: K1, K2, K3, K6; K7's is
-`torch._weight_int4pack_mm` at the loader's GEMVs); under "off_path" K4,
+spec slice, K8 and K9 from the DiT slice, K11 from its engine;
+`launches_by_path` has all five), its largest error against the plain
+version, both times, its bound and `library_ms` (null where no one PyTorch
+call computes the function: K1, K2, K3, K6, K8; K7's is
+`torch._weight_int4pack_mm` at the loader's GEMVs, K9's and K11's
+`F.scaled_dot_product_attention`); under "off_path" K4,
 which no flagship slice reaches, with the time of
 `torch._weight_int8pack_mm` as its `library_ms` where the build has it.
 The last line is `{"ok": true, "device": {...}}`.
@@ -703,6 +719,163 @@ def check_k2(torch, dev, results):
         "ms_of": "the 109 activations of one 448-frame vocode"})
 
 
+# f32 attention: sums of up to 3104 products in another order, and one
+# rescaling a 64-key tile in the kernel's online softmax
+ATT_F32_TOL = 1e-4
+# bf16 attention: the kernel rounds the unnormalized probabilities to bf16
+# (as jax's flash kernel), the plain K9 version the normalized ones, and the
+# output rounds to bf16: a few bf16 ulps (2^-8) of the largest magnitude
+ATT_BF16_TOL = 2 ** -6
+
+
+def attention_case(torch, dev, g, kind: str, dtype, t: int, lens: list):
+    """One K9 or K11 case at B 2, H 8, hd 64: kernel against its plain
+    version (valid query rows), CUDA-event times, bound, and the time of
+    `F.scaled_dot_product_attention` with the boolean mask that computes the
+    same function on valid rows (checked against the plain version)."""
+    import torch.nn.functional as F
+    from voice_tts_tpu_torch.ops import cfm_attention as k9
+    from voice_tts_tpu_torch.ops import flash_attention as k11
+
+    b, h, hd = 2, 8, 64
+    q, k, v = (torch.randn(b, h, t, hd, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    lens_t = torch.tensor(lens, device=dev, dtype=torch.int32)
+    keep = torch.arange(t, device=dev)[None, :] < lens_t[:, None]       # (B, T)
+    if kind == "K9":
+        args = (q, k, v, lens_t, hd ** -0.5)
+        kernel, plain = k9.cfm_attention, k9.cfm_attention_ref
+        mask = keep[:, None, None, :]
+        # keys a query row attends to: lens[b] for each of the T rows
+        attended = sum(t * n for n in lens)
+    else:
+        seg = keep.to(torch.int32)
+        args = (q, k, v, seg, seg, hd ** -0.5)
+        kernel, plain = k11.flash_attention, k11.flash_attention_ref
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+        # a row of segment 1 sees lens[b] keys, one of segment 0 T - lens[b]
+        attended = sum(n * n + (t - n) * (t - n) for n in lens)
+        lens_t = seg
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    tol = ATT_F32_TOL if dtype == torch.float32 else ATT_BF16_TOL
+    tag = f"{kind} {str(dtype).split('.')[-1]} B={b} H={h} T={t} lens={lens}"
+    err = max(max_err(torch, out[i, :, :n], ref[i, :, :n]) for i, n in enumerate(lens))
+    scale = max(1.0, float(ref.float().abs().max()))
+    print(f"{tag}: max_abs_err {err:.4g} on valid rows (tol {tol:.4g} * "
+          f"max(1, max|ref|) = {tol * scale:.4g})")
+    if not torch.isfinite(out.float()).all() or not err <= tol * scale:
+        fail(f"{tag} disagrees with the plain version")
+    ms = cuda_time_ms(torch, lambda: kernel(*args), 10)
+    plain_ms = cuda_time_ms(torch, lambda: plain(*args), 3)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=hd ** -0.5)
+    lib_ms = None
+    try:
+        lib_err = max(max_err(torch, library()[i, :, :n], ref[i, :, :n])
+                      for i, n in enumerate(lens))
+    except (NotImplementedError, RuntimeError) as e:
+        print(f"library call unavailable: {str(e).splitlines()[0][:200]}")
+    else:
+        print(f"{tag} F.scaled_dot_product_attention: max_abs_err {lib_err:.4g}")
+        if lib_err <= 4 * tol * scale:
+            lib_ms = library_time_ms(torch, library, 10)
+    # q, k, v read, the output written, the mask's ints read; QK^T and PV
+    # are 4 operations a (query, attended key, head dim)
+    bnd = bound(nbytes(q, k, v, out, lens_t), 4 * h * hd * attended,
+                "f32" if dtype == torch.float32 else "bf16")
+    print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms")
+    return {"dtype": str(dtype).split(".")[-1], "t": t, "lens": lens, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err, **bnd}
+
+
+def check_attention(torch, dev, results):
+    """K9 and K11 at B 2, H 8, hd 64, bf16 and f32, T 896 (the DiT slice's
+    5 s prompt) and T 3104 (the production slice's mel bucket 2656 plus
+    prompt bucket 448), lens below T; the entry's headline is bf16 at T 896,
+    the shape the slice runs."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    for kind, name, src in (("K9", "cfm_attention", "voice_tts_tpu/ops/attic/cfm_attention.py:64"),
+                            ("K11", "flash_attention", "voice_tts_tpu/models/s2mel/dit.py:122")):
+        print(f"{kind} tolerance: f32 {ATT_F32_TOL} (sums in another order), bf16 "
+              f"{ATT_BF16_TOL} (probabilities rounded before the normalisation, "
+              f"output rounded to bf16), times max(1, max|ref|)")
+        cases = [attention_case(torch, dev, g, kind, dtype, t, lens)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for t, lens in ((896, [850, 600]), (3104, [3000, 2100]))]
+        head = cases[0]
+        results.append({
+            "name": name, "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_attention.cu",
+            "replaces": src, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_call": "torch.nn.functional.scaled_dot_product_attention (boolean mask)",
+            "ms_of": "one call, bf16, B 2, H 8, T 896, lens (850, 600)", "cases": cases})
+
+
+# K8 on the card against its plain version: the same bf16 rounding points,
+# but GEMM sums in another order, expf against torch's sigmoid, and the
+# attention's probabilities rounded before the normalisation flip single bf16
+# roundings, compounded over 13 blocks
+K8_TOL = 2e-2
+
+
+def check_k8(torch, dev, results):
+    """K8 at the flagship trunk (13 blocks, D 512, 8 heads) with random DiT
+    weights, B 2 (CFG), T 704 (the DiT slice's 2.5 s prompt), lens 650."""
+    from voice_tts_tpu_torch.config import TTSConfig
+    from voice_tts_tpu_torch.models.layers import init_weights
+    from voice_tts_tpu_torch.models.s2mel.dit import DiT
+    from voice_tts_tpu_torch.ops import dit_blocks as k8
+
+    cfg = TTSConfig().s2mel
+    g = torch.Generator(device=dev).manual_seed(11)
+    with torch.device(dev):
+        dit = init_weights(DiT(cfg.dit, cfg.wavenet), g).eval()
+    d, heads, depth = cfg.dit.hidden_dim, cfg.dit.num_heads, cfg.dit.depth
+    b, t, n = 2, 704, 650
+    with torch.no_grad():
+        tables = dit.step_tables(torch.tensor([0.36], device=dev))
+        wb = k8.pack_dit_tables(dit, tables)[0]
+        pack = k8.pack_dit_blocks(dit)
+    x = torch.randn(b, t, d, generator=g, device=dev)
+    cos, sin = k8.rope_tables(t, d // heads, cfg.dit.rope_base, dev)
+    lens = torch.tensor([n, n], device=dev, dtype=torch.int32)
+
+    def run(fn):
+        return fn(x, pack, wb, cos, sin, lens, heads)
+    out = run(k8.dit_block_chain)
+    torch.cuda.synchronize()
+    ref = run(k8.dit_block_chain_ref)
+    err = max_err(torch, out[:, :n], ref[:, :n])
+    scale = float(ref[:, :n].abs().max())
+    print(f"K8 tolerance: {K8_TOL} * max|ref| (bf16 roundings flipped by sums "
+          f"in another order, compounded over {depth} blocks)")
+    print(f"K8 L={depth} D={d} H={heads} B={b} T={t} lens={n}: max_abs_err "
+          f"{err:.4g} on valid rows (max|ref| {scale:.4g})")
+    if not torch.isfinite(out).all() or not err <= K8_TOL * scale:
+        fail("K8 dit_block_chain disagrees with the plain version")
+    ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain), 10)
+    plain_ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain_ref), 3)
+    # bytes: the bf16 weights once, x read and the output written in f32, the
+    # tables; operations: 2 per multiply-add of the 13 D^2 weights a row, and
+    # 4 a (query, valid key, head dim) of the attention, every layer
+    ops = depth * (2 * b * t * 13 * d * d + 4 * d * b * t * n)
+    bnd = bound(nbytes(*pack, x, out, wb, cos, sin, lens), ops)
+    print(f"K8: {ms:.4f} ms kernel chain, {plain_ms:.4f} ms plain, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    results.append({
+        "name": "dit_block_chain", "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_blocks.cu",
+        "replaces": "voice_tts_tpu/ops/attic/dit_blocks.py:243", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+        "bound_by": bnd["bound_by"], "library_ms": None,
+        "ms_of": "one trunk evaluation (13 blocks), B 2, T 704, lens 650",
+        "bound_bytes": bnd["bound_bytes"], "bound_ops": bnd["bound_ops"]})
+
+
 # ---------------------------------------------------------------------------
 # the slice
 # ---------------------------------------------------------------------------
@@ -731,15 +904,26 @@ def _shared_noise(torch, cpu, gpu, dev):
     gpu._draw_noise = lambda shape: draw(shape).to(dev)
 
 
-def _tiny_pair(torch, dev, **flags):
-    """The tiny engine with `flags` on the CPU (plain versions) and on the
-    card (every kernel launched), with the same random weights."""
+def _tiny_pair(torch, dev, dit=None, **flags):
+    """The tiny engine with engine `flags` on the CPU (plain versions) and on
+    the card (every kernel launched), with the same random weights.  With
+    `dit` (DiTConfig fields to set) the DiT is widened to D 256, 4 heads:
+    the DiT kernels' 64-wide heads, and `can_fuse_dit` holds."""
     import copy
 
     from voice_tts_tpu_torch.engine.engine import TTSEngine, tiny_config
 
-    base = TTSEngine.tiny(device="cpu", seed=0)
-    cfg = tiny_config(**flags)
+    def config(**engine_flags):
+        cfg = tiny_config(**engine_flags)
+        if dit is not None:
+            d = cfg.s2mel.dit
+            d.hidden_dim, d.num_heads = 256, 4
+            cfg.s2mel.wavenet.hidden_dim = d.hidden_dim
+            for k, v in dit.items():
+                setattr(d, k, v)
+        return cfg
+    base = TTSEngine.random(config(), device="cpu", seed=0)
+    cfg = config(**flags)
     cpu = TTSEngine(cfg, copy.deepcopy(base.models), base.tokenizer, device="cpu")
     gpu = TTSEngine(cfg, copy.deepcopy(base.models), base.tokenizer, device=dev)
     _shared_noise(torch, cpu, gpu, dev)
@@ -762,14 +946,16 @@ def _compare_wavs(tag, ref, out, tol):
 # same codes, then f32 s2mel / vocoder on two devices: the int16 samples may
 # differ by float rounding only
 WAV_TOL = 64
+# the bench-like engine flags of the tiny checks: the int8 K1 decode
+TINY_BENCH_FLAGS = dict(use_int8_decode=True, use_fused_decode=True,
+                        fold_readout=True, use_fp16=True, fuse_pipeline=True)
 
 
 def check_tiny_engine(torch, dev):
     """End-to-end reference on a small input, bench-like flags: the tiny
     engine on the card (K1, K2, K4 on its int8 prefill) against the same
     weights on the CPU (plain versions), greedy, same CFM noise."""
-    cpu, gpu = _tiny_pair(torch, dev, use_int8_decode=True, use_fused_decode=True,
-                          fold_readout=True, use_fp16=True, fuse_pipeline=True)
+    cpu, gpu = _tiny_pair(torch, dev, **TINY_BENCH_FLAGS)
     prompt = tone_prompt(1.0, 16000)
     ref = cpu.infer(prompt, "hello world.", do_sample=False)
     out = gpu.infer(prompt, "hello world.", do_sample=False)
@@ -838,6 +1024,65 @@ def check_tiny_engine_spec(torch, dev):
             fail(f"tiny engine ({tag}): the card's speculative rounds differ from the CPU's")
 
 
+# bf16 s2mel: cuBLAS and the CPU round the DiT's bf16 products at other
+# points (as COND_TOL), and K8's bf16 storage flips a rounding here and there
+S2MEL_BF16_TOL = 3e-2
+
+
+def check_tiny_engine_dit(torch, dev, counters):
+    """The DiT kernels in the tiny engine (D 256) on the card against the
+    same weights on the CPU, same CFM noise: K9 (`fused_attention`) and K11
+    (`flash_attention`) with f32 s2mel, whole requests, WAVs within WAV_TOL
+    and one launch per block and Euler step; K8 (`fused_blocks` with
+    `use_bf16_s2mel`, the DiT slice's flags) on the s2mel stage alone with
+    the same random inputs, mels within S2MEL_BF16_TOL and one launch per
+    Euler step."""
+    import numpy as np
+
+    prompt = tone_prompt(1.0, 16000)
+    for tag, flag, name in (("K9", "fused_attention", "cfm_attention"),
+                            ("K11", "flash_attention", "flash_attention")):
+        cpu, gpu = _tiny_pair(torch, dev, dit={flag: True}, **TINY_BENCH_FLAGS)
+        ref = cpu.infer(prompt, "hello world.", do_sample=False)
+        counters.reset()
+        out = gpu.infer(prompt, "hello world.", do_sample=False)
+        torch.cuda.synchronize()
+        got = counters.snapshot()[name]
+        want = gpu.cfg.engine.diffusion_steps * gpu.cfg.s2mel.dit.depth
+        print(f"tiny engine ({tag}, {flag}) launches {got} (want {want})")
+        if got != want:
+            fail(f"tiny engine ({tag}): {name} was not launched once per block and step")
+        _compare_wavs(f"tiny engine ({tag}, {flag})", ref, out, WAV_TOL)
+
+    cpu, gpu = _tiny_pair(torch, dev, dit=dict(fused_blocks=True, fused_attention=True),
+                          use_bf16_s2mel=True, **TINY_BENCH_FLAGS)
+    rng = np.random.default_rng(3)
+    c = gpu.cfg
+    cb, pb = 32, 64
+    mb = gpu._mel_bucket_for(cb)
+    inputs = [rng.standard_normal((1, cb, c.gpt.model_dim)).astype(np.float32),
+              rng.integers(0, c.semantic_codec.codebook_size, (1, cb)),
+              np.asarray([cb - 2]),
+              rng.standard_normal((1, pb, c.s2mel.length_regulator.channels)).astype(np.float32),
+              np.asarray([pb - 7]),
+              rng.standard_normal((1, c.mel.num_mels, pb)).astype(np.float32),
+              rng.standard_normal((1, c.campplus.embedding_size)).astype(np.float32)]
+    with torch.no_grad():
+        ref, _ = cpu._s2mel(*[torch.from_numpy(a) for a in inputs], mb)
+        counters.reset()
+        out, _ = gpu._s2mel(*[torch.from_numpy(a).to(dev) for a in inputs], mb)
+        torch.cuda.synchronize()
+    got = counters.snapshot()
+    err, scale = max_err(torch, out.cpu(), ref), float(ref.abs().max())
+    print(f"tiny engine (K8, use_bf16_s2mel + fused_blocks) s2mel: max_abs_err "
+          f"{err:.4g} (max|ref| {scale:.4g}, tol {S2MEL_BF16_TOL} * max|ref|); "
+          f"launches K8 {got['dit_block_chain']}, K9 {got['cfm_attention']}")
+    if not err <= S2MEL_BF16_TOL * scale:
+        fail("tiny engine (K8): the card's s2mel disagrees with the CPU's")
+    if got["dit_block_chain"] != c.engine.diffusion_steps or got["cfm_attention"] != 0:
+        fail("tiny engine (K8): K8 was not launched once per Euler step")
+
+
 def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
     import http.client
 
@@ -873,11 +1118,13 @@ def profile_request(torch, engine, prompt: bytes, text: str):
                         for e in top]}))
 
 
-def serve_three(torch, engine, profile: str, counters):
+def serve_requests(torch, engine, profile: str, counters, prompts_s=(5.0, 5.0, 5.0)):
     """Serve `engine` over HTTP from a background thread: GET /health, GET
-    /debug/worker-info, then three POST /tts with the counters set to 0
-    just before and read just after.  Returns (launches, decode steps,
-    AA activations per vocode, prompt, text, each request's metrics)."""
+    /debug/worker-info, then one POST /tts per prompt length in `prompts_s`
+    (seconds of the two-tone prompt), with the counters set to 0 just before
+    the first and read after each.  Returns (launches over all requests,
+    decode steps, AA activations per vocode, the first prompt, text, each
+    request's metrics, each request's launches)."""
     import numpy as np
     from voice_tts_tpu_torch.audio import decode_audio_bytes
     from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
@@ -899,17 +1146,21 @@ def serve_three(torch, engine, profile: str, counters):
               + json.dumps({k: info[k] for k in ("profile", "num_beams", "engine_flags")}))
         if status != 200 or info["profile"] != profile:
             fail("/debug/worker-info does not report the served profile")
-        prompt_hex = tone_prompt(5.0, 22050).hex()
+        prompts = [tone_prompt(sec, 22050) for sec in prompts_s]
         text = "欢迎大家来体验这个语音合成系统谢谢大家."
         counters.reset()
-        steps, metrics = 0, []
-        for i in range(3):
+        steps, metrics, per_request = 0, [], []
+        before = counters.snapshot()
+        for i, prompt in enumerate(prompts):
             t1 = time.perf_counter()
             status, body = http(port, "POST", "/tts", json.dumps(
-                {"text": text, "spk_audio": prompt_hex}).encode())
+                {"text": text, "spk_audio": prompt.hex()}).encode())
             wall = time.perf_counter() - t1
             if status != 200:
                 fail(f"[{profile}] POST /tts #{i} -> {status}: {body[:500]!r}")
+            after = counters.snapshot()
+            per_request.append({k: after[k] - before[k] for k in after})
+            before = after
             resp = json.loads(body)
             wav, sr = decode_audio_bytes(bytes.fromhex(resp["audio_hex"]))
             if sr != 22050 or wav.size == 0 or not np.all(np.isfinite(wav)):
@@ -917,17 +1168,17 @@ def serve_three(torch, engine, profile: str, counters):
             m = engine.last_metrics
             metrics.append(dict(m))
             steps += m["decode_steps"]
-            print(f"[{profile}] POST /tts #{i}: 200, {wav.size} samples "
-                  f"({resp['audio_length']:.3f} s), rtf {resp['rtf']:.4f} (server), "
-                  f"wall {wall:.3f} s, timers "
+            print(f"[{profile}] POST /tts #{i} ({prompts_s[i]} s prompt): 200, "
+                  f"{wav.size} samples ({resp['audio_length']:.3f} s), rtf "
+                  f"{resp['rtf']:.4f} (server), wall {wall:.3f} s, timers "
                   + json.dumps({k: round(v, 4) for k, v in m.items()}))
         launches = counters.snapshot()
     finally:
         server.stop()
         service.close()
-    print(f"[{profile}] launches over 3 requests: {launches} (decode steps "
-          f"{steps}, {n_act} AA activations per vocode)")
-    return launches, steps, n_act, bytes.fromhex(prompt_hex), text, metrics
+    print(f"[{profile}] launches over {len(prompts)} requests: {launches} (decode "
+          f"steps {steps}, {n_act} AA activations per vocode)")
+    return launches, steps, n_act, prompts[0], text, metrics, per_request
 
 
 def run_production_slice(torch, dev, counters):
@@ -942,8 +1193,8 @@ def run_production_slice(torch, dev, counters):
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
-    launches, steps, n_act, prompt, text, _ = serve_three(torch, engine, "serving",
-                                                          counters)
+    launches, steps, n_act, prompt, text, _, _ = serve_requests(torch, engine, "serving",
+                                                                counters)
     if launches["fused_decode_step_batch"] != steps or steps == 0:
         fail("K3 was not launched once per beam decode step")
     if launches["fused_decode_step"] != 0:
@@ -966,8 +1217,8 @@ def run_bench_slice(torch, dev, counters):
     torch.cuda.synchronize()
     print(f"[bench] engine build: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches, steps, n_act, _, _, metrics = serve_three(torch, engine, "bench",
-                                                        counters)
+    launches, steps, n_act, _, _, metrics, _ = serve_requests(torch, engine, "bench",
+                                                              counters)
     if launches["fused_decode_step"] != steps or steps == 0:
         fail("K1 was not launched once per decode step")
     if launches["fused_decode_step_batch"] != 0:
@@ -990,8 +1241,8 @@ def run_spec_slice(torch, dev, counters, bench_metrics):
     torch.cuda.synchronize()
     print(f"[spec] engine build: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches, steps, n_act, prompt, text, metrics = serve_three(torch, engine, "spec",
-                                                                counters)
+    launches, steps, n_act, prompt, text, metrics, _ = serve_requests(torch, engine,
+                                                                      "spec", counters)
     rounds = sum(m["spec_rounds"] for m in metrics)
     accepted = sum(m["spec_accepted"] for m in metrics)
     if rounds == 0 or launches["fused_decode_verify"] != rounds:
@@ -1014,6 +1265,94 @@ def run_spec_slice(torch, dev, counters, bench_metrics):
         "bench_rtf": [m["rtf"] for m in bench_metrics],
         "bench_decode_steps": [m["decode_steps"] for m in bench_metrics]}))
     profile_request(torch, engine, prompt, text)
+    return launches
+
+
+def dit_config():
+    """The DiT slice: `bench_config()` with bf16 s2mel, the K8 trunk and K9
+    attention (the JAX engine's flags; no server profile has them)."""
+    from voice_tts_tpu_torch.engine.engine import bench_config
+
+    cfg = bench_config()
+    cfg.engine.use_bf16_s2mel = True
+    cfg.s2mel.dit.fused_blocks = True
+    cfg.s2mel.dit.fused_attention = True
+    return cfg
+
+
+def run_dit_slice(torch, dev, counters, bench_metrics):
+    """The DiT slice at the flagship widths: three POST /tts, a 2.5 s prompt
+    twice (prompt bucket 256 + mel bucket 448 = T 704: the K8 trunk, once per
+    velocity evaluation) and a 5 s prompt (bucket 448, T 896 > 768: K9 in
+    every block), then one profiled request at each prompt length.  Returns
+    (launches, the engine)."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine
+
+    t0 = time.perf_counter()
+    engine = TTSEngine.random(dit_config(), device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[dit] engine build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    launches, _, n_act, prompt, text, metrics, per_request = serve_requests(
+        torch, engine, "dit", counters, prompts_s=(2.5, 2.5, 5.0))
+    prompt_t896 = tone_prompt(5.0, 22050)
+    cfg = engine.cfg
+    evals = cfg.engine.diffusion_steps
+    for i, (m, got) in enumerate(zip(metrics, per_request)):
+        k8, k9 = got["dit_block_chain"], got["cfm_attention"]
+        want = (evals, 0) if i < 2 else (0, evals * cfg.s2mel.dit.depth)
+        print(f"[dit] request #{i}: K8 {k8}, K9 {k9} (want {want}), K1 "
+              f"{got['fused_decode_step']} for {m['decode_steps']} steps, K2 "
+              f"{got['aa_snake_activation']}")
+        if (k8, k9) != want:
+            fail(f"[dit] request #{i}: K8 / K9 launches {(k8, k9)}, want {want}")
+        if got["fused_decode_step"] != m["decode_steps"] or m["decode_steps"] == 0:
+            fail(f"[dit] request #{i}: K1 was not launched once per decode step")
+        if got["aa_snake_activation"] != n_act or got["flash_attention"] != 0:
+            fail(f"[dit] request #{i}: K2 not once per activation, or K11 launched")
+    keys = ("s2mel_time", "gpt_gen_time", "gpt_forward_time", "bigvgan_time", "rtf")
+    print("[dit] stage timers " + json.dumps({
+        "dit": {k: [m[k] for m in metrics] for k in keys},
+        "bench": {k: [m[k] for m in bench_metrics] for k in keys},
+        "dit_prompts_s": [2.5, 2.5, 5.0], "bench_prompts_s": [5.0, 5.0, 5.0]}))
+    print("[dit] profiled request at T 704 (K8):")
+    profile_request(torch, engine, prompt, text)
+    print("[dit] profiled request at T 896 (K9):")
+    profile_request(torch, engine, prompt_t896, text)
+    return launches, engine
+
+
+def run_flash_engine(torch, dev, counters, dit_engine):
+    """K11: a second engine on the DiT slice engine's weights with
+    `flash_attention` on and `fused_attention` / `fused_blocks` off, one
+    request at the 5 s prompt (T 896): K11 in every block and Euler step."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine
+    from voice_tts_tpu_torch.models.s2mel.s2mel import S2Mel
+
+    cfg = dit_config()
+    cfg.s2mel.dit.fused_blocks = cfg.s2mel.dit.fused_attention = False
+    cfg.s2mel.dit.flash_attention = True
+    extras = {"w2v_mean": dit_engine.w2v_mean.cpu().numpy(),
+              "w2v_std": dit_engine.w2v_std.cpu().numpy(),
+              "emo_matrix": dit_engine.emo_matrix, "spk_matrix": dit_engine.spk_matrix}
+    # the s2mel module carries its DiT flags: a new one with this
+    # configuration, holding the DiT slice's weights; the other models shared
+    with torch.device(dev):
+        s2mel = S2Mel(cfg.s2mel, cfg.semantic_codec.hidden_size)
+    s2mel.load_state_dict(dit_engine.models["s2mel"].state_dict())
+    engine = TTSEngine(cfg, {**dit_engine.models, "s2mel": s2mel},
+                       dit_engine.tokenizer, extras, dev)
+    launches, _, n_act, _, _, metrics, _ = serve_requests(torch, engine, "flash", counters,
+                                                          prompts_s=(5.0,))
+    want = cfg.engine.diffusion_steps * cfg.s2mel.dit.depth
+    print(f"[flash] K11 {launches['flash_attention']} (want {want}), K8 "
+          f"{launches['dit_block_chain']}, K9 {launches['cfm_attention']}; s2mel_time "
+          f"{metrics[0]['s2mel_time']:.4f} s")
+    if (launches["flash_attention"] != want or launches["dit_block_chain"]
+            or launches["cfm_attention"]):
+        fail("[flash] K11 was not launched once per block and Euler step")
+    if launches["aa_snake_activation"] != n_act:
+        fail("[flash] K2 was not launched on every vocoder activation")
     return launches
 
 
@@ -1040,21 +1379,30 @@ def main():
     check_k3(torch, dev, results)
     check_k7(torch, dev, results)
     check_k6(torch, dev, results)
+    check_attention(torch, dev, results)
+    check_k8(torch, dev, results)
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
     check_tiny_engine_spec(torch, dev)
+    check_tiny_engine_dit(torch, dev, counters)
     by_path = {"serving": run_production_slice(torch, dev, counters)}
     torch.cuda.empty_cache()
     by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
     torch.cuda.empty_cache()
     by_path["spec"] = run_spec_slice(torch, dev, counters, bench_metrics)
+    torch.cuda.empty_cache()
+    by_path["dit"], dit_engine = run_dit_slice(torch, dev, counters, bench_metrics)
+    by_path["flash"] = run_flash_engine(torch, dev, counters, dit_engine)
+    del dit_engine
     # each kernel's launches come from the path that runs it: K3 and K2 from
     # the production slice, K1 from the bench slice, K6 and K7 from the spec
-    # slice; K4 serves int8 products of <= 32 rows, the tiny engines' prefill,
-    # not the flagship slices (their prefill has 84 rows), and is reported
-    # beside the paths' kernels
+    # slice, K8 and K9 from the DiT slice, K11 from its engine; K4 serves
+    # int8 products of <= 32 rows, the tiny engines' prefill, not the
+    # flagship slices (their prefill has 84 rows), and is reported beside
+    # the paths' kernels
     owner = {"fused_decode_step": "bench", "fused_decode_verify": "spec",
-             "fused_decode_int4": "spec"}
+             "fused_decode_int4": "spec", "dit_block_chain": "dit",
+             "cfm_attention": "dit", "flash_attention": "flash"}
     on_path, off_path = [], []
     for r in results:
         r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]

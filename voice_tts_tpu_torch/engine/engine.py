@@ -27,6 +27,15 @@ master, K7) through K1 or K3; with `spec_decode_k >= 2` it stays int8 and
 the int4 pack is the draft.  `int4_expand` takes False or "i8sh" (the same
 numerics); True, a TPU-only dequant scheme, raises.
 
+s2mel follows the JAX engine's DiT flags: with `use_bf16_s2mel` a bf16
+runtime copy of the s2mel module runs the solve (the DiT inputs cast to it,
+the CFM state and the velocity f32); `DiTConfig.fused_blocks` runs the
+whole block trunk through K8 when the request batch is 1, the prompt plus
+mel buckets are at most 768 frames and `can_fuse_dit` holds (the JAX
+engine's gate, kept although the card has no VMEM limit); otherwise each
+block's attention runs K9 with `fused_attention`, K11 with
+`flash_attention`, else the einsum.
+
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
 setting of the Mosaic kernels, which the CUDA chain does not have),
 `use_fused_batch_decode` (the batched sampling decode: the server takes one
@@ -70,6 +79,8 @@ from voice_tts_tpu_torch.models.s2mel.s2mel import (S2Mel, assemble_condition,
                                                     place_prompt_mel,
                                                     slice_generated)
 from voice_tts_tpu_torch.models.vocoder.bigvgan import BigVGAN
+from voice_tts_tpu_torch.ops.dit_blocks import (can_fuse_dit, pack_dit_blocks,
+                                                pack_dit_tables)
 from voice_tts_tpu_torch.ops.fused_decode import (check_int4_expand, pack_gpt,
                                                   pack_gpt_int4, pack_readout)
 from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
@@ -78,7 +89,9 @@ from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
 # JAX-engine flags whose paths the port does not carry yet
 _UNPORTED_FLAGS = ("use_packed_vocoder", "use_shared_act_vocoder",
-                   "use_fused_vocoder", "use_bf16_s2mel")
+                   "use_fused_vocoder")
+# the K8 trunk's frame limit (prompt bucket + mel bucket), as the JAX engine
+FUSED_DIT_MAX_FRAMES = 768
 
 
 @dataclasses.dataclass
@@ -278,6 +291,14 @@ class TTSEngine:
             self.w2v_rt, self.repcodec_rt, self.campplus_rt = (
                 self.w2v, self.repcodec, self.campplus)
             self.cond_gpt = self.gpt
+        # s2mel runtime copy: bf16 under use_bf16_s2mel (the speaker
+        # conditioning's regulator keeps the f32 master, as the JAX engine);
+        # the K8 weight pack is static, so it is built once here
+        self.s2mel_rt = (copy.deepcopy(self.s2mel).to(torch.bfloat16)
+                         if e.use_bf16_s2mel else self.s2mel)
+        dcfg = cfg.s2mel.dit
+        self.dit_pack = (pack_dit_blocks(self.s2mel_rt.estimator)
+                         if dcfg.fused_blocks and can_fuse_dit(dcfg) else None)
         if e.release_master_trees:
             # inference never reads the f32 GPT / w2v-bert masters once the
             # runtime copies exist; dropping them frees their device memory
@@ -731,31 +752,45 @@ class TTSEngine:
             self._observe_code_len(bucket, [obs_codes], [False], cbucket, gen)
         return wav[: n_frames * cfg.mel.hop_size]
 
+    def use_fused_dit(self, batch: int, total_max: int) -> bool:
+        """The JAX engine's K8 gate: the pack exists (`fused_blocks` and
+        `can_fuse_dit`), one request, at most FUSED_DIT_MAX_FRAMES frames."""
+        return (self.dit_pack is not None and batch == 1
+                and total_max <= FUSED_DIT_MAX_FRAMES)
+
     def _s2mel(self, latent, codes, code_len, prompt_condition, prompt_len,
                ref_mel, style, mel_bucket: int):
         """Length regulator + CFM solve; returns (mel (B, 80, mel_bucket)
         with frames past target_len zeroed, target_len)."""
         e = self.cfg.engine
-        latent2 = self.s2mel.gpt_layer(latent)
+        s2 = self.s2mel_rt
+        latent2 = s2.gpt_layer(latent)
         s_infer = repcodec_vq2emb(self.repcodec, codes) + latent2
         target_len = torch.floor(code_len.float()
                                  * self.cfg.s2mel.mel_scale_factor).long()
-        cond = self.s2mel.regulate(s_infer, code_len, target_len, mel_bucket)
+        cond = s2.regulate(s_infer, code_len, target_len, mel_bucket)
         total_max = prompt_condition.shape[1] + mel_bucket
         cat, total_len = assemble_condition(prompt_condition, prompt_len, cond,
                                             target_len, total_max)
         prompt_x = place_prompt_mel(ref_mel, prompt_len, total_max)
         n_steps = e.diffusion_steps
-        est = self.s2mel.estimator
+        est = s2.estimator
         t_mids = torch.linspace(0.0, 1.0, n_steps + 1, device=self.device)[:n_steps]
         tables = est.step_tables(t_mids)
+        fused_w = None
+        if self.use_fused_dit(cat.shape[0], total_max):
+            fused_w = self.dit_pack
+            tables["fused_wb"] = pack_dit_tables(est, tables)
+        # compute dtype follows the runtime module; the CFM state stays f32
+        dt = self._float_dtype(s2)
+
+        def velocity(x, p, lens, t, s, mu, tab):
+            return s2.velocity(x.to(dt), p.to(dt), lens, t, s.to(dt), mu.to(dt),
+                               tables=tab, fused_w=fused_w).float()
         noise = self._draw_noise((cat.shape[0], prompt_x.shape[1], total_max))
-        mel = cfm_inference(
-            lambda x, p, lens, t, s, mu, tab: est(x, p, lens, t, s, mu,
-                                                  tables=tab).float(),
-            cat, total_len, prompt_x, prompt_len, style, n_steps,
-            e.inference_cfg_rate, noise=noise,
-            tables=lambda i: DiT.table_step(tables, i))
+        mel = cfm_inference(velocity, cat, total_len, prompt_x, prompt_len, style,
+                            n_steps, e.inference_cfg_rate, noise=noise,
+                            tables=lambda i: DiT.table_step(tables, i))
         gen = slice_generated(mel, prompt_len, mel_bucket)
         frame = torch.arange(mel_bucket, device=self.device)
         # frames past target_len still hold CFM noise; zero them so the

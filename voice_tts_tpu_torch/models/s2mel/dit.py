@@ -1,7 +1,15 @@
 """Flow-matching DiT estimator (`voice_tts_tpu/models/s2mel/dit.py`):
 llama-style blocks with AdaLN(RMSNorm) on the timestep embedding,
-interleaved-pair RoPE, SwiGLU FF, full key-masked attention (plain einsum
-ops), long skip connection, WaveNet final head.
+interleaved-pair RoPE, SwiGLU FF, full key-masked attention, long skip
+connection, WaveNet final head.
+
+Attention in a block runs, in the JAX module's order of precedence, K9
+(`ops/cfm_attention.py`) with `DiTConfig.fused_attention` and `x_lens`
+given, K11 (`ops/flash_attention.py`) with `flash_attention`, else the
+einsum.  `forward(fused_w=...)` with a `fused_wb` entry in `tables` runs the
+whole block trunk through K8 (`ops/dit_blocks.py`).  The JAX gate is
+`jax.default_backend() == "tpu"`; here each wrapper takes its plain version
+on CPU tensors and its kernel on CUDA ones, so the CPU runs the same wiring.
 
 `step_tables(t_span)` evaluates every timestep-dependent projection once
 for the whole Euler schedule; `forward(tables=...)` takes one step's slice
@@ -21,6 +29,9 @@ from torch import nn
 from voice_tts_tpu_torch.config import DiTConfig, WaveNetConfig
 from voice_tts_tpu_torch.models.layers import Conv1d, Linear, RMSNorm
 from voice_tts_tpu_torch.models.s2mel.wavenet import WN
+from voice_tts_tpu_torch.ops import cfm_attention as k9
+from voice_tts_tpu_torch.ops import dit_blocks as k8
+from voice_tts_tpu_torch.ops import flash_attention as k11
 
 
 def find_multiple(n: int, k: int) -> int:
@@ -75,7 +86,7 @@ class DiTBlock(nn.Module):
         self.w3 = Linear(d, inner, use_bias=False)
         self.w2 = Linear(inner, d, use_bias=False)
 
-    def forward(self, x, c, freqs, mask, tables=None):
+    def forward(self, x, c, freqs, mask, x_lens=None, tables=None):
         d = self.cfg.hidden_dim
         h = self.cfg.num_heads
         hd = d // h
@@ -86,12 +97,25 @@ class DiTBlock(nn.Module):
         q = apply_rope(q.reshape(b, t, h, hd), freqs)
         k = apply_rope(k.reshape(b, t, h, hd), freqs)
         v = v.reshape(b, t, h, hd)
-        scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(hd)
-        scores = scores.float()
-        scores = torch.where(mask[:, None, :, :], scores,
-                             torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        attn = torch.einsum("bhij,bjhd->bihd", probs, v).reshape(b, t, d)
+        if self.cfg.fused_attention and x_lens is not None:
+            out = k9.cfm_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), x_lens, 1.0 / math.sqrt(hd))
+            attn = out.transpose(1, 2).reshape(b, t, d)
+        elif self.cfg.flash_attention:
+            # padded keys fenced by segment ids (1 valid, 0 padded); no
+            # padding of T: the kernel masks its own ragged edge
+            seg = mask[:, 0, :].to(torch.int32)                   # (B, T) keys
+            out = k11.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), seg, seg,
+                                      1.0 / math.sqrt(hd))
+            attn = out.transpose(1, 2).reshape(b, t, d)
+        else:
+            scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(hd)
+            scores = scores.float()
+            scores = torch.where(mask[:, None, :, :], scores,
+                                 torch.finfo(torch.float32).min)
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+            attn = torch.einsum("bhij,bjhd->bihd", probs, v).reshape(b, t, d)
         x = x + self.wo(attn)
         y = self.ffn_norm(x, c, wb=wb_ffn)
         return x + self.w2(F.silu(self.w1(y)) * self.w3(y))
@@ -117,9 +141,12 @@ class TimestepEmbedder(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    def __init__(self, hidden: int):
+    """adaLN-modulated LayerNorm + linear; the modulation reads the DiT's
+    timestep embedding, `cond_dim` wide."""
+
+    def __init__(self, hidden: int, cond_dim: int):
         super().__init__()
-        self.adaLN_1 = Linear(hidden, 2 * hidden)
+        self.adaLN_1 = Linear(cond_dim, 2 * hidden)
         self.linear = Linear(hidden, hidden)
 
     def modulation(self, c: torch.Tensor) -> torch.Tensor:
@@ -158,7 +185,7 @@ class DiT(nn.Module):
         self.conv1 = Linear(d, w.hidden_dim)
         self.wavenet = WN(w, w.hidden_dim)
         self.res_projection = Linear(d, w.hidden_dim)
-        self.final_layer = FinalLayer(w.hidden_dim)
+        self.final_layer = FinalLayer(w.hidden_dim, d)
         self.conv2 = Conv1d(w.hidden_dim, c.in_channels, 1)
 
     def step_tables(self, t_span: torch.Tensor) -> dict:
@@ -176,13 +203,19 @@ class DiT(nn.Module):
 
     @staticmethod
     def table_step(tables: dict, i: int) -> dict:
-        """The step-i slice of `step_tables`."""
-        return {"t1": tables["t1"][i], "t2": tables["t2"][i],
+        """The step-i slice of `step_tables` (and of its `fused_wb`)."""
+        step = {"t1": tables["t1"][i], "t2": tables["t2"][i],
                 "blocks": tuple((a[i], f[i]) for a, f in tables["blocks"]),
                 "norm": tables["norm"][i], "final": tables["final"][i]}
+        if "fused_wb" in tables:
+            step["fused_wb"] = tables["fused_wb"][i]
+        return step
 
     def forward(self, x, prompt_x, x_lens, t, style, cond,
-                tables: Optional[dict] = None):
+                tables: Optional[dict] = None, fused_w=None):
+        """`fused_w` (`ops.dit_blocks.pack_dit_blocks`) runs the whole block
+        trunk through K8; it needs `tables` with a `fused_wb` entry
+        (`pack_dit_tables`).  The block loop is the default path."""
         c = self.cfg
         b, _, tlen = x.shape
         t1 = (self.t_embedder(t) if tables is None else tables["t1"]).to(x.dtype)
@@ -193,14 +226,20 @@ class DiT(nn.Module):
                           style[:, None, :].expand(b, tlen, style.shape[-1])], dim=-1)
         h = self.cond_x_merge_linear(x_in)
         mask = torch.arange(tlen, device=x.device)[None, :] < x_lens[:, None]
-        attn_mask = mask[:, None, :].expand(b, tlen, tlen)
-        freqs = torch.from_numpy(rope_cache(tlen, c.hidden_dim // c.num_heads,
-                                            c.rope_base)).to(x.device)
         c_emb = t1[:, None, :]
-        for i in range(c.depth):
-            h = getattr(self, f"block_{i}")(
-                h, c_emb, freqs, attn_mask,
-                tables["blocks"][i] if tables is not None else None)
+        if fused_w is not None and tables is not None and "fused_wb" in tables:
+            cos, sin = k8.rope_tables(tlen, c.hidden_dim // c.num_heads,
+                                      c.rope_base, x.device)
+            h = k8.dit_block_chain(h.float(), fused_w, tables["fused_wb"], cos, sin,
+                                   x_lens, c.num_heads).to(h.dtype)
+        else:
+            attn_mask = mask[:, None, :].expand(b, tlen, tlen)
+            freqs = torch.from_numpy(rope_cache(tlen, c.hidden_dim // c.num_heads,
+                                                c.rope_base)).to(x.device)
+            for i in range(c.depth):
+                h = getattr(self, f"block_{i}")(
+                    h, c_emb, freqs, attn_mask, x_lens,
+                    tables["blocks"][i] if tables is not None else None)
         h = self.transformer_norm(
             h, c_emb, wb=tables["norm"] if tables is not None else None)
         if c.long_skip_connection:

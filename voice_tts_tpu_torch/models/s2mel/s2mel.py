@@ -43,6 +43,11 @@ class S2Mel(nn.Module):
     def regulate(self, s, src_len, target_len, out_max: int) -> torch.Tensor:
         return self.length_regulator(s, src_len, target_len, out_max)
 
+    def velocity(self, x, prompt_x, x_lens, t, style, mu, tables=None,
+                 fused_w=None) -> torch.Tensor:
+        return self.estimator(x, prompt_x, x_lens, t, style, mu, tables=tables,
+                              fused_w=fused_w)
+
 
 def assemble_condition(prompt_condition: torch.Tensor, prompt_len: torch.Tensor,
                        cond: torch.Tensor, cond_len: torch.Tensor,

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "vtt_decode_attend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P, _P, _I, _P],
     "vtt_verify_attend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "vtt_cfm_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vtt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vtt_dit_block_chain": [_P] * 14 + [_I] * 5 + [_P],
 }
 
 

@@ -6,7 +6,10 @@ kernels.  `fused_decode_step` (K1), `fused_decode_step_batch` (K3) and
 `fused_decode_verify` (K6) count one per step (a step is a chain of
 launches, see `ops/fused_decode.py`); `fused_decode_int4` (K7) counts each
 of those chains that ran with an int4 pack, in addition to the chain's own
-count.
+count.  `dit_block_chain` (K8) counts one per trunk evaluation (one C call
+of a few launches a layer, see `ops/dit_blocks.py`); `cfm_attention` (K9)
+and `flash_attention` (K11) one per attention call of a DiT block, not the
+attention stage inside a K8 chain.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 import collections
 
 KERNELS = ("fused_decode_step", "fused_decode_step_batch", "fused_decode_verify",
-           "fused_decode_int4", "int8_gemv", "aa_snake_activation")
+           "fused_decode_int4", "int8_gemv", "aa_snake_activation",
+           "dit_block_chain", "cfm_attention", "flash_attention")
 
 LAUNCHES: collections.Counter = collections.Counter({k: 0 for k in KERNELS})
 

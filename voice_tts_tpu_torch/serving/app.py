@@ -41,7 +41,7 @@ from voice_tts_tpu_torch.text.emotion import create_emotion_vector
 _SERVED_FLAGS = ("use_fp16", "use_int8_decode", "use_fused_decode",
                  "use_int4_decode", "use_fused_beam_decode", "fold_readout",
                  "use_int8_kv", "use_bf16_conditioning", "release_master_trees",
-                 "spec_decode_k")
+                 "spec_decode_k", "use_bf16_s2mel")
 PROFILES = ("serving", "bench")
 
 
