@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the flagship shapes of the paths, with the tolerance printed, both timed
    with CUDA events, beside its bound (the bytes it must move over 3.35
-   TB/s, or its operations over the peak rate, whichever is larger): K2, K4,
+   TB/s, or its operations over the peak rate, whichever is larger): K5,
+   K10 (below), K2, K4 (a layer's four products on the unfused decode
+   step at 1 and 3 rows, the entry's times that set at 1 row; and a grid
+   of 1 / 8 / 32 rows at D 1280),
    K1 (bf16 cache; int8 KV at pos 300 and 1500), K3 (beam-3 through an
    ancestor table with int8 KV and with a bf16 cache, pos 1500; eight rows
    at their own positions, one of them 0), K7 (the int4 loader alone at the
@@ -23,8 +26,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 4. tiny engines: the tiny engine on the card against the same weights on
    the CPU, greedy, same CFM noise: one beam (K1), the production flags
    (beam-3 through K3, int8 KV, bf16 conditioning), spec decode with
-   K = 4 (int4 drafts through K1 and K7, the verify through K6), and the
-   int4 decode pack (K1 with K7);
+   K = 4 (int4 drafts through K1 and K7, the verify through K6), the
+   int4 decode pack (K1 with K7), K5 (below) and the vocoder flags;
 5. production slice: the flagship engine (random weights) in the serving
    profile, the server default, behind the HTTP server in a background
    thread: GET /health, GET /debug/worker-info, three POST /tts, then one
@@ -46,25 +49,44 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 9. K11 engine: a second engine on the DiT slice's weights with
    `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
    K11 325 times.
+10. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
+    (the unfused decode step: K5 attention, K4 projections) and
+    `use_fused_vocoder` (stages 2-5 through K10), three POST /tts and one
+    profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
+    never, K10 4 and K2 37 times a vocode; prints the stage timers beside
+    the bench slice's;
+11. K5 beam request: a second engine on the K5 slice's models in the
+    production profile with `pallas_decode_attention` and a 512-code cap,
+    one request (beam-3 through the eager arm, 511 steps): K5 24 and K4 96
+    times a beam step, K3 and K1 never;
+12. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
+    2656 frames through the module path, packed, shared-activation and
+    fused variants, each timed, with its difference from the module path.
 
 The kernel phase also holds K9 and K11 (bf16 and f32, T 896 and 3104)
-beside `F.scaled_dot_product_attention` with the same boolean mask, and K8
-(the 13-block trunk at B 2, T 704); the tiny-engine phase runs K9 and K11
-whole requests and K8 on the s2mel stage with bf16 s2mel (D 256 DiT).
+beside `F.scaled_dot_product_attention` with the same boolean mask, K8
+(the 13-block trunk at B 2, T 704), K5 (bf16 and f32; B 1, Tmax 512,
+length 343 and B 3, Tmax 2048, length 1571) beside
+`F.scaled_dot_product_attention` on the live prefix, and K10 (the four
+fused stages of the flagship BigVGAN at 448 frames); the tiny-engine phase
+runs K9 and K11 whole requests, K8 on the s2mel stage with bf16 s2mel (D
+256 DiT), `pallas_decode_attention` with one beam and with the production
+flags (f32 GPT), the int8 + bf16 unfused step with K5 and with the einsum
+attention (where the codes of card and CPU first differ), and each
+vocoder flag.
 
 The third-to-last stdout line repeats the card's name and power limit; the
-second-to-last is the kernel JSON: under "kernels" the kernels of the
-served paths, each with its launch count from the path that runs it (K3 and
-K2 from the production slice, K1 from the bench slice, K6 and K7 from the
-spec slice, K8 and K9 from the DiT slice, K11 from its engine;
-`launches_by_path` has all five), its largest error against the plain
+second-to-last is the kernel JSON: under "kernels" every kernel, each with
+its launch count from the path that runs it (K3 and K2 from the production
+slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
+from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice;
+`launches_by_path` has all seven), its largest error against the plain
 version, both times, its bound and `library_ms` (null where no one PyTorch
-call computes the function: K1, K2, K3, K6, K8; K7's is
-`torch._weight_int4pack_mm` at the loader's GEMVs, K9's and K11's
-`F.scaled_dot_product_attention`); under "off_path" K4,
-which no flagship slice reaches, with the time of
-`torch._weight_int8pack_mm` as its `library_ms` where the build has it.
-The last line is `{"ok": true, "device": {...}}`.
+call computes the function: K1, K2, K3, K6, K8, K10; K4's is
+`torch._weight_int8pack_mm` where the build has it, K7's
+`torch._weight_int4pack_mm` at the loader's GEMVs, K5's, K9's and K11's
+`F.scaled_dot_product_attention`).  The last line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -609,56 +631,74 @@ def check_k6(torch, dev, results):
         "ms_of": "one K = 4 verify, bf16 KV, pos 300, Tmax 512", "cases": cases})
 
 
+# the (D, F) of a GPT layer's four int8 products on the unfused decode step
+# (c_attn, attn c_proj, mlp c_fc, mlp c_proj at the flagship D 1280)
+K4_LAYER_SHAPES = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))
+
+
 def check_k4(torch, dev, results):
+    """K4 at the shapes the K5 slice gives it (a layer's four products, N 1;
+    N 3 on the beam-3 request with K5), and a grid of N 1 / 8 / 32 rows
+    at D 1280; the entry's times are one layer's set at N 1, summed."""
     from voice_tts_tpu_torch.ops import int8_matmul as im
 
     g = torch.Generator(device=dev).manual_seed(2)
-    worst, shapes = 0.0, []
-    D = 1280
     # bf16 output: sums in another order may round one bf16 ulp apart
     tol = 2 ** -7
-    for n in (1, 8, 32):
-        for f in (1280, 3840, 5120):
-            x = torch.randn(n, D, generator=g, device=dev).to(torch.bfloat16)
-            w = torch.randint(-127, 128, (D, f), generator=g, device=dev,
-                              dtype=torch.int8)
-            s = torch.rand(1, f, generator=g, device=dev) * 1e-3 + 1e-4
-            y = im.int8_gemv(x, w, s)
-            torch.cuda.synchronize()
-            y_p = im.int8_gemv_plain(x, w, s)
-            err = max_err(torch, y, y_p)
-            scale = float(y_p.float().abs().max())
-            print(f"K4 N={n} F={f}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, "
-                  f"tol {tol:.4g} * max|ref|)")
-            if not err <= tol * scale:
-                fail(f"K4 int8_gemv N={n} F={f} disagrees with the plain version")
-            worst = max(worst, err)
-            ms = cuda_time_ms(torch, lambda: im.int8_gemv(x, w, s), 50)
-            plain_ms = cuda_time_ms(torch, lambda: im.int8_gemv_plain(x, w, s), 50)
-            # the library's int8 weight-only product: the same function on
-            # the same values, w as (F, D) and the scales in bf16
-            w_t, s_b = w.t().contiguous(), s.reshape(-1).to(torch.bfloat16)
-            lib_ms = library_time_ms(
-                torch, lambda: torch._weight_int8pack_mm(x, w_t, s_b), 50)
-            # x and s read, w read, the bf16 output written; 2 N D F operations
-            b = bound(nbytes(x, w, s) + n * f * 2, 2 * n * D * f)
-            print(f"K4 N={n} D={D} F={f}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-                  f"bound {b['bound_ms']:.4f} ms, library {lib_ms} ms")
-            shapes.append({"n": n, "d": D, "f": f, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms, **b})
-    total = bound(sum(t["bound_bytes"] for t in shapes),
-                  sum(t["bound_ops"] for t in shapes))
-    lib_times = [t["library_ms"] for t in shapes]
+
+    def one(n, d, f):
+        x = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (d, f), generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(1, f, generator=g, device=dev) * 1e-3 + 1e-4
+        y = im.int8_gemv(x, w, s)
+        torch.cuda.synchronize()
+        y_p = im.int8_gemv_plain(x, w, s)
+        err = max_err(torch, y, y_p)
+        scale = float(y_p.float().abs().max())
+        print(f"K4 N={n} D={d} F={f}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, "
+              f"tol {tol:.4g} * max|ref|)")
+        if not err <= tol * scale:
+            fail(f"K4 int8_gemv N={n} D={d} F={f} disagrees with the plain version")
+        ms = cuda_time_ms(torch, lambda: im.int8_gemv(x, w, s), 50)
+        plain_ms = cuda_time_ms(torch, lambda: im.int8_gemv_plain(x, w, s), 50)
+        # the library's int8 weight-only product: the same function on the
+        # same values, w as (F, D) and the scales in bf16
+        w_t, s_b = w.t().contiguous(), s.reshape(-1).to(torch.bfloat16)
+        lib_ms = library_time_ms(
+            torch, lambda: torch._weight_int8pack_mm(x, w_t, s_b), 50)
+        # x and s read, w read, the bf16 output written; 2 N D F operations
+        b = bound(nbytes(x, w, s) + n * f * 2, 2 * n * d * f)
+        print(f"K4 N={n} D={d} F={f}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {b['bound_ms']:.4f} ms, library {lib_ms} ms")
+        return {"n": n, "d": d, "f": f, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "max_abs_err": err, **b}
+
+    def layer_set(cases):
+        """One layer's four products summed: times, bound, library."""
+        total = bound(sum(t["bound_bytes"] for t in cases),
+                      sum(t["bound_ops"] for t in cases))
+        lib = [t["library_ms"] for t in cases]
+        return {"ms": sum(t["ms"] for t in cases),
+                "plain_ms": sum(t["plain_ms"] for t in cases),
+                "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
+                "library_ms": None if None in lib else sum(lib)}
+
+    path = {n: [one(n, d, f) for d, f in K4_LAYER_SHAPES] for n in (1, 3)}
+    grid = [one(n, 1280, f) for n in (1, 8, 32) for f in (1280, 3840, 5120)]
+    head, beam = layer_set(path[1]), layer_set(path[3])
+    for tag, t in (("N=1 (K5 slice)", head), ("N=3 (K5 beam)", beam)):
+        print(f"K4 a layer's four products, {tag}: {t['ms']:.4f} ms kernel, "
+              f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), library {t['library_ms']} ms")
     results.append({
         "name": "int8_gemv", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/int8_gemv.cu",
         "replaces": "voice_tts_tpu/ops/int8_matmul.py:44",
-        "max_abs_err": worst, "ms": sum(t["ms"] for t in shapes),
-        "plain_ms": sum(t["plain_ms"] for t in shapes),
-        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
-        "library_ms": None if None in lib_times else sum(lib_times),
-        "library_call": "torch._weight_int8pack_mm",
-        "ms_of": "sum over the 9 (N, F) shapes", "shapes": shapes})
+        "max_abs_err": max(t["max_abs_err"] for t in path[1] + path[3] + grid),
+        **head, "library_call": "torch._weight_int8pack_mm",
+        "ms_of": "one layer's four products at N 1 (D, F) = "
+                 + ", ".join(f"{d}x{f}" for d, f in K4_LAYER_SHAPES) + ", summed",
+        "beam_layer_set": beam, "path_shapes": path[1] + path[3], "grid_shapes": grid})
 
 
 def vocoder_shapes(frames: int):
@@ -876,6 +916,156 @@ def check_k8(torch, dev, results):
         "bound_bytes": bnd["bound_bytes"], "bound_ops": bnd["bound_ops"]})
 
 
+# K5 against its plain version: f32 sums in another order (and over other
+# tiles of the online softmax); bf16 inputs keep f32 sums, the output rounds
+# to bf16 (8 significant bits), so one flipped rounding is one ulp, which
+# near the largest magnitude m is up to 2^-7 * m
+K5_F32_TOL = 1e-5
+K5_BF16_TOL = 2 ** -7
+
+
+def check_k5(torch, dev, results):
+    """K5 at the flagged decode paths' shapes (GPT 20 heads of 64): B 1, Tmax
+    512, length 343 (the bench configuration with the flag) and B 3, Tmax
+    2048, length 1571 (beam-3 in the production profile with the flag), bf16
+    and f32, beside `F.scaled_dot_product_attention` on the same live prefix
+    with the bias as its additive mask.  The headline is bf16 at B 1."""
+    import torch.nn.functional as F
+    from voice_tts_tpu_torch.ops import decode_attention as k5
+
+    print(f"K5 tolerance: f32 {K5_F32_TOL} * max|ref| (sums in another order), bf16 "
+          f"{K5_BF16_TOL} * max|ref| (the bf16 output rounding)")
+    g = torch.Generator(device=dev).manual_seed(12)
+    h, hd, cases = 20, 64, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t_max, length in ((1, 512, 343), (3, 2048, 1571)):
+            q = torch.randn(b, h, hd, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(b, h, hd, t_max, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            bias = torch.zeros(b, t_max, device=dev)
+            bias[:, 40:52] = -1e30                  # padded prompt positions
+            args = (q, k, v, bias, length)
+            out = k5.decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = k5.decode_attention_plain(*args)
+            tol = K5_F32_TOL if dtype == torch.float32 else K5_BF16_TOL
+            err, scale = max_err(torch, out, ref), float(ref.float().abs().max())
+            tag = f"K5 {str(dtype).split('.')[-1]} B={b} H={h} Tmax={t_max} length={length}"
+            print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g})")
+            if not torch.isfinite(out.float()).all() or not err <= tol * scale:
+                fail(f"{tag} disagrees with the plain version")
+            ms = cuda_time_ms(torch, lambda: k5.decode_attention(*args), 50)
+            plain_ms = cuda_time_ms(torch, lambda: k5.decode_attention_plain(*args), 20)
+            kl = k[..., :length].transpose(-1, -2)  # (B, H, L, hd) views of the cache
+            vl = v[..., :length].transpose(-1, -2)
+            mask = bias[:, None, None, :length].to(dtype)
+
+            def library():
+                return F.scaled_dot_product_attention(q[:, :, None], kl, vl,
+                                                      attn_mask=mask)[:, :, 0]
+            lib_ms = None
+            lib_err = max_err(torch, library(), ref)
+            print(f"{tag} F.scaled_dot_product_attention: max_abs_err {lib_err:.4g}")
+            if lib_err <= 4 * tol * scale:
+                lib_ms = library_time_ms(torch, library, 50)
+            # the K and V prefix read once, q, the bias prefix, the output
+            # written; 4 operations a (head, dim, attended position)
+            el = q.element_size()
+            bnd = bound(2 * b * h * hd * length * el + nbytes(q, out) + 4 * b * length,
+                        4 * b * h * hd * length, "f32" if dtype == torch.float32 else "bf16")
+            print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+                  f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), library {lib_ms} ms")
+            cases.append({"dtype": str(dtype).split(".")[-1], "b": b, "t_max": t_max,
+                          "length": length, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "max_abs_err": err, **bnd})
+    head = cases[0]
+    results.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "voice_tts_tpu/ops/decode_attention.py:104",
+        "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention (additive mask)",
+        "ms_of": "one call, bf16, B 1, H 20, Tmax 512, length 343", "cases": cases})
+
+
+# K10 against its plain version (cuDNN f32 convs with TF32 off): f32 sums in
+# another order through 18 convs of up to 192 x 11 terms
+K10_TOL = 1e-4
+VOC_HALO = 78            # a stage's stencil halo (the module path's edges differ)
+
+
+def flagship_vocoder(torch, dev, seed: int):
+    """The flagship BigVGAN (`TTSConfig().vocoder`) with random weights, its
+    snake parameters moved off zero so the activations bend."""
+    from voice_tts_tpu_torch.config import TTSConfig
+    from voice_tts_tpu_torch.models.layers import init_weights
+    from voice_tts_tpu_torch.models.vocoder.bigvgan import BigVGAN
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        voc = init_weights(BigVGAN(TTSConfig().vocoder), g).eval().requires_grad_(False)
+        for name, p in voc.named_parameters():
+            if name.endswith(("alpha", "beta")):
+                p.add_(0.1 * torch.randn(p.shape, generator=g, device=dev))
+    return voc
+
+
+def check_k10(torch, dev, results):
+    """K10 at the four fused stages of the flagship BigVGAN (C 192, 96, 48,
+    24 at 32, 64, 128, 256 samples a frame) for a 448-frame mel, f32, random
+    weights; the entry's times are the four summed (one vocode's fused
+    stages)."""
+    from voice_tts_tpu_torch.ops import fused_vocoder as k10
+
+    # the plain reference's convs in full f32, as the engine runs them
+    torch.backends.cudnn.allow_tf32 = False
+    voc = flagship_vocoder(torch, dev, 13)
+    cfg = voc.cfg
+    packs = k10.pack_fused_stages(voc.state_dict(), cfg)
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    sum_k = sum(cfg.resblock_kernel_sizes)
+    n_iter = len(dil)
+    g = torch.Generator(device=dev).manual_seed(14)
+    print(f"K10 tolerance: {K10_TOL} * max|ref| (f32 sums in another order); "
+          f"fused stages {sorted(packs)}")
+    cases = []
+    for (c, t), (i, pack) in zip(vocoder_shapes(448)[2:], sorted(packs.items())):
+        x = torch.randn(1, c, t, generator=g, device=dev) * 0.3
+        out = k10.fused_resblock_stage(x, pack, dil)
+        torch.cuda.synchronize()
+        ref = k10.fused_resblock_stage_plain(x, pack, dil)
+        err, scale = max_err(torch, out, ref), float(ref.abs().max())
+        tag = f"K10 stage {i} C={c} T={t}"
+        print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g})")
+        if not torch.isfinite(out).all() or not err <= K10_TOL * scale:
+            fail(f"{tag} disagrees with the plain version")
+        ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage(x, pack, dil), 5, warmup=1)
+        plain_ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage_plain(x, pack, dil),
+                                3, warmup=1)
+        # x read and the output written once, each block's own taps (2 n_iter
+        # convs of k_j x C x C) with their biases and snake values; 2
+        # operations a multiply-add of 2 C^2 T n_iter sum_j k_j
+        weights = 4 * (2 * n_iter * sum_k * c * c + 3 * pack.b.numel())
+        bnd = bound(2 * nbytes(x) + weights, 2 * c * c * t * 2 * n_iter * sum_k, "f32")
+        print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        cases.append({"stage": i, "c": c, "t": t, "ms": ms, "plain_ms": plain_ms,
+                      "max_abs_err": err, **bnd})
+    total = bound(sum(c["bound_bytes"] for c in cases), sum(c["bound_ops"] for c in cases),
+                  "f32")
+    results.append({
+        "name": "fused_resblock_stage", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/fused_vocoder.cu",
+        "replaces": "voice_tts_tpu/ops/attic/fused_vocoder.py:192",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": sum(c["ms"] for c in cases), "plain_ms": sum(c["plain_ms"] for c in cases),
+        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"], "library_ms": None,
+        "ms_of": "the four fused stages of one 448-frame vocode, summed", "cases": cases})
+    del voc, packs
+
+
 # ---------------------------------------------------------------------------
 # the slice
 # ---------------------------------------------------------------------------
@@ -904,17 +1094,21 @@ def _shared_noise(torch, cpu, gpu, dev):
     gpu._draw_noise = lambda shape: draw(shape).to(dev)
 
 
-def _tiny_pair(torch, dev, dit=None, **flags):
+def _tiny_pair(torch, dev, dit=None, gpt=None, **flags):
     """The tiny engine with engine `flags` on the CPU (plain versions) and on
     the card (every kernel launched), with the same random weights.  With
     `dit` (DiTConfig fields to set) the DiT is widened to D 256, 4 heads:
-    the DiT kernels' 64-wide heads, and `can_fuse_dit` holds."""
+    the DiT kernels' 64-wide heads, and `can_fuse_dit` holds.  `gpt` sets
+    GPTConfig fields of the two engines (their runtime GPT is built from
+    it)."""
     import copy
 
     from voice_tts_tpu_torch.engine.engine import TTSEngine, tiny_config
 
     def config(**engine_flags):
         cfg = tiny_config(**engine_flags)
+        for k, v in (gpt or {}).items():
+            setattr(cfg.gpt, k, v)
         if dit is not None:
             d = cfg.s2mel.dit
             d.hidden_dim, d.num_heads = 256, 4
@@ -968,19 +1162,23 @@ def check_tiny_engine(torch, dev):
 COND_TOL = 3e-2
 
 
-def check_tiny_engine_production(torch, dev):
+def check_tiny_engine_production(torch, dev, counters=None, gpt=None):
     """The tiny engine under the production flags (beam-3 through K3 with the
     ancestor table, int8 KV, folded readout, bf16 GPT and conditioning,
     masters released) on the card against the CPU, greedy, same weights and
     CFM noise.  The card's own bf16 conditioning is held against the CPU's
     (COND_TOL); the decode and synthesis then start from the CPU's
     conditioning on both, so that the comparison is of the beam kernels and
-    the synthesis."""
+    the synthesis.  With `gpt` = {"pallas_decode_attention": True} the beam
+    takes the eager arm with K5 instead of K3 (its launches are checked),
+    with the f32 GPT (TINY_F32_GPT)."""
     flags = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
                  use_fused_beam_decode=True, use_int8_kv=True, fold_readout=True,
                  use_bf16_conditioning=True, release_master_trees=True,
                  fuse_pipeline=True)
-    cpu, gpu = _tiny_pair(torch, dev, **flags)
+    if gpt:
+        flags.update(TINY_F32_GPT)
+    cpu, gpu = _tiny_pair(torch, dev, gpt=gpt, **flags)
     prompt = tone_prompt(1.0, 16000)
     key = cpu._content_key(prompt)
     spk_c, spk_g = cpu._speaker_conditioning(prompt), gpu._speaker_conditioning(prompt)
@@ -995,9 +1193,177 @@ def check_tiny_engine_production(torch, dev):
                            for k, v in spk_c.items()}
     gpu._emo_cache[key] = cpu._emotion_conditioning(prompt).to(dev)
     ref = cpu.infer(prompt, "hello world.", do_sample=False, num_beams=3)
+    if counters is not None:
+        counters.reset()
     out = gpu.infer(prompt, "hello world.", do_sample=False, num_beams=3)
     torch.cuda.synchronize()
-    _compare_wavs("tiny engine (production, beam-3)", ref, out, WAV_TOL)
+    tag = "tiny engine (production, beam-3" + (", K5)" if gpt else ")")
+    _compare_wavs(tag, ref, out, WAV_TOL)
+    if gpt:
+        _check_k5_launches(tag, counters.snapshot(), gpu, out.metrics["decode_steps"],
+                           k4_per_step=0)
+
+
+def _check_k5_launches(tag, got, engine, steps, k4_per_step):
+    """K5 once per layer and decode step, K4 `k4_per_step` times per layer
+    and step, K1 and K3 never."""
+    layers = engine.cfg.gpt.layers
+    print(f"{tag} launches: K5 {got['decode_attention']}, K4 {got['int8_gemv']} for "
+          f"{steps} steps x {layers} layers; K1 {got['fused_decode_step']}, K3 "
+          f"{got['fused_decode_step_batch']}")
+    if (steps == 0 or got["decode_attention"] != layers * steps
+            or got["int8_gemv"] != k4_per_step * layers * steps
+            or got["fused_decode_step"] or got["fused_decode_step_batch"]):
+        fail(f"{tag}: K5 not once per layer and step, K4 not {k4_per_step} times, "
+             f"or K1 / K3 ran")
+
+
+# the tiny K5 pairs decode with the f32 GPT: the int8 + bf16 runtime copy's
+# unfused step rounds each op to bf16 at other points on the two devices
+# (LayerNorm and tanh, K4's sums), and at random tiny weights one flipped
+# rounding changes a greedy code within a few steps; the int8 path's
+# kernels are held against their plain versions above, the flagship K5
+# slice counts them, and `check_tiny_engine_k5_int8` holds the int8 + bf16
+# pair with K5 against the same pair without it
+TINY_F32_GPT = dict(use_fp16=False, use_int8_decode=False)
+
+
+def check_tiny_engine_k5(torch, dev, counters):
+    """`GPTConfig.pallas_decode_attention` in the tiny engine on the card
+    against the CPU, f32 GPT (TINY_F32_GPT): one beam (the bench flags, the
+    unfused step with K5 instead of K1) and the production flags (beam-3,
+    the eager arm with K5, int8 KV dropped), greedy, same weights and CFM
+    noise: the same decode and WAVs within WAV_TOL, K5 once per layer and
+    step, K1, K3 and K4 never."""
+    flag = {"pallas_decode_attention": True}
+    cpu, gpu = _tiny_pair(torch, dev, gpt=flag, **{**TINY_BENCH_FLAGS, **TINY_F32_GPT})
+    prompt = tone_prompt(1.0, 16000)
+    ref = cpu.infer(prompt, "hello world.", do_sample=False)
+    counters.reset()
+    out = gpu.infer(prompt, "hello world.", do_sample=False)
+    torch.cuda.synchronize()
+    _compare_wavs("tiny engine (num_beams 1, K5)", ref, out, WAV_TOL)
+    _check_k5_launches("tiny engine (num_beams 1, K5)", counters.snapshot(), gpu,
+                       out.metrics["decode_steps"], k4_per_step=0)
+    check_tiny_engine_production(torch, dev, counters, gpt=flag)
+
+
+def _greedy_record(torch, engine, prompt, forced=None):
+    """One greedy request on `engine` with the decode loop's choices
+    recorded: the repetition-penalised logits each code is chosen from
+    (the last decode of the request) and the codes.  With `forced` (the
+    codes of another run) each step takes that run's code instead of its
+    own argmax, so both runs decode from the same history."""
+    from voice_tts_tpu_torch.models.gpt import decode as dec
+
+    inner, logits, codes = dec.sample_token, [], []
+
+    def choose(step_logits, presence, gen, generator):
+        own = inner(step_logits, presence, gen, generator)
+        logits.append(dec.apply_repetition_penalty(
+            step_logits.float(), presence, gen.repetition_penalty)[0].cpu())
+        code = own if forced is None else torch.full_like(own, forced[len(codes)])
+        codes.append(int(code[0]))
+        return code
+
+    decode_sampled = engine._decode_sampled
+
+    def decode(*args, **kwargs):
+        logits.clear()
+        codes.clear()
+        return decode_sampled(*args, **kwargs)
+    dec.sample_token, engine._decode_sampled = choose, decode
+    try:
+        out = engine.infer(prompt, "hello world.", do_sample=False)
+        torch.cuda.synchronize()
+    finally:
+        dec.sample_token = inner
+        del engine._decode_sampled
+    return out, torch.stack(logits), codes
+
+
+# the int8 + bf16 pairs: the card's logits, decoded from the CPU's codes,
+# may stray from the CPU's by bf16 roundings at other points; with K5 no
+# more than K5_INT8_RATIO times as far as with the einsum attention
+K5_INT8_RATIO = 4.0
+
+
+def check_tiny_engine_k5_int8(torch, dev, counters):
+    """The int8 + bf16 runtime copy's unfused step (the K5 slice's GPT
+    flags) in the tiny engine on the card against the CPU, one beam,
+    greedy, same weights and CFM noise, twice: with K5
+    (`pallas_decode_attention`) and without it (the einsum attention,
+    `use_fused_decode` off, so no pack).  Each pair decodes freely (where
+    the codes first differ, the WAVs where they agree), then the card
+    decodes again from the CPU's codes, and each step's logits are held
+    against the CPU's.  Fails if K5 or K1 launch where they should not, if
+    agreeing codes give WAVs beyond WAV_TOL, or if the logits stray further
+    with K5 than K5_INT8_RATIO times as far as with the einsum attention."""
+    import numpy as np
+
+    prompt = tone_prompt(1.0, 16000)
+    stray = {}
+    for tag, gpt, flags in (
+            ("K5", {"pallas_decode_attention": True}, TINY_BENCH_FLAGS),
+            ("einsum", None, {**TINY_BENCH_FLAGS, "use_fused_decode": False})):
+        cpu, gpu = _tiny_pair(torch, dev, gpt=gpt, **flags)
+        ref, logits_c, codes_c = _greedy_record(torch, cpu, prompt)
+        counters.reset()
+        out, _, codes_g = _greedy_record(torch, gpu, prompt)
+        got = counters.snapshot()
+        _, logits_g, _ = _greedy_record(torch, gpu, prompt, forced=codes_c)
+        first = next((i for i, (a, b) in enumerate(zip(codes_c, codes_g)) if a != b),
+                     None if len(codes_c) == len(codes_g) else
+                     min(len(codes_c), len(codes_g)))
+        diff = None
+        if out.wav.shape == ref.wav.shape:
+            diff = int(np.abs(out.wav.astype(np.int32) - ref.wav.astype(np.int32)).max())
+        err = (logits_g - logits_c).abs().amax(dim=-1)       # a step's largest
+        top2 = logits_c.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        stray[tag] = float(err.max())
+        at = "" if first is None or first >= len(err) else (
+            f"; at code {first} the logits strayed {float(err[first]):.4g}, "
+            f"the CPU's top-2 margin {float(margin[first]):.4g}")
+        print(f"tiny engine int8 + bf16 unfused step ({tag}) card vs CPU: codes "
+              f"{len(codes_g)} / {len(codes_c)}, first differing code {first}, wav "
+              f"max |diff| {diff} LSB (tol {WAV_TOL} where the codes agree); from "
+              f"the CPU's codes the card's logits stray at most {stray[tag]:.4g} "
+              f"(max|logits| {float(logits_c.abs().max()):.4g}, smallest top-2 "
+              f"margin {float(margin.min()):.4g}){at}; K5 launches "
+              f"{got['decode_attention']}, K4 {got['int8_gemv']}, K1 "
+              f"{got['fused_decode_step']}")
+        if (got["decode_attention"] == 0) != (gpt is None) or got["fused_decode_step"]:
+            fail(f"tiny int8 + bf16 pair ({tag}): K5 launched {got['decode_attention']} "
+                 f"times, K1 {got['fused_decode_step']}")
+        if first is None and (diff is None or diff > WAV_TOL):
+            fail(f"tiny int8 + bf16 pair ({tag}): the codes agree but the WAVs do not")
+    print(f"tiny int8 + bf16 pairs: the logits stray {stray['K5']:.4g} with K5, "
+          f"{stray['einsum']:.4g} with the einsum attention (tol {K5_INT8_RATIO}x)")
+    if not stray["K5"] <= K5_INT8_RATIO * stray["einsum"]:
+        fail("tiny int8 + bf16 pair: the logits stray further with K5 than with "
+             "the einsum attention")
+
+
+def check_tiny_engine_vocoders(torch, dev, counters):
+    """Each vocoder flag in the tiny engine (bench flags) on the card against
+    the CPU, greedy, same weights and CFM noise: the same decode and WAVs
+    within WAV_TOL (the packed and shared variants compute the module
+    path's function, the fused one K10's on both devices); K10 once per
+    fused stage on the card."""
+    prompt = tone_prompt(1.0, 16000)
+    for flag in ("use_packed_vocoder", "use_shared_act_vocoder", "use_fused_vocoder"):
+        cpu, gpu = _tiny_pair(torch, dev, **{flag: True}, **TINY_BENCH_FLAGS)
+        ref = cpu.infer(prompt, "hello world.", do_sample=False)
+        counters.reset()
+        out = gpu.infer(prompt, "hello world.", do_sample=False)
+        torch.cuda.synchronize()
+        _compare_wavs(f"tiny engine ({flag}, {gpu.voc_variant})", ref, out, WAV_TOL)
+        want = len(gpu.voc_pack) if gpu.voc_variant == "fused" else 0
+        got = counters.snapshot()["fused_resblock_stage"]
+        print(f"tiny engine ({flag}) K10 launches {got} (want {want})")
+        if gpu.voc_variant == "module" or got != want:
+            fail(f"tiny engine ({flag}): the variant was not taken, or K10 launches {got}")
 
 
 def check_tiny_engine_spec(torch, dev):
@@ -1204,7 +1570,7 @@ def run_production_slice(torch, dev, counters):
     profile_request(torch, engine, prompt, text)
     print(f"[serving] peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, engine.vocoder
 
 
 def run_bench_slice(torch, dev, counters):
@@ -1356,6 +1722,159 @@ def run_flash_engine(torch, dev, counters, dit_engine):
     return launches
 
 
+def k5_config():
+    """The K5 slice: `bench_config()` with `GPTConfig.pallas_decode_attention`
+    (the unfused decode step, K5 attention, K4 projections) and
+    `use_fused_vocoder` (stages 2-5 through K10); no server profile has
+    them, as in the JAX package."""
+    from voice_tts_tpu_torch.engine.engine import bench_config
+
+    cfg = bench_config()
+    cfg.gpt.pallas_decode_attention = True
+    cfg.engine.use_fused_vocoder = True
+    return cfg
+
+
+def run_k5_slice(torch, dev, counters, bench_metrics):
+    """The K5 slice at the flagship widths: three POST /tts (5 s prompts),
+    each launching K5 24 times and K4 96 times a decode step, K1 and K3
+    never, K10 once per fused stage (4) and K2 on the other stages' and the
+    post activations (37) a vocode; then one profiled request.  Returns
+    (launches, the engine)."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine
+    from voice_tts_tpu_torch.ops.fused_vocoder import fused_stage_plan
+
+    t0 = time.perf_counter()
+    engine = TTSEngine.random(k5_config(), device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[k5] engine build: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cfg = engine.cfg
+    layers, vc = cfg.gpt.layers, cfg.vocoder
+    print(f"[k5] K4 a decode step: 4 int8 projections (attn_c_attn, attn_c_proj, "
+          f"mlp_c_fc, mlp_c_proj) x {layers} layers = {4 * layers}: each has B*S = 1 "
+          f"<= 32 rows on a step; the prefill (84 rows) and the teacher-forced forward "
+          f"take the dequantized matmul instead")
+    plan = fused_stage_plan(vc)
+    n_k10 = sum(plan)
+    n_k2 = (plan.count(False) * len(vc.resblock_kernel_sizes) * 2
+            * len(vc.resblock_dilation_sizes[0]) + 1)
+    launches, _, _, prompt, text, metrics, per_request = serve_requests(
+        torch, engine, "k5", counters)
+    for i, (m, got) in enumerate(zip(metrics, per_request)):
+        steps = m["decode_steps"]
+        tag = f"[k5] request #{i}"
+        _check_k5_launches(tag, got, engine, steps, k4_per_step=4)
+        print(f"{tag}: K10 {got['fused_resblock_stage']} (want {n_k10}), K2 "
+              f"{got['aa_snake_activation']} (want {n_k2})")
+        if got["fused_resblock_stage"] != n_k10 or got["aa_snake_activation"] != n_k2:
+            fail(f"{tag}: K10 not once per fused stage or K2 not on the other activations")
+    keys = ("gpt_gen_time", "decode_steps", "s2mel_time", "gpt_forward_time",
+            "bigvgan_time", "rtf")
+    print("[k5] stage timers " + json.dumps({
+        "k5": {k: [m[k] for m in metrics] for k in keys},
+        "bench": {k: [m[k] for m in bench_metrics] for k in keys}}))
+    profile_request(torch, engine, prompt, text)
+    return launches, engine
+
+
+# the K5 beam request's code cap: random weights never stop, and the
+# profile's 1500 would decode 511 + 1499 eager beam steps (115 s of the
+# run's time limit in one measured run, 55.7 ms a step); 512 decodes 511
+K5_BEAM_MAX_CODES = 512
+
+
+def run_k5_beam(torch, dev, counters, k5_engine):
+    """One beam-3 request with K5: a second engine in the production profile
+    with `pallas_decode_attention`, on the K5 slice engine's models (the
+    int8 runtime GPT is built from its f32 master), its code cap cut to
+    K5_BEAM_MAX_CODES.  Random weights decode to the cap (511 steps), each a
+    K5 launch per layer and K4 four; K3 and K1 never."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+
+    cfg = serving_config()
+    cfg.gpt.pallas_decode_attention = True
+    cfg.generation.max_mel_tokens = K5_BEAM_MAX_CODES
+    extras = {"w2v_mean": k5_engine.w2v_mean.cpu().numpy(),
+              "w2v_std": k5_engine.w2v_std.cpu().numpy(),
+              "emo_matrix": k5_engine.emo_matrix, "spk_matrix": k5_engine.spk_matrix}
+    engine = TTSEngine(cfg, dict(k5_engine.models), k5_engine.tokenizer, extras, dev)
+    launches, steps, _, _, _, metrics, _ = serve_requests(torch, engine, "k5_beam",
+                                                          counters, prompts_s=(5.0,))
+    m = metrics[0]
+    _check_k5_launches("[k5_beam] request #0", launches, engine, steps, k4_per_step=4)
+    print(f"[k5_beam] {steps} beam steps, gpt_gen_time {m['gpt_gen_time']:.4f} s "
+          f"({1e3 * m['gpt_gen_time'] / steps:.3f} ms a step), rtf {m['rtf']:.4f}")
+    return launches
+
+
+# the vocoder variants against the module path on the same weights and mel:
+# the same function (packed, shared), or K10's (fused) beyond the edge halos;
+# f32 sums in another order through six stages, relative to the largest
+# output magnitude (random weights leave the waveform far below 1, so an
+# absolute bound would say nothing)
+VOC_AB_TOL = 1e-4
+
+
+def vocoder_ab(torch, dev, vocoder):
+    """The production slice's flagship BigVGAN vocodes one random mel at 448
+    and 2656 frames four ways, each timed with CUDA events over 5 runs after
+    one warm-up: the module path (K2 109 a vocode), packed (grouped convs),
+    shared activations, and fused (stages 2-5 through K10).  Prints each
+    time and the largest difference from the module path over the module
+    path's largest magnitude; the fused one's in the interior (beyond 4
+    stage halos at stage 2's rate, 8 samples of output a sample there) and
+    at the edges."""
+    from voice_tts_tpu_torch.models.vocoder import packed
+    from voice_tts_tpu_torch.ops import fused_vocoder
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = vocoder.cfg
+    state = vocoder.state_dict()
+    trees = {"packed": packed.pack_bigvgan(state, cfg),
+             "shared_act": packed.pack_bigvgan_shared(state, cfg),
+             "fused": fused_vocoder.pack_fused_stages(state, cfg)}
+    ways = {"module": lambda mel: vocoder(mel),
+            "packed": lambda mel: packed.bigvgan_packed_apply(trees["packed"], mel, cfg),
+            "shared_act": lambda mel: packed.bigvgan_shared_act_apply(trees["shared_act"],
+                                                                      mel, cfg),
+            "fused": lambda mel: fused_vocoder.bigvgan_fused_apply(vocoder, trees["fused"],
+                                                                   mel)}
+    edge = 4 * VOC_HALO * 8
+    g = torch.Generator(device=dev).manual_seed(15)
+    report = []
+    with torch.no_grad():
+        for frames in (448, 2656):
+            mel = torch.randn(1, cfg.num_mels, frames, generator=g, device=dev) - 4.0
+            row, ref = {"frames": frames, "samples": frames * 256}, None
+            for name, fn in ways.items():
+                out = fn(mel)
+                torch.cuda.synchronize()
+                ms = cuda_time_ms(torch, lambda: fn(mel), 5, warmup=1)
+                entry = {"ms": ms}
+                if ref is None:
+                    ref, scale = out, float(out.abs().max())
+                    entry["max_abs"] = scale
+                elif name == "fused":
+                    d = (out - ref).abs()[0, 0] / scale
+                    entry["rel_diff_interior"] = float(d[edge:-edge].max())
+                    entry["rel_diff_edges"] = float(torch.cat([d[:edge], d[-edge:]]).max())
+                    entry["interior_from"] = edge
+                else:
+                    entry["rel_diff"] = max_err(torch, out, ref) / scale
+                row[name] = entry
+            print("[vocoder A/B] " + json.dumps(row))
+            if not scale > 0:
+                fail(f"[vocoder A/B] the module path's waveform is zero at {frames} frames")
+            for name in ("packed", "shared_act"):
+                if not row[name]["rel_diff"] <= VOC_AB_TOL:
+                    fail(f"[vocoder A/B] {name} differs from the module path at {frames} frames")
+            if not row["fused"]["rel_diff_interior"] <= VOC_AB_TOL:
+                fail(f"[vocoder A/B] fused differs from the module path inside at {frames} frames")
+            report.append(row)
+    return report
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1381,11 +1900,18 @@ def main():
     check_k6(torch, dev, results)
     check_attention(torch, dev, results)
     check_k8(torch, dev, results)
+    check_k5(torch, dev, results)
+    check_k10(torch, dev, results)
+    torch.cuda.empty_cache()
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
     check_tiny_engine_spec(torch, dev)
     check_tiny_engine_dit(torch, dev, counters)
-    by_path = {"serving": run_production_slice(torch, dev, counters)}
+    check_tiny_engine_k5(torch, dev, counters)
+    check_tiny_engine_k5_int8(torch, dev, counters)
+    check_tiny_engine_vocoders(torch, dev, counters)
+    by_path = {}
+    by_path["serving"], vocoder = run_production_slice(torch, dev, counters)
     torch.cuda.empty_cache()
     by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
     torch.cuda.empty_cache()
@@ -1394,22 +1920,25 @@ def main():
     by_path["dit"], dit_engine = run_dit_slice(torch, dev, counters, bench_metrics)
     by_path["flash"] = run_flash_engine(torch, dev, counters, dit_engine)
     del dit_engine
+    torch.cuda.empty_cache()
+    by_path["k5"], k5_engine = run_k5_slice(torch, dev, counters, bench_metrics)
+    by_path["k5_beam"] = run_k5_beam(torch, dev, counters, k5_engine)
+    del k5_engine
+    torch.cuda.empty_cache()
+    vocoder_ab(torch, dev, vocoder)
     # each kernel's launches come from the path that runs it: K3 and K2 from
     # the production slice, K1 from the bench slice, K6 and K7 from the spec
-    # slice, K8 and K9 from the DiT slice, K11 from its engine; K4 serves
-    # int8 products of <= 32 rows, the tiny engines' prefill, not the
-    # flagship slices (their prefill has 84 rows), and is reported beside
-    # the paths' kernels
+    # slice, K8 and K9 from the DiT slice, K11 from its engine, K5, K4 and
+    # K10 from the K5 slice
     owner = {"fused_decode_step": "bench", "fused_decode_verify": "spec",
              "fused_decode_int4": "spec", "dit_block_chain": "dit",
-             "cfm_attention": "dit", "flash_attention": "flash"}
-    on_path, off_path = [], []
+             "cfm_attention": "dit", "flash_attention": "flash",
+             "decode_attention": "k5", "int8_gemv": "k5", "fused_resblock_stage": "k5"}
     for r in results:
         r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]
         r["launches_by_path"] = {p: by_path[p][r["name"]] for p in by_path}
-        (off_path if r["name"] == "int8_gemv" else on_path).append(r)
     print(card)
-    print(json.dumps({"kernels": on_path, "off_path": off_path}))
+    print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,6 +25,9 @@ import voice_tts_tpu_torch.ops.fused_decode
 import voice_tts_tpu_torch.models.gpt.beam
 import voice_tts_tpu_torch.ops.aa_activation
 import voice_tts_tpu_torch.ops.int8_matmul
+import voice_tts_tpu_torch.ops.decode_attention
+import voice_tts_tpu_torch.ops.fused_vocoder
+import voice_tts_tpu_torch.models.vocoder.packed
 import voice_tts_tpu_torch.utils.convert
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic",

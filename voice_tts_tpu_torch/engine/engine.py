@@ -36,14 +36,21 @@ engine's gate, kept although the card has no VMEM limit); otherwise each
 block's attention runs K9 with `fused_attention`, K11 with
 `flash_attention`, else the einsum.
 
+`GPTConfig.pallas_decode_attention` sends the decode (beam or sampling, not
+spec decode) through the unfused step with K5 attention, as in the JAX
+package.  The vocoder follows the JAX engine's variant flags:
+`use_packed_vocoder` (grouped convs), `use_shared_act_vocoder` (shared
+activations) or `use_fused_vocoder` (the late stages through K10), each
+built once here from the BigVGAN module's weights.
+
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
 setting of the Mosaic kernels, which the CUDA chain does not have),
 `use_fused_batch_decode` (the batched sampling decode: the server takes one
 request at a time), and `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` /
 `batch_segments` (graph and dispatch settings of the JAX engine; segments
 run one after another).  Left out: `infer_batch`, streaming
-(`infer_generator`), the Qwen text emotion model, and the flags in
-`_UNPORTED_FLAGS` (constructing with one of them raises).
+(`infer_generator`), the Qwen text emotion model, and `tensor_parallel > 1`
+(constructing with it raises).
 """
 
 from __future__ import annotations
@@ -79,17 +86,21 @@ from voice_tts_tpu_torch.models.s2mel.s2mel import (S2Mel, assemble_condition,
                                                     place_prompt_mel,
                                                     slice_generated)
 from voice_tts_tpu_torch.models.vocoder.bigvgan import BigVGAN
+from voice_tts_tpu_torch.models.vocoder.packed import (bigvgan_packed_apply,
+                                                       bigvgan_shared_act_apply,
+                                                       can_pack, pack_bigvgan,
+                                                       pack_bigvgan_shared)
 from voice_tts_tpu_torch.ops.dit_blocks import (can_fuse_dit, pack_dit_blocks,
                                                 pack_dit_tables)
 from voice_tts_tpu_torch.ops.fused_decode import (check_int4_expand, pack_gpt,
                                                   pack_gpt_int4, pack_readout)
+from voice_tts_tpu_torch.ops.fused_vocoder import (bigvgan_fused_apply,
+                                                   fused_stage_plan,
+                                                   pack_fused_stages)
 from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
 from voice_tts_tpu_torch.utils.convert import FAMILIES, convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
-# JAX-engine flags whose paths the port does not carry yet
-_UNPORTED_FLAGS = ("use_packed_vocoder", "use_shared_act_vocoder",
-                   "use_fused_vocoder")
 # the K8 trunk's frame limit (prompt bucket + mel bucket), as the JAX engine
 FUSED_DIT_MAX_FRAMES = 768
 
@@ -214,11 +225,8 @@ class TTSEngine:
     def __init__(self, cfg: TTSConfig, models: Dict[str, torch.nn.Module],
                  tokenizer, extras: Optional[Dict] = None, device="cuda"):
         e = cfg.engine
-        bad = [f for f in _UNPORTED_FLAGS if getattr(e, f)]
         if e.tensor_parallel > 1:
-            bad.append("tensor_parallel")
-        if bad:
-            raise ValueError(f"engine flags not ported to PyTorch yet: {bad}")
+            raise ValueError("engine flags not ported to PyTorch yet: ['tensor_parallel']")
         self.device = dev = resolve_device(device)
         # the JAX f32 paths are full f32; cuDNN convolutions default to TF32
         # (about three decimal digits), so turn TF32 off for matmuls and convs
@@ -299,6 +307,24 @@ class TTSEngine:
         dcfg = cfg.s2mel.dit
         self.dit_pack = (pack_dit_blocks(self.s2mel_rt.estimator)
                          if dcfg.fused_blocks and can_fuse_dit(dcfg) else None)
+        # vocoder variant, as the JAX engine picks it (`engine.py:205-236`):
+        # packed grouped convs, shared activations, or the fused late stages.
+        # Departure: the JAX engine ignores `use_fused_vocoder` off a TPU; the
+        # port honours it on every device (K10 on a CUDA tensor, its plain
+        # version on a CPU one, as K8, K9 and K11)
+        self.voc_variant, self.voc_pack = "module", None
+        vc = cfg.vocoder
+        if e.use_packed_vocoder:
+            if can_pack(vc):
+                self.voc_variant = "packed"
+                self.voc_pack = pack_bigvgan(self.vocoder.state_dict(), vc)
+        elif e.use_shared_act_vocoder:
+            if can_pack(vc):
+                self.voc_variant = "shared_act"
+                self.voc_pack = pack_bigvgan_shared(self.vocoder.state_dict(), vc)
+        elif e.use_fused_vocoder and any(fused_stage_plan(vc)):
+            self.voc_variant = "fused"
+            self.voc_pack = pack_fused_stages(self.vocoder.state_dict(), vc)
         if e.release_master_trees:
             # inference never reads the f32 GPT / w2v-bert masters once the
             # runtime copies exist; dropping them frees their device memory
@@ -740,7 +766,7 @@ class TTSEngine:
 
         # --- vocoder
         t0 = time.perf_counter()
-        wav = torch.clamp(self.vocoder(mel) * 32767.0, -32767.0, 32767.0)
+        wav = torch.clamp(self.vocode(mel) * 32767.0, -32767.0, 32767.0)
         wav = wav.to(torch.int16).reshape(-1).cpu().numpy()
         timers["bigvgan_time"] += time.perf_counter() - t0
         n_frames = int(target_len[0])
@@ -751,6 +777,17 @@ class TTSEngine:
                 n_frames / max(cfg.s2mel.mel_scale_factor, 1e-6))))
             self._observe_code_len(bucket, [obs_codes], [False], cbucket, gen)
         return wav[: n_frames * cfg.mel.hop_size]
+
+    def vocode(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, num_mels, F) -> waveform (B, 1, samples) through the
+        configured vocoder variant (`voc_variant`)."""
+        if self.voc_variant == "packed":
+            return bigvgan_packed_apply(self.voc_pack, mel, self.cfg.vocoder)
+        if self.voc_variant == "shared_act":
+            return bigvgan_shared_act_apply(self.voc_pack, mel, self.cfg.vocoder)
+        if self.voc_variant == "fused":
+            return bigvgan_fused_apply(self.vocoder, self.voc_pack, mel)
+        return self.vocoder(mel)
 
     def use_fused_dit(self, batch: int, total_max: int) -> bool:
         """The JAX engine's K8 gate: the pack exists (`fused_blocks` and

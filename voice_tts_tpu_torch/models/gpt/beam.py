@@ -29,10 +29,12 @@ Two arms, chosen as in the JAX package:
   `ops.fused_decode.fused_decode_step_batch` over the K beams, which read
   their histories through a (K, Tmax) ancestor table instead of a reordered
   cache, with an optional int8 KV cache and the folded readout;
-- the eager arm (no pack, or K > 4): `UnifiedVoice.decode_step` over a
-  cache that is physically reordered after every step.  It is the plain
-  reference of the K3 arm (`ancestor_table=False` gives the K3 step the same
-  physical reorder, for tests).
+- the eager arm (no pack, K > 4, or `GPTConfig.pallas_decode_attention`):
+  `UnifiedVoice.decode_step` over a cache that is physically reordered
+  after every step.  It is the plain reference of the K3 arm
+  (`ancestor_table=False` gives the K3 step the same physical reorder, for
+  tests).  With `pallas_decode_attention` its cache is float, padded to a
+  multiple of 512, and each layer attends through K5.
 
 Left out here: typical sampling (raises), and `beam_decode_fused_batch`
 (R requests x K beams), which waits for the batched engine.
@@ -48,6 +50,7 @@ from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
                                                    apply_repetition_penalty)
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
+from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
                                                   ReadoutPack,
                                                   apply_kv_update_batch,
@@ -206,7 +209,8 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     `steps` the decode steps after the prefill).  With `fused_pack` and
     K <= 4 every step runs K3 over the K beams, reading history through the
     ancestor table (`int8_kv`: an int8 cache with per-(beam, position)
-    scales); otherwise the eager step with a physical cache reorder.
+    scales); otherwise, and always under `cfg.pallas_decode_attention`, the
+    eager step with a physical cache reorder.
     `uniform` replaces the Gumbel draw's uniforms (default: `generator`)."""
     cfg = model.cfg
     k = gen.num_beams
@@ -214,11 +218,14 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     if b != 1:
         raise ValueError("beam decode drives one request")
     dev = text_tokens.device
-    use_fused = fused_pack is not None and k <= 4
+    use_fused = (fused_pack is not None and k <= 4
+                 and not cfg.pallas_decode_attention)
     int8_kv = int8_kv and use_fused
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new
-    if use_fused:
+    if cfg.pallas_decode_attention:
+        t_max += (-t_max) % ATTN_BLOCK_T
+    elif use_fused:
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     eos = cfg.stop_mel_token

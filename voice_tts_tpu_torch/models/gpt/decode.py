@@ -11,7 +11,11 @@ sort).  The repetition-penalty presence mask starts with {1, start_mel}
 (batch 1) every step is one `ops.fused_decode.fused_decode_step` — the K1
 kernel chain on a CUDA tensor — with the folded int8 readout and, with
 `int8_kv`, an int8 cache with one scale per (layer, position, k|v) row.
-Beam search is `models/gpt/beam.py`.
+With `GPTConfig.pallas_decode_attention` the pack is not used, as in the JAX
+package: every step is `UnifiedVoice.decode_step` over a float cache padded
+to a multiple of 512, each layer's attention one K5 launch
+(`ops.decode_attention`) and, on the int8 runtime copy, each trunk
+projection one K4 launch.  Beam search is `models/gpt/beam.py`.
 
 `spec_decode` drafts K - 1 tokens with an int4 pack through K1 (K7's
 loader), verifies all K in one int8 pass (`fused_decode_verify`, K6) and
@@ -30,6 +34,7 @@ import torch
 
 from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
+from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
                                                   Pack, ReadoutPack,
                                                   apply_kv_update,
@@ -89,15 +94,20 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
 
     Compute dtype follows the model's parameters (the int8 / bf16 runtime
     copy decodes with a bf16 cache); logits and sampling stay f32.  `int8_kv`
-    quantizes the fused step's cache after the prefill (fused path only)."""
+    quantizes the fused step's cache after the prefill (fused path only).
+    `cfg.pallas_decode_attention` turns the fused path off (K5 reads a float
+    cache, so `int8_kv` drops too)."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     dev = text_tokens.device
-    use_fused = fused_pack is not None and b == 1
+    use_fused = (fused_pack is not None and b == 1
+                 and not cfg.pallas_decode_attention)
     int8_kv = int8_kv and use_fused
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new
-    if use_fused:
+    if cfg.pallas_decode_attention:
+        t_max += (-t_max) % ATTN_BLOCK_T
+    elif use_fused:
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     param_dtype = model.conditioning_encoder.after_norm.bias.dtype
@@ -248,7 +258,8 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
     target share the cache: the draft rows are scratch that the verify pass
     overwrites at the same positions.  Both read out through
     `model.readout`.  Stop-token and cap semantics as `decode` (drafts past
-    a stop are dropped)."""
+    a stop are dropped).  `cfg.pallas_decode_attention` is not read here,
+    as the JAX `spec_decode` does not read it: the packs stay in use."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     if b != 1:

@@ -6,7 +6,10 @@ positional embeddings inside the stack.  One module handles both the plain
 causal forward and prefill / single steps against a fixed-shape cache.
 
 Cache layout: (layers, 2, B, heads, head_dim, max_len), as in the JAX
-package; the decode kernel takes it time-major (`ops.fused_decode`).
+package; the decode kernel takes it time-major (`ops.fused_decode`).  With
+`pallas_attention` (`GPTConfig.pallas_decode_attention`) a single-token step
+over a cache whose length is a multiple of 512 attends through K5
+(`ops.decode_attention`), which reads only the live prefix.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from voice_tts_tpu_torch.models.layers import LayerNorm, normal_
+from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T, decode_attention
 from voice_tts_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_gemv
 
 
@@ -68,9 +72,11 @@ class Conv1DGPT(nn.Module):
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, heads: int, int8: bool = False):
+    def __init__(self, dim: int, heads: int, int8: bool = False,
+                 pallas_attention: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
+        self.pallas_attention = pallas_attention
         self.ln_1 = LayerNorm(dim)
         self.attn_c_attn = Conv1DGPT(dim, 3 * dim, int8)
         self.attn_c_proj = Conv1DGPT(dim, dim, int8)
@@ -99,14 +105,21 @@ class GPT2Block(nn.Module):
             k_all, v_all = kv[0], kv[1]
         else:
             k_all, v_all = k, v
-        # f32 scores / softmax regardless of the compute dtype
-        scores = q.float() @ k_all.float()
-        scores = scores / math.sqrt(hd)
-        scores = torch.where(attn_mask[:, None, :, :], scores,
-                             torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
-        ctx = (probs.float() @ v_all.float().transpose(-1, -2)).to(v_all.dtype)
-        ctx = ctx.transpose(1, 2).reshape(b, s, d)
+        if (self.pallas_attention and kv is not None and s == 1
+                and k_all.shape[3] % BLOCK_T == 0):
+            # K5: reads only the live prefix [0, cache_index]
+            bias = torch.where(attn_mask[:, 0, :], 0.0, -1e30).float()
+            ctx = decode_attention(q[:, :, 0, :], k_all, v_all, bias,
+                                   cache_index + 1).reshape(b, s, d)
+        else:
+            # f32 scores / softmax regardless of the compute dtype
+            scores = q.float() @ k_all.float()
+            scores = scores / math.sqrt(hd)
+            scores = torch.where(attn_mask[:, None, :, :], scores,
+                                 torch.finfo(torch.float32).min)
+            probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
+            ctx = (probs.float() @ v_all.float().transpose(-1, -2)).to(v_all.dtype)
+            ctx = ctx.transpose(1, 2).reshape(b, s, d)
         x = res + self.attn_c_proj(ctx)
         res = x
         y = self.ln_2(x)
@@ -117,11 +130,12 @@ class GPT2Block(nn.Module):
 
 
 class GPT2Stack(nn.Module):
-    def __init__(self, layers: int, dim: int, heads: int, int8: bool = False):
+    def __init__(self, layers: int, dim: int, heads: int, int8: bool = False,
+                 pallas_attention: bool = False):
         super().__init__()
         self.layers, self.dim, self.heads = layers, dim, heads
         for i in range(layers):
-            setattr(self, f"h_{i}", GPT2Block(dim, heads, int8))
+            setattr(self, f"h_{i}", GPT2Block(dim, heads, int8, pallas_attention))
         self.ln_f = LayerNorm(dim)
 
     def forward(self, embeds: torch.Tensor,

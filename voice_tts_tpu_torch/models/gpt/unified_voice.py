@@ -53,7 +53,8 @@ class UnifiedVoice(nn.Module):
         self.emovec_layer = Linear(c.emo_dim, c.model_dim)
         self.emo_layer = Linear(c.model_dim, c.model_dim)
         self.mel_embedding = Embedding(c.number_mel_codes, c.model_dim)
-        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, int8)
+        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, int8,
+                             c.pallas_decode_attention)
         self.mel_pos_embedding = Embedding(c.max_mel_tokens + 3, c.model_dim)
         self.text_pos_embedding = Embedding(c.max_text_tokens + 2, c.model_dim)
         self.final_norm = LayerNorm(c.model_dim)

@@ -5,7 +5,8 @@ conv_pre (k7) -> 6x [ConvTranspose1d upsample -> mean of 3 AMP residual
 blocks] -> anti-aliased snake post-activation -> conv_post (k7) -> clamp.
 Every anti-aliased activation (109 per vocode at the flagship config) goes
 through `ops.aa_activation.aa_snake_activation`, i.e. the K2 kernel on a
-CUDA tensor.
+CUDA tensor.  The engine's vocoder variants (`models/vocoder/packed.py`,
+`ops/fused_vocoder.py`) compute the same function with fewer launches.
 """
 
 from __future__ import annotations
@@ -102,20 +103,25 @@ class BigVGAN(nn.Module):
         self.conv_post = Conv1d(ch_in, 1, 7, padding=3,
                                 use_bias=cfg.use_bias_at_final)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        nk = len(cfg.resblock_kernel_sizes)
-        x = self.conv_pre(mel)
-        for i in range(len(cfg.upsample_rates)):
-            x = getattr(self, f"ups_{i}")(x)
-            xs = None
-            for j in range(nk):
-                out = getattr(self, f"resblocks_{i * nk + j}")(x)
-                xs = out if xs is None else xs + out
-            x = xs / nk
+    def stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The mean of stage i's AMP resblocks on the upsampled x."""
+        nk = len(self.cfg.resblock_kernel_sizes)
+        xs = None
+        for j in range(nk):
+            out = getattr(self, f"resblocks_{i * nk + j}")(x)
+            xs = out if xs is None else xs + out
+        return xs / nk
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Post activation -> conv_post -> tanh or clamp to [-1, 1]."""
         a, b = self.activation_post()
-        x = aa_snake_activation(x, a, b)
-        x = self.conv_post(x)
-        if cfg.use_tanh_at_final:
+        x = self.conv_post(aa_snake_activation(x, a, b))
+        if self.cfg.use_tanh_at_final:
             return torch.tanh(x)
         return torch.clamp(x, -1.0, 1.0)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = self.conv_pre(mel)
+        for i in range(len(self.cfg.upsample_rates)):
+            x = self.stage(i, getattr(self, f"ups_{i}")(x))
+        return self.head(x)

@@ -60,7 +60,8 @@ def kaiser_sinc_filter(cutoff: float, half_width: float, kernel_size: int) -> np
 _FILTER12 = kaiser_sinc_filter(0.25, 0.3, 12)  # the ratio=2 filter
 _H_ODD = [float(v) for v in _FILTER12[1::2]]    # h[1], h[3], ..., h[11]
 _H_EVEN = [float(v) for v in _FILTER12[0::2]]   # h[0], h[2], ..., h[10]
-_TAPS_HOST = np.ascontiguousarray(np.concatenate(
+# the taps as the kernels take them (K2, and K10's AA prologue): odd, then even
+TAPS_HOST = np.ascontiguousarray(np.concatenate(
     [_FILTER12[1::2], _FILTER12[0::2]]).astype(np.float32))
 
 
@@ -99,6 +100,38 @@ def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     return acc
 
 
+def aa_snake_zero_plain(x: torch.Tensor, alpha: torch.Tensor,
+                        beta_recip: torch.Tensor) -> torch.Tensor:
+    """The AA-snake of x (1, C, T) taken as zero outside [0, T), as K10
+    (`ops/fused_vocoder.py`) computes it: the phases at -3 .. T+2 from the
+    zero-extended signal (not masked), the output on [0, T).
+    u_e[u] = 2 sum_a h_odd[a] x[u+2-a], u_o[u] = 2 sum_a h_even[a] x[u+3-a];
+    out[t] = sum_b h_odd[b] z_e[t-2+b] + sum_b h_even[b] z_o[t-3+b]."""
+    t = x.shape[-1]
+    xp = torch.nn.functional.pad(x, (6, 6))    # xp[p] = x[p - 6]
+    n = t + 6                                  # phases u = -3 + q
+
+    def mac(taps, off):
+        acc = None
+        for a, tap in enumerate(taps):
+            s = 3 + off - a
+            term = xp[..., s:s + n] * tap
+            acc = term if acc is None else acc + term
+        return acc
+
+    a, br = alpha.reshape(1, -1, 1), beta_recip.reshape(1, -1, 1)
+    ze = _snake(2.0 * mac(_H_ODD, 2), a, br)
+    zo = _snake(2.0 * mac(_H_EVEN, 3), a, br)
+
+    def mac2(z, taps, off):
+        acc = None
+        for b, tap in enumerate(taps):
+            term = z[..., off + b:off + b + t] * tap
+            acc = term if acc is None else acc + term
+        return acc
+    return mac2(ze, _H_ODD, 1) + mac2(zo, _H_EVEN, 0)
+
+
 def aa_snake_cuda(x: torch.Tensor, alpha: torch.Tensor,
                   beta_recip: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel (f32, contiguous, all on one CUDA device)."""
@@ -120,7 +153,7 @@ def aa_snake_cuda(x: torch.Tensor, alpha: torch.Tensor,
     LAUNCHES["aa_snake_activation"] += 1
     lib.call("vtt_aa_snake", x.data_ptr(), alpha.data_ptr(),
              beta_recip.data_ptr(), out.data_ptr(), b * c, c, t,
-             _TAPS_HOST.ctypes.data_as(ctypes.c_void_p),
+             TAPS_HOST.ctypes.data_as(ctypes.c_void_p),
              build.stream_handle(x.device))
     return out
 

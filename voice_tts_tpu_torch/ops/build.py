@@ -40,6 +40,8 @@ _SIGNATURES = {
     "vtt_cfm_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_dit_block_chain": [_P] * 14 + [_I] * 5 + [_P],
+    "vtt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _P],
 }
 
 

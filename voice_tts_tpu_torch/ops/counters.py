@@ -9,7 +9,10 @@ of those chains that ran with an int4 pack, in addition to the chain's own
 count.  `dit_block_chain` (K8) counts one per trunk evaluation (one C call
 of a few launches a layer, see `ops/dit_blocks.py`); `cfm_attention` (K9)
 and `flash_attention` (K11) one per attention call of a DiT block, not the
-attention stage inside a K8 chain.
+attention stage inside a K8 chain.  `decode_attention` (K5) counts one per
+layer call of the unfused decode step (all B rows in one launch);
+`fused_resblock_stage` (K10) one per fused vocoder stage (one C call of 18
+launches, see `ops/fused_vocoder.py`).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import collections
 
 KERNELS = ("fused_decode_step", "fused_decode_step_batch", "fused_decode_verify",
            "fused_decode_int4", "int8_gemv", "aa_snake_activation",
-           "dit_block_chain", "cfm_attention", "flash_attention")
+           "dit_block_chain", "cfm_attention", "flash_attention",
+           "decode_attention", "fused_resblock_stage")
 
 LAUNCHES: collections.Counter = collections.Counter({k: 0 for k in KERNELS})
 
