@@ -23,43 +23,50 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    four GEMVs of a layer, beside `torch._weight_int4pack_mm`; the int4 K1
    chain at g128 and g640, pos 300; the int4 K3 chain at beam-3 through a
    table), K6 (the verify of K = 4 tokens at pos 300 and 1500);
-4. tiny engines: the tiny engine on the card against the same weights on
+4. micro-benchmark path: K12 (`micro_tile`, the int8 tile stream) and K13
+   (`micro_int4`, the int4 stream with a carried row), every mode against
+   its plain version at D 1280, 16 tiles (K12's dot8i with x past the int8
+   range, K13 with scales at U(500, 2500)), then the entry points
+   `voice_tts_tpu_torch.scripts.micro_tile` / `.micro_int4` at their
+   defaults (D 1280, 288 tiles, 20 and 60 passes) with the counters from 0:
+   one launch a pass, 160 a mode; then each plain version over 3 passes;
+5. tiny engines: the tiny engine on the card against the same weights on
    the CPU, greedy, same CFM noise: one beam (K1), the production flags
    (beam-3 through K3, int8 KV, bf16 conditioning), spec decode with
    K = 4 (int4 drafts through K1 and K7, the verify through K6), the
    int4 decode pack (K1 with K7), K5 (below) and the vocoder flags;
-5. production slice: the flagship engine (random weights) in the serving
+6. production slice: the flagship engine (random weights) in the serving
    profile, the server default, behind the HTTP server in a background
    thread: GET /health, GET /debug/worker-info, three POST /tts, then one
    request under the CUDA profiler; the launch counters must show K3 once
    per beam decode step, K1 never, K2 109 times per vocode;
-6. bench slice: the same with `--profile bench` (sampling, one beam): K1
+7. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per decode step, K3 never, K2 109 times per vocode;
-7. spec slice: the bench configuration with `spec_decode_k = 4` (int4
+8. spec slice: the bench configuration with `spec_decode_k = 4` (int4
    drafts, one int8 verify a round), three POST /tts and one profiled: K6
    once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
    K2 109 times per vocode; prints the acceptance rate, the codes per round
    and the stage times beside the bench slice's.
-8. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
+9. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
    (`fused_blocks`) and K9 attention (`fused_attention`): a 2.5 s prompt
    twice (T 704: K8 once per velocity evaluation, 25 a request, no K9) and
    a 5 s prompt (T 896 > 768: K9 in every block, 325, no K8), K1 once per
    decode step, K2 109 times per vocode, one more request profiled at each
    T; prints the stage timers beside the bench slice's;
-9. K11 engine: a second engine on the DiT slice's weights with
+10. K11 engine: a second engine on the DiT slice's weights with
    `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
    K11 325 times.
-10. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
+11. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
     (the unfused decode step: K5 attention, K4 projections) and
     `use_fused_vocoder` (stages 2-5 through K10), three POST /tts and one
     profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
     never, K10 4 and K2 37 times a vocode; prints the stage timers beside
     the bench slice's;
-11. K5 beam request: a second engine on the K5 slice's models in the
+12. K5 beam request: a second engine on the K5 slice's models in the
     production profile with `pallas_decode_attention` and a 512-code cap,
     one request (beam-3 through the eager arm, 511 steps): K5 24 and K4 96
     times a beam step, K3 and K1 never;
-12. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
+13. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
     fused variants, each timed, with its difference from the module path.
 
@@ -79,10 +86,12 @@ The third-to-last stdout line repeats the card's name and power limit; the
 second-to-last is the kernel JSON: under "kernels" every kernel, each with
 its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
-from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice;
-`launches_by_path` has all seven), its largest error against the plain
-version, both times, its bound and `library_ms` (null where no one PyTorch
-call computes the function: K1, K2, K3, K6, K8, K10; K4's is
+from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice,
+K12 and K13 from the micro-benchmark path; `launches_by_path` has all
+eight), its largest error against the plain version, both times, its bound
+and `library_ms` (null where no one PyTorch call computes the function: K1,
+K2, K3, K6, K8, K10, K12, K13; the K12 and K13 entries time one mode a
+pass, `dot1` and `cur`, with every mode under `modes`; K4's is
 `torch._weight_int8pack_mm` where the build has it, K7's
 `torch._weight_int4pack_mm` at the loader's GEMVs, K5's, K9's and K11's
 `F.scaled_dot_product_attention`).  The last line is
@@ -157,7 +166,7 @@ def max_err(torch, a, b) -> float:
 
 # H100 SXM data sheet: device memory rate and dense peak rates
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def bound(n_bytes: float, n_ops: float, op_type: str = "bf16") -> dict:
@@ -1067,6 +1076,169 @@ def check_k10(torch, dev, results):
 
 
 # ---------------------------------------------------------------------------
+# the micro-benchmark path (K12, K13)
+# ---------------------------------------------------------------------------
+
+MICRO_CHECK_TILES = 16
+# a benchmark run: the scripts' defaults (D 1280, 288 tiles, 20 and 60 passes)
+MICRO_D, MICRO_TILES, MICRO_LO, MICRO_HI = 1280, 288, 20, 60
+# the mode each entry's headline times: K12's one-row product (K4's case),
+# K13's grouped int4 scheme (K7's)
+MICRO_HEADLINE = {"micro_tile": "dot1", "micro_int4": "cur"}
+MICRO_LIBRARY = ("no single PyTorch call streams int8 tiles through a per-tile "
+                 "stage and sums the tiles' terms (or carries a row through "
+                 "them): the function is a benchmark loop, not a library "
+                 "operation")
+
+
+def check_micro_tile(torch, dev):
+    """K12's modes against the plain version at D 1280, 16 tiles (dot8i with
+    x scaled past the int8 range, so the saturating cast shows).  Returns
+    each mode's error."""
+    from voice_tts_tpu_torch.ops import micro_tile as mt
+    from voice_tts_tpu_torch.scripts import micro_tile as script
+
+    n = MICRO_CHECK_TILES
+    x, w = script.make_inputs(MICRO_D, n, dev)
+    # the kernel adds its partials in another order: each of the n + 1
+    # adds on either side rounds by at most 2^-24 of the absolute sum of the
+    # terms; the dots' f32 sums of D products also run in another order
+    # (4 standard deviations of that random walk, sqrt(D) 2^-24)
+    c_int = 2 * (n + 1) * 2 ** -24
+    c_dot = c_int + 4 * MICRO_D ** 0.5 * 2 ** -24
+    errs = {}
+    for mode in mt.MODES:
+        xm = x * 100 if mode == "dot8i" else x
+        out = mt.micro_tile(xm, w, mode)
+        torch.cuda.synchronize()
+        ref = mt.micro_tile_plain(xm, w, mode)
+        if mode in ("dot1", "dot8"):
+            terms = [mt.stage_plain(xm.abs(), w[t].abs(), mode) for t in range(n)]
+        else:
+            terms = [mt.stage_plain(xm, w[t], mode).abs() for t in range(n)]
+        mag = float((xm.abs() + sum(terms)).max())
+        tol = (c_dot if mode in ("dot1", "dot8") else c_int) * mag
+        err = max_err(torch, out, ref)
+        print(f"K12 {mode} D={MICRO_D} T={n}: max_abs_err {err:.4g} (tol {tol:.4g} = "
+              f"{tol / mag:.3g} * {mag:.4g}, the largest absolute sum of the terms)")
+        if not torch.isfinite(out).all() or not err <= tol:
+            fail(f"K12 micro_tile {mode} disagrees with the plain version")
+        errs[mode] = err
+    return errs
+
+
+def check_micro_int4(torch, dev):
+    """K13's modes against the plain version at D 1280, scales at U(500,
+    2500) so that the tile term moves the carried row: one tile from a
+    bf16-exact x (the tile's arithmetic), then 16 tiles (the barriers and
+    buffers that carry the row).  Returns each mode's larger error."""
+    from voice_tts_tpu_torch.ops import micro_int4 as mi
+    from voice_tts_tpu_torch.scripts import micro_int4 as script
+
+    x, w, gs, per_half = script.make_inputs(MICRO_D, MICRO_CHECK_TILES, dev,
+                                            gs_range=(500.0, 2500.0))
+    x1 = x.to(torch.bfloat16).float()
+    # dma: the same f32 operations in the same order.  One tile: the dots'
+    # f32 sums in another order.  16 tiles: a carried value that differs in
+    # its last bit may round to a neighbouring bf16 before the next tile's
+    # product, and such flips compound from tile to tile (one bf16 step is
+    # 2^-8 of a value; 2^-6 of max|row 0| bounds where the two land, while a
+    # fault in a tile's arithmetic or in the carry moves row 0 by its size)
+    tols = {1: 1e-5, MICRO_CHECK_TILES: 2 ** -6}
+    errs = {}
+    for mode in mi.MODES:
+        errs[mode] = 0.0
+        for n, xn in ((1, x1), (MICRO_CHECK_TILES, x)):
+            out = mi.micro_int4(xn, w[:n].contiguous(), gs, mode, per_half)
+            torch.cuda.synchronize()
+            ref = mi.micro_int4_plain(xn, w[:n], gs, mode, per_half)
+            scale = float(ref[0].abs().max())
+            tol = 0.0 if mode == "dma" else tols[n] * scale
+            err = max_err(torch, out, ref)
+            moved = float((ref[0] - 0.5 ** n * xn[0]).abs().max())
+            print(f"K13 {mode} D={MICRO_D} T={n}: max_abs_err {err:.4g} (tol {tol:.4g}; "
+                  f"max|row 0| {scale:.4g}, moved by the tiles {moved:.4g}); rows 1-7 "
+                  f"equal: {bool(torch.equal(out[1:], ref[1:]))}")
+            if (not torch.isfinite(out).all() or not err <= tol
+                    or not torch.equal(out[1:], ref[1:])):
+                fail(f"K13 micro_int4 {mode} T={n} disagrees with the plain version")
+            errs[mode] = max(errs[mode], err)
+    return errs
+
+
+def micro_bound(name: str, mode: str, x, w, gs=None) -> dict:
+    """The weight stream (each byte read once), x and gs read, the (8, D)
+    output written; the products' operations at their type's peak."""
+    d = x.shape[1]
+    rows = {"dot1": 1, "dot8": 8, "dot8i": 8}.get(mode, 0) if name == "micro_tile" \
+        else (0 if mode == "dma" else 1)
+    ops = 2 * rows * d * d * w.shape[0]
+    return bound(nbytes(w, gs, x) + nbytes(x), ops, "int8" if mode == "dot8i" else "bf16")
+
+
+def run_micro_path(torch, dev, counters, results):
+    """The micro-benchmark path: both entry points at their defaults with
+    the launch counters from 0 (one launch a pass: 2 (lo + hi) a mode),
+    then each plain version's time over 3 passes at the same shapes."""
+    from voice_tts_tpu_torch.ops import micro_int4 as mi
+    from voice_tts_tpu_torch.ops import micro_tile as mt
+    from voice_tts_tpu_torch.scripts import micro_int4 as int4_script
+    from voice_tts_tpu_torch.scripts import micro_tile as tile_script
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' dots in f32
+    errs = {"micro_tile": check_micro_tile(torch, dev),
+            "micro_int4": check_micro_int4(torch, dev)}
+    args = ["--dim", str(MICRO_D), "--tiles", str(MICRO_TILES),
+            "--lo", str(MICRO_LO), "--hi", str(MICRO_HI)]
+    counters.reset()
+    timed = {"micro_tile": tile_script.main(args), "micro_int4": int4_script.main(args)}
+    launches = counters.snapshot()
+    per_mode = 2 * (MICRO_LO + MICRO_HI)
+    for name, mods in (("micro_tile", mt.MODES), ("micro_int4", mi.MODES)):
+        if launches[name] != per_mode * len(mods):
+            fail(f"{name}: {launches[name]} launches on the micro-benchmark path, "
+                 f"expected {per_mode * len(mods)} (one a pass)")
+    others = {k: v for k, v in launches.items() if v and k not in timed}
+    if others:
+        fail(f"the micro-benchmark path launched other kernels: {others}")
+    print(f"micro-benchmark path launches: micro_tile {launches['micro_tile']}, "
+          f"micro_int4 {launches['micro_int4']} (one a pass, {per_mode} a mode)")
+
+    x, w = tile_script.make_inputs(MICRO_D, MICRO_TILES, dev)
+    x4, w4, gs, per_half = int4_script.make_inputs(MICRO_D, MICRO_TILES, dev)
+    cases = {"micro_tile": ((x, w), mt.micro_tile_plain),
+             "micro_int4": ((x4, w4, gs), lambda x, w, gs, mode:
+                            mi.micro_int4_plain(x, w, gs, mode, per_half))}
+    for name, (data, plain) in cases.items():
+        modes = {}
+        for r in timed[name]:
+            mode = r["mode"]
+            plain_ms = cuda_time_ms(torch, lambda: plain(*data, mode), 3, warmup=1)
+            b = micro_bound(name, mode, *data)
+            modes[mode] = {"ms": r["ms"], "event_ms": r["event_ms"],
+                           "us_per_tile": r["us_per_tile"], "gb_per_s": r["gb_per_s"],
+                           "plain_ms": plain_ms, "max_abs_err": errs[name][mode], **b}
+            print(f"{name} {mode}: {r['ms']:.4f} ms a pass (events {r['event_ms']:.4f}), "
+                  f"{r['gb_per_s']:.1f} GB/s, plain {plain_ms:.3f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        head = modes[MICRO_HEADLINE[name]]
+        results.append({
+            "name": name, "route": "cuda", "source": f"voice_tts_tpu_torch/csrc/{name}.cu",
+            "replaces": {"micro_tile": "scripts/micro_tile.py:51",
+                         "micro_int4": "scripts/micro_int4.py:119"}[name],
+            "max_abs_err": max(errs[name].values()), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "library_note": MICRO_LIBRARY,
+            "ms_of": f"a pass of mode {MICRO_HEADLINE[name]} at D {MICRO_D}, "
+                     f"{MICRO_TILES} tiles ((t({MICRO_HI}) - t({MICRO_LO})) / "
+                     f"{MICRO_HI - MICRO_LO}, as the script times); every mode under modes",
+            "launches_per_pass": 1, "modes": modes})
+    del x, w, x4, w4, gs, cases
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the slice
 # ---------------------------------------------------------------------------
 
@@ -1903,6 +2075,8 @@ def main():
     check_k5(torch, dev, results)
     check_k10(torch, dev, results)
     torch.cuda.empty_cache()
+    by_path = {"micro": run_micro_path(torch, dev, counters, results)}
+    torch.cuda.empty_cache()
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
     check_tiny_engine_spec(torch, dev)
@@ -1910,7 +2084,6 @@ def main():
     check_tiny_engine_k5(torch, dev, counters)
     check_tiny_engine_k5_int8(torch, dev, counters)
     check_tiny_engine_vocoders(torch, dev, counters)
-    by_path = {}
     by_path["serving"], vocoder = run_production_slice(torch, dev, counters)
     torch.cuda.empty_cache()
     by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
@@ -1933,7 +2106,8 @@ def main():
     owner = {"fused_decode_step": "bench", "fused_decode_verify": "spec",
              "fused_decode_int4": "spec", "dit_block_chain": "dit",
              "cfm_attention": "dit", "flash_attention": "flash",
-             "decode_attention": "k5", "int8_gemv": "k5", "fused_resblock_stage": "k5"}
+             "decode_attention": "k5", "int8_gemv": "k5", "fused_resblock_stage": "k5",
+             "micro_tile": "micro", "micro_int4": "micro"}
     for r in results:
         r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]
         r["launches_by_path"] = {p: by_path[p][r["name"]] for p in by_path}

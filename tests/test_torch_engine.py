@@ -120,6 +120,66 @@ def test_infer_wav_matches_with_shared_noise(engines):
         assert key in out.metrics
 
 
+# five sentences of 7-11 tokens (the hash tokenizer takes each non-space
+# character): at 24 tokens a segment they merge differently with and
+# without `more_segment_before`
+SEGMENT_TEXT = "hello world. how are you. fine thanks. see you soon. bye now."
+
+
+@pytest.mark.parametrize("more", [0, 30])
+def test_more_segment_before_matches_jax(engines, more):
+    """The segments of `_prepare` with `more_segment_before = more` (the
+    JAX `_prepare`'s `quick_streaming_tokens`) equal the JAX engine's on
+    the same tokenizer; 30 splits the first tokens finer than 0."""
+    jeng, peng = engines
+    wav = prompt_wav()
+    segs = {}
+    for n in (0, more):
+        _, _, jseg = jeng._prepare(wav, None, 1.0, None, False, None, False,
+                                   SEGMENT_TEXT, 24, n)
+        _, _, pseg = peng._prepare(wav, None, 1.0, None, False, SEGMENT_TEXT,
+                                   24, n)
+        assert pseg == jseg and len(jseg) > 1
+        segs[n] = pseg
+    assert (segs[more] != segs[0]) == (more > 0)
+
+
+def test_infer_passes_more_segment_before(engines, monkeypatch):
+    """`infer` hands `more_segment_before` to the segmenter: the segments it
+    synthesizes are the JAX `_prepare`'s for the same N (each segment's
+    synthesis is stubbed out).  `verbose` and an `emo_text` without
+    `use_emo_text` are accepted and change nothing, as in JAX."""
+    jeng, peng = engines
+    wav = prompt_wav()
+    seen = []
+
+    def synth(seg, *_):
+        seen.append(seg)
+        return np.zeros(100, np.float32)
+    monkeypatch.setattr(peng, "_synthesize_segment", synth)
+    peng.infer(wav, SEGMENT_TEXT, max_text_tokens_per_segment=24,
+               more_segment_before=30, verbose=True, emo_text="calm")
+    _, _, jseg = jeng._prepare(wav, None, 1.0, None, False, None, False,
+                               SEGMENT_TEXT, 24, 30)
+    assert seen == jseg
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"stream_return": True}, NotImplementedError),
+    ({"use_emo_text": True}, NotImplementedError),
+    ({"use_emo_text": True, "emo_text": "happy"}, NotImplementedError),
+    ({"no_such_keyword": 1}, TypeError),
+    ({"do_sample": False, "top_q": 0.5}, TypeError),
+])
+def test_infer_keyword_raises(engines, kwargs, error):
+    """The unported keywords (`stream_return`: the segment generator;
+    `use_emo_text`: the Qwen emotion model) and any keyword that is not a
+    GenerationConfig field raise before any work, instead of being dropped."""
+    _, peng = engines
+    with pytest.raises(error):
+        peng.infer(prompt_wav(), TEXT, **kwargs)
+
+
 @pytest.mark.parametrize("body", [
     {"text": "a", "spk_audio": "b"},
     {"text": "a", "spk_audio": "b", "emo_alpha": "0.5"},

@@ -29,6 +29,10 @@ import voice_tts_tpu_torch.ops.decode_attention
 import voice_tts_tpu_torch.ops.fused_vocoder
 import voice_tts_tpu_torch.models.vocoder.packed
 import voice_tts_tpu_torch.utils.convert
+import voice_tts_tpu_torch.ops.micro_tile
+import voice_tts_tpu_torch.ops.micro_int4
+import voice_tts_tpu_torch.scripts.micro_tile
+import voice_tts_tpu_torch.scripts.micro_int4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic",
                                     "voice_tts_tpu")

@@ -55,6 +55,18 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   return t;
 }
 
+// Asynchronous 16-byte copy from device to shared memory (Ampere's
+// cp.async, kept on Hopper), with its commit and wait.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Round an f32 value to bf16 precision (round-to-nearest-even) and widen it
 // back: the JAX kernels cast each activation to bf16 before a product.
 __device__ __forceinline__ float round_bf16(float v) {

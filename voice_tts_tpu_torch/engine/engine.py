@@ -49,7 +49,8 @@ setting of the Mosaic kernels, which the CUDA chain does not have),
 request at a time), and `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` /
 `batch_segments` (graph and dispatch settings of the JAX engine; segments
 run one after another).  Left out: `infer_batch`, streaming
-(`infer_generator`), the Qwen text emotion model, and `tensor_parallel > 1`
+(`infer_generator`; `infer(stream_return=True)` raises), the Qwen text
+emotion model (`infer(use_emo_text=True)` raises), and `tensor_parallel > 1`
 (constructing with it raises).
 """
 
@@ -68,7 +69,7 @@ import torch
 from voice_tts_tpu_torch.audio import (KaldiFbank, MelSpectrogram, Resampler,
                                        SeamlessFeatures, encode_wav_int16,
                                        load_prompt_audio)
-from voice_tts_tpu_torch.config import TTSConfig
+from voice_tts_tpu_torch.config import GenerationConfig, TTSConfig
 from voice_tts_tpu_torch.engine import post
 from voice_tts_tpu_torch.logging import logger
 from voice_tts_tpu_torch.models.conditioning.campplus import CAMPPlus
@@ -513,10 +514,16 @@ class TTSEngine:
     # ------------------------------------------------------------------
 
     def _generation_config(self, overrides: Optional[dict]):
+        """The engine's GenerationConfig with `overrides` applied; a key
+        that GenerationConfig lacks raises (it is not dropped in silence)."""
         base = self.cfg.generation
         if not overrides:
             return base
-        kv = tuple(sorted((k, v) for k, v in overrides.items() if hasattr(base, k)))
+        unknown = sorted(k for k in overrides if not hasattr(base, k))
+        if unknown:
+            raise TypeError(f"infer() got unexpected keyword argument(s) {unknown}: "
+                            "neither an infer keyword nor a GenerationConfig field")
+        kv = tuple(sorted(overrides.items()))
         if kv not in self._gen_cache:
             self._gen_cache[kv] = dataclasses.replace(base, **dict(kv))
         return self._gen_cache[kv]
@@ -536,8 +543,11 @@ class TTSEngine:
         self._cap_hint[bucket] = max(now, int(self._cap_hint.get(bucket, 0) * 0.95))
 
     def _prepare(self, spk_audio_prompt, emo_audio_prompt, emo_alpha,
-                 emo_vector, use_random, text, max_text_tokens_per_segment):
-        """Emotion-source resolution + conditioning + segmentation."""
+                 emo_vector, use_random, text, max_text_tokens_per_segment,
+                 quick_streaming_tokens: int = 0):
+        """Emotion-source resolution + conditioning + segmentation; the
+        first ~`quick_streaming_tokens` tokens stay in smaller unmerged
+        segments (the JAX `_prepare`'s knob of the same name)."""
         if emo_vector is not None:
             emo_audio_prompt = None
             scale = max(0.0, min(1.0, emo_alpha))
@@ -567,26 +577,43 @@ class TTSEngine:
             emovec = emovec_mat + (1.0 - float(weights.sum())) * emovec
         tokens = self.tokenizer.tokenize(text)
         segments = self.tokenizer.split_segments(
-            tokens, max_text_tokens_per_segment=max_text_tokens_per_segment)
+            tokens, max_text_tokens_per_segment=max_text_tokens_per_segment,
+            quick_streaming_tokens=quick_streaming_tokens)
         return spk, emovec, segments
 
     def infer(self, spk_audio_prompt, text: str, output_path: Optional[str] = None,
               emo_audio_prompt=None, emo_alpha: float = 1.0,
-              emo_vector: Optional[List[float]] = None, use_random: bool = False,
-              interval_silence: int = 200, max_text_tokens_per_segment: int = 120,
+              emo_vector: Optional[List[float]] = None,
+              use_emo_text: bool = False, emo_text: Optional[str] = None,
+              use_random: bool = False, interval_silence: int = 200,
+              verbose: bool = False, max_text_tokens_per_segment: int = 120,
+              stream_return: bool = False, more_segment_before: int = 0,
               **generation_kwargs) -> InferenceResult:
-        """Synthesize `text` in the voice of `spk_audio_prompt`."""
+        """Synthesize `text` in the voice of `spk_audio_prompt`.
+
+        The JAX `infer`'s signature.  `more_segment_before` keeps the first
+        ~N tokens in smaller unmerged segments; `emo_text` is read only with
+        `use_emo_text`, and `verbose` is accepted.  `stream_return=True`
+        (the segment generator) and `use_emo_text=True` (the Qwen emotion
+        model) are not ported and raise; so does a keyword that is neither
+        one of these nor a GenerationConfig field."""
+        if stream_return:
+            raise NotImplementedError(
+                "stream_return=True needs infer_generator, which is not ported")
+        if use_emo_text:
+            raise NotImplementedError(
+                "use_emo_text=True needs the Qwen emotion model, which is not ported")
+        gen = self._generation_config(generation_kwargs)
         start = time.perf_counter()
         cfg = self.cfg
         spk, emovec, segments = self._prepare(
             spk_audio_prompt, emo_audio_prompt, emo_alpha, emo_vector,
-            use_random, text, max_text_tokens_per_segment)
+            use_random, text, max_text_tokens_per_segment, more_segment_before)
         timers = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0,
                   "s2mel_time": 0.0, "bigvgan_time": 0.0,
                   "prepare_time": time.perf_counter() - start,
                   "decode_steps": 0}
-        wavs = [self._synthesize_segment(seg, spk, emovec, timers,
-                                         generation_kwargs)
+        wavs = [self._synthesize_segment(seg, spk, emovec, timers, gen)
                 for seg in segments]
         full = post.insert_interval_silence(wavs, cfg.engine.sample_rate,
                                             interval_silence)
@@ -719,11 +746,10 @@ class TTSEngine:
     @torch.no_grad()
     def _synthesize_segment(self, seg_tokens: List[str], spk: dict,
                             emovec: torch.Tensor, timers: dict,
-                            generation_kwargs: dict) -> np.ndarray:
+                            gen: GenerationConfig) -> np.ndarray:
         """decode (beam or sampling, see the two `_decode_*`) -> silence
         trim -> latent -> s2mel -> vocoder for one segment."""
         cfg, e, dev = self.cfg, self.cfg.engine, self.device
-        gen = self._generation_config(generation_kwargs)
         ids = self.tokenizer.convert_tokens_to_ids(seg_tokens)
         text_len = len(ids)
         bucket = post.pick_bucket(text_len, e.text_buckets)

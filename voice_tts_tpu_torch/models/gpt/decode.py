@@ -15,15 +15,17 @@ With `GPTConfig.pallas_decode_attention` the pack is not used, as in the JAX
 package: every step is `UnifiedVoice.decode_step` over a float cache padded
 to a multiple of 512, each layer's attention one K5 launch
 (`ops.decode_attention`) and, on the int8 runtime copy, each trunk
-projection one K4 launch.  Beam search is `models/gpt/beam.py`.
+projection one K4 launch.  Without a pack and without that flag, `int8_kv`
+decodes `UnifiedVoice.decode_step` over an int8 `QuantKVCache` (one scale
+per layer, k/v, row, head and position), as the JAX `decode` does.  Beam
+search is `models/gpt/beam.py`.
 
 `spec_decode` drafts K - 1 tokens with an int4 pack through K1 (K7's
 loader), verifies all K in one int8 pass (`fused_decode_verify`, K6) and
 keeps the target's distribution by rejection sampling over the warped
 distributions (`speculative_accept`).
 
-Left out here: batched decode, int8 KV on the unfused path, typical
-sampling.
+Left out here: batched decode, typical sampling.
 """
 
 from __future__ import annotations
@@ -94,14 +96,19 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
 
     Compute dtype follows the model's parameters (the int8 / bf16 runtime
     copy decodes with a bf16 cache); logits and sampling stay f32.  `int8_kv`
-    quantizes the fused step's cache after the prefill (fused path only).
-    `cfg.pallas_decode_attention` turns the fused path off (K5 reads a float
-    cache, so `int8_kv` drops too)."""
+    quantizes the fused step's cache after the prefill, or without a fused
+    pack decodes over an int8 `QuantKVCache` from the prefill on (the JAX
+    `int8_kv_xla` case).  `cfg.pallas_decode_attention` turns the fused path
+    off (K5 reads a float cache, so `int8_kv` drops there)."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     dev = text_tokens.device
     use_fused = (fused_pack is not None and b == 1
                  and not cfg.pallas_decode_attention)
+    # int8 KV without the fused step needs the plain attention branch (K5
+    # reads a float cache)
+    int8_kv_eager = (int8_kv and not use_fused
+                     and not cfg.pallas_decode_attention)
     int8_kv = int8_kv and use_fused
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new
@@ -118,7 +125,10 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
                                              text_tokens, text_lengths)
         valid = torch.cat([valid_p, torch.ones((b, t_max - p), dtype=torch.bool,
                                                device=dev)], dim=1)
-        cache = model.gpt.init_cache(b, t_max, prompt.dtype, dev)
+        if int8_kv_eager:
+            cache = model.gpt.init_quant_cache(b, t_max, dev)
+        else:
+            cache = model.gpt.init_cache(b, t_max, prompt.dtype, dev)
         logits = model.prefill(prompt, valid_p, cache)
 
         presence = torch.zeros((b, vocab), dtype=torch.bool, device=dev)

@@ -1,12 +1,15 @@
 """GPT-2 transformer stack with a preallocated KV cache
-(`voice_tts_tpu/models/gpt/gpt2.py`), float-KV branch.
+(`voice_tts_tpu/models/gpt/gpt2.py`), float or int8 KV.
 
 Pre-LN blocks, fused-qkv Conv1D projections, gelu_new MLP, final ln_f; no
 positional embeddings inside the stack.  One module handles both the plain
 causal forward and prefill / single steps against a fixed-shape cache.
 
 Cache layout: (layers, 2, B, heads, head_dim, max_len), as in the JAX
-package; the decode kernel takes it time-major (`ops.fused_decode`).  With
+package; the decode kernel takes it time-major (`ops.fused_decode`).  An
+int8 cache is a `QuantKVCache`: int8 rows with one f32 scale per (layer,
+k/v, batch, head, position), the dequant folded into the scores and the
+probabilities (the unfused decode with `int8_kv`).  With
 `pallas_attention` (`GPTConfig.pallas_decode_attention`) a single-token step
 over a cache whose length is a multiple of 512 attends through K5
 (`ops.decode_attention`), which reads only the live prefix.
@@ -15,7 +18,7 @@ over a cache whose length is a multiple of 512 attends through K5
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -23,6 +26,29 @@ from torch import nn
 from voice_tts_tpu_torch.models.layers import LayerNorm, normal_
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T, decode_attention
 from voice_tts_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_gemv
+
+
+class QuantKVCache(NamedTuple):
+    """int8 KV cache of the unfused decode (`voice_tts_tpu/models/gpt/gpt2.py:27-38`).
+
+    Symmetric per-(layer, k/v, batch, head, position) scales: dequant is
+    `int8 * scale`.  The scales fold into the attention scores and
+    probabilities, so the dequantized cache is never materialized."""
+
+    kv: torch.Tensor      # (L, 2, B, H, hd, Tmax) int8
+    scales: torch.Tensor  # (L, 2, B, H, Tmax) f32
+
+
+def _quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t (B, H, hd, S) float -> (int8 rows, scales (B, H, S) f32): scale
+    max|t| over hd / 127 floored at 1e-12, round half to even (as
+    `jnp.round`), clip to +-127.  `* (1 / 127)`: the JAX `decode` is jitted,
+    and XLA compiles its `/ 127.0` into a multiply by the f32 reciprocal;
+    the division by the scale is a true one there and here."""
+    tf = t.float()
+    s = torch.clamp(tf.abs().amax(dim=2) * (1.0 / 127.0), min=1e-12)
+    q = torch.clamp(torch.round(tf / s[:, :, None, :]), -127, 127)
+    return q.to(torch.int8), s
 
 
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -84,13 +110,13 @@ class GPT2Block(nn.Module):
         self.mlp_c_fc = Conv1DGPT(dim, 4 * dim, int8)
         self.mlp_c_proj = Conv1DGPT(4 * dim, dim, int8)
 
-    def forward(self, x, kv: Optional[torch.Tensor], cache_index: int,
-                attn_mask: torch.Tensor):
-        """x (B, S, D); kv (2, B, H, hd, Tmax) or None; attn_mask (B, S, L).
+    def forward(self, x, kv, cache_index: int, attn_mask: torch.Tensor):
+        """x (B, S, D); kv (2, B, H, hd, Tmax), an int8 pair ((2, B, H, hd,
+        Tmax) int8, (2, B, H, Tmax) f32 scales) or None; attn_mask (B, S, L).
 
         With a cache, K/V of the current block are written at
-        [cache_index, cache_index + S) (in place) and attention spans the
-        whole cache.  Returns (hidden, kv)."""
+        [cache_index, cache_index + S) (in place, quantized for an int8
+        pair) and attention spans the whole cache.  Returns (hidden, kv)."""
         b, s, d = x.shape
         h, hd = self.heads, d // self.heads
         res = x
@@ -99,26 +125,44 @@ class GPT2Block(nn.Module):
         q = q.reshape(b, s, h, hd).transpose(1, 2)               # (B,H,S,hd)
         k = k.reshape(b, s, h, hd).permute(0, 2, 3, 1)           # (B,H,hd,S)
         v = v.reshape(b, s, h, hd).permute(0, 2, 3, 1)
-        if kv is not None:
+        int8_kv = isinstance(kv, tuple)
+        if int8_kv:
+            kv_q, kv_s = kv
+            for i, t in enumerate((k, v)):
+                q_i, s_i = _quantize_kv(t)
+                kv_q[i, :, :, :, cache_index:cache_index + s] = q_i
+                kv_s[i, :, :, cache_index:cache_index + s] = s_i
+            k_all, v_all = kv_q[0], kv_q[1]
+        elif kv is not None:
             kv[0, :, :, :, cache_index:cache_index + s] = k.to(kv.dtype)
             kv[1, :, :, :, cache_index:cache_index + s] = v.to(kv.dtype)
             k_all, v_all = kv[0], kv[1]
         else:
             k_all, v_all = k, v
-        if (self.pallas_attention and kv is not None and s == 1
+        if (self.pallas_attention and kv is not None and not int8_kv and s == 1
                 and k_all.shape[3] % BLOCK_T == 0):
             # K5: reads only the live prefix [0, cache_index]
             bias = torch.where(attn_mask[:, 0, :], 0.0, -1e30).float()
             ctx = decode_attention(q[:, :, 0, :], k_all, v_all, bias,
                                    cache_index + 1).reshape(b, s, d)
         else:
-            # f32 scores / softmax regardless of the compute dtype
-            scores = q.float() @ k_all.float()
+            # f32 scores / softmax regardless of the compute dtype; an int8
+            # cache is cast to the compute dtype before each product (exact:
+            # |q| <= 127), its k dequant rides on the scores and its v
+            # dequant on the probabilities
+            k_dot = k_all.to(q.dtype) if int8_kv else k_all
+            scores = q.float() @ k_dot.float()
+            if int8_kv:
+                scores = scores * kv_s[0][:, :, None, :]
             scores = scores / math.sqrt(hd)
             scores = torch.where(attn_mask[:, None, :, :], scores,
                                  torch.finfo(torch.float32).min)
-            probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
-            ctx = (probs.float() @ v_all.float().transpose(-1, -2)).to(v_all.dtype)
+            probs = torch.softmax(scores, dim=-1)
+            if int8_kv:
+                probs = probs * kv_s[1][:, :, None, :]
+            v_dot = v_all.to(q.dtype) if int8_kv else v_all
+            probs = probs.to(v_dot.dtype)
+            ctx = (probs.float() @ v_dot.float().transpose(-1, -2)).to(v_dot.dtype)
             ctx = ctx.transpose(1, 2).reshape(b, s, d)
         x = res + self.attn_c_proj(ctx)
         res = x
@@ -139,15 +183,18 @@ class GPT2Stack(nn.Module):
         self.ln_f = LayerNorm(dim)
 
     def forward(self, embeds: torch.Tensor,
-                kv_cache: Optional[torch.Tensor] = None, cache_index: int = 0,
+                kv_cache: Union[torch.Tensor, QuantKVCache, None] = None,
+                cache_index: int = 0,
                 valid_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """embeds (B, S, D) -> (hidden (B, S, D), cache).  `kv_cache` is
-        updated in place.  valid_mask (B, L): attendable key positions."""
+                ) -> Tuple[torch.Tensor, Union[torch.Tensor, QuantKVCache, None]]:
+        """embeds (B, S, D) -> (hidden (B, S, D), cache).  `kv_cache` (a
+        float tensor or a `QuantKVCache`) is updated in place.  valid_mask
+        (B, L): attendable key positions."""
         b, s, _ = embeds.shape
         dev = embeds.device
+        int8_kv = isinstance(kv_cache, QuantKVCache)
         if kv_cache is not None:
-            t_max = kv_cache.shape[5]
+            t_max = (kv_cache.kv if int8_kv else kv_cache).shape[5]
             pos = torch.arange(t_max, device=dev)[None, None, :]
             q_pos = cache_index + torch.arange(s, device=dev)[None, :, None]
             mask = (pos <= q_pos).expand(b, s, t_max)
@@ -158,7 +205,12 @@ class GPT2Stack(nn.Module):
             mask = mask & valid_mask[:, None, :t_max]
         x = embeds
         for i in range(self.layers):
-            kv = kv_cache[i] if kv_cache is not None else None
+            if kv_cache is None:
+                kv = None
+            elif int8_kv:
+                kv = (kv_cache.kv[i], kv_cache.scales[i])
+            else:
+                kv = kv_cache[i]
             x, _ = getattr(self, f"h_{i}")(x, kv, cache_index, mask)
         return self.ln_f(x), kv_cache
 
@@ -166,3 +218,12 @@ class GPT2Stack(nn.Module):
         hd = self.dim // self.heads
         return torch.zeros((self.layers, 2, batch, self.heads, hd, max_len),
                            dtype=dtype, device=device)
+
+    def init_quant_cache(self, batch: int, max_len: int, device) -> QuantKVCache:
+        """An empty int8 cache, its scales 1e-12 (`init_quant_cache`)."""
+        hd = self.dim // self.heads
+        shape = (self.layers, 2, batch, self.heads, hd, max_len)
+        return QuantKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.full(shape[:4] + (max_len,), 1e-12, dtype=torch.float32,
+                       device=device))

@@ -19,7 +19,7 @@ from torch import nn
 
 from voice_tts_tpu_torch.config import GPTConfig
 from voice_tts_tpu_torch.models.gpt.conformer import ConformerEncoder
-from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack
+from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack, QuantKVCache
 from voice_tts_tpu_torch.models.gpt.perceiver import PerceiverResampler
 from voice_tts_tpu_torch.models.layers import Embedding, LayerNorm, Linear
 
@@ -161,10 +161,13 @@ class UnifiedVoice(nn.Module):
                      + self.mel_pos_embedding(torch.zeros((1,), dtype=torch.long,
                                                           device=dev))[None])
         embeds = torch.cat([prompt_embeds, start_emb.to(prompt_embeds.dtype)], dim=1)
-        t_max = kv_cache.shape[5]
+        # an int8 QuantKVCache: the compute dtype follows the embeds
+        int8_kv = isinstance(kv_cache, QuantKVCache)
+        t_max = (kv_cache.kv if int8_kv else kv_cache).shape[5]
         valid_all = torch.cat([valid, torch.ones((b, t_max - p), dtype=torch.bool,
                                                  device=dev)], dim=1)
-        hidden, _ = self.gpt(embeds.to(kv_cache.dtype), kv_cache, 0, valid_all)
+        dtype = prompt_embeds.dtype if int8_kv else kv_cache.dtype
+        hidden, _ = self.gpt(embeds.to(dtype), kv_cache, 0, valid_all)
         return self.readout(hidden[:, -1])
 
     def embed_decode_token(self, token: torch.Tensor, step: int) -> torch.Tensor:
@@ -179,5 +182,6 @@ class UnifiedVoice(nn.Module):
     def decode_step(self, token, step: int, cache_index: int, valid, kv_cache):
         """One AR step on the unfused path; `kv_cache` is updated in place."""
         emb = self.embed_decode_token(token, step)[:, None, :]
-        hidden, _ = self.gpt(emb.to(kv_cache.dtype), kv_cache, cache_index, valid)
+        dtype = emb.dtype if isinstance(kv_cache, QuantKVCache) else kv_cache.dtype
+        hidden, _ = self.gpt(emb.to(dtype), kv_cache, cache_index, valid)
         return self.readout(hidden[:, -1])

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "vtt_dit_block_chain": [_P] * 14 + [_I] * 5 + [_P],
     "vtt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _P],
+    "vtt_micro_tile": [_P] * 4 + [_I] * 4 + [_P],
+    "vtt_micro_int4": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
