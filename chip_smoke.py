@@ -55,7 +55,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    T; prints the stage timers beside the bench slice's;
 10. K11 engine: a second engine on the DiT slice's weights with
    `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
-   K11 325 times.
+   K11 325 times, then one profiled (the profiles of the DiT slice and this
+   engine print the DiT attention kernels' device time a request).
 11. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
     (the unfused decode step: K5 attention, K4 projections) and
     `use_fused_vocoder` (stages 2-5 through K10), three POST /tts and one
@@ -70,8 +71,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
     2656 frames through the module path, packed, shared-activation and
     fused variants, each timed, with its difference from the module path.
 
-The kernel phase also holds K9 and K11 (bf16 and f32, T 896 and 3104)
-beside `F.scaled_dot_product_attention` with the same boolean mask, K8
+The kernel phase also holds K9 and K11 (bf16 on the tensor cores, f32 on
+the CUDA cores; every row at T 65 and 130 with lens 0, 1, 63, 64, 65 and T
+and a query row that matches no segment, and misaligned bf16 views must
+raise; then T 896 and 3104, timed in a host loop and device-only behind a
+`torch.cuda._sleep`) beside `F.scaled_dot_product_attention` with the same
+boolean mask, timed alike, K8
 (the 13-block trunk at B 2, T 704), K5 (bf16 and f32; B 1, Tmax 512,
 length 343 and B 3, Tmax 2048, length 1571) beside
 `F.scaled_dot_product_attention` on the live prefix, and K10 (the four
@@ -147,6 +152,33 @@ def cuda_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """CUDA-event time of `iters` calls that the host queued before the
+    device reached them: a `torch.cuda._sleep` enqueued ahead of the start
+    event holds the device while the host launches, so the calls run back
+    to back and the time is the device's, not the host's launch rate.  The
+    sleep grows until the start event is still pending when the host has
+    queued the last call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_behind = start.query()
+        torch.cuda.synchronize()
+        if not host_behind:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail(f"device_time_ms: the host did not queue {iters} calls within the sleep")
 
 
 def library_time_ms(torch, fn, iters: int):
@@ -779,9 +811,11 @@ ATT_BF16_TOL = 2 ** -6
 
 def attention_case(torch, dev, g, kind: str, dtype, t: int, lens: list):
     """One K9 or K11 case at B 2, H 8, hd 64: kernel against its plain
-    version (valid query rows), CUDA-event times, bound, and the time of
+    version (valid query rows), CUDA-event times (a host loop, and
+    device-only behind a sleep), bound, and the times of
     `F.scaled_dot_product_attention` with the boolean mask that computes the
-    same function on valid rows (checked against the plain version)."""
+    same function on valid rows (checked against the plain version), timed
+    alike."""
     import torch.nn.functional as F
     from voice_tts_tpu_torch.ops import cfm_attention as k9
     from voice_tts_tpu_torch.ops import flash_attention as k11
@@ -817,11 +851,12 @@ def attention_case(torch, dev, g, kind: str, dtype, t: int, lens: list):
     if not torch.isfinite(out.float()).all() or not err <= tol * scale:
         fail(f"{tag} disagrees with the plain version")
     ms = cuda_time_ms(torch, lambda: kernel(*args), 10)
+    dev_ms = device_time_ms(torch, lambda: kernel(*args), 20)
     plain_ms = cuda_time_ms(torch, lambda: plain(*args), 3)
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=hd ** -0.5)
-    lib_ms = None
+    lib_ms = lib_dev_ms = None
     try:
         lib_err = max(max_err(torch, library()[i, :, :n], ref[i, :, :n])
                       for i, n in enumerate(lens))
@@ -831,22 +866,81 @@ def attention_case(torch, dev, g, kind: str, dtype, t: int, lens: list):
         print(f"{tag} F.scaled_dot_product_attention: max_abs_err {lib_err:.4g}")
         if lib_err <= 4 * tol * scale:
             lib_ms = library_time_ms(torch, library, 10)
+            lib_dev_ms = device_time_ms(torch, library, 20)
     # q, k, v read, the output written, the mask's ints read; QK^T and PV
     # are 4 operations a (query, attended key, head dim)
     bnd = bound(nbytes(q, k, v, out, lens_t), 4 * h * hd * attended,
                 "f32" if dtype == torch.float32 else "bf16")
-    print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms")
+    print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), {plain_ms:.4f} ms "
+          f"plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library "
+          f"{lib_ms} ms ({lib_dev_ms} device-only)")
     return {"dtype": str(dtype).split(".")[-1], "t": t, "lens": lens, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err, **bnd}
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "max_abs_err": err, **bnd}
+
+
+def attention_edges(torch, dev, g):
+    """K9 and K11 against their plain versions on EVERY query row at the
+    edges the bf16 tensor-core tile leans on, bf16 and f32, H 8: T 65 and
+    130 (a ragged last key tile); K9 at lens 0 (the uniform row over all T
+    keys), 1, 63, 64, 65 and T (its key loop stops at ceil(lens / 64)
+    tiles); K11 with the same key segments and one query row whose segment
+    matches no key (the uniform row again).  A bf16 view off the kernel's
+    16-byte grid must raise."""
+    from voice_tts_tpu_torch.ops import cfm_attention as k9
+    from voice_tts_tpu_torch.ops import flash_attention as k11
+
+    h, hd = 8, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATT_F32_TOL if dtype == torch.float32 else ATT_BF16_TOL
+        for t in (65, 130):
+            lens = [0, 1, 63, 64, 65, t]
+            q, k, v = (torch.randn(len(lens), h, t, hd, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            lens_t = torch.tensor(lens, device=dev, dtype=torch.int32)
+            kv_seg = (torch.arange(t, device=dev)[None, :] < lens_t[:, None]).to(torch.int32)
+            q_seg = kv_seg.clone()
+            q_seg[:, t // 2] = 2                       # a row that matches no key
+            for kind, kernel, plain, args in (
+                    ("K9", k9.cfm_attention, k9.cfm_attention_ref,
+                     (q, k, v, lens_t, hd ** -0.5)),
+                    ("K11", k11.flash_attention, k11.flash_attention_ref,
+                     (q, k, v, q_seg, kv_seg, hd ** -0.5))):
+                out = kernel(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                err = max_err(torch, out, ref)
+                scale = max(1.0, float(ref.float().abs().max()))
+                tag = f"{kind} edge {str(dtype).split('.')[-1]} T={t} lens={lens}"
+                print(f"{tag}: max_abs_err {err:.4g} on every row (tol {tol * scale:.4g})")
+                if not torch.isfinite(out.float()).all() or not err <= tol * scale:
+                    fail(f"{tag} disagrees with the plain version")
+    b, t = 2, 130
+    n = b * h * t * hd
+    buf = torch.randn(b * h * t * 68 + 8, generator=g, device=dev).to(torch.bfloat16)
+    good = buf[:n].view(b, h, t, hd)
+    lens_t = torch.tensor([t, 65], device=dev, dtype=torch.int32)
+    seg = (torch.arange(t, device=dev)[None, :] < lens_t[:, None]).to(torch.int32)
+    for what, bad in (("base one element off", buf[1:n + 1].view(b, h, t, hd)),
+                      ("time stride 68", buf.as_strided((b, h, t, hd), (h * t * 68, t * 68, 68, 1)))):
+        for kind, call in (("K9", lambda x: k9.cfm_attention(x, good, good, lens_t, 0.125)),
+                           ("K11", lambda x: k11.flash_attention(x, good, good, seg, seg, 0.125))):
+            try:
+                call(bad)
+            except ValueError as e:
+                print(f"{kind} bf16 q with {what} raises: {e}")
+            else:
+                fail(f"{kind}: a bf16 q with {what} did not raise")
+    torch.cuda.synchronize()
 
 
 def check_attention(torch, dev, results):
-    """K9 and K11 at B 2, H 8, hd 64, bf16 and f32, T 896 (the DiT slice's
-    5 s prompt) and T 3104 (the production slice's mel bucket 2656 plus
-    prompt bucket 448), lens below T; the entry's headline is bf16 at T 896,
-    the shape the slice runs."""
+    """K9 and K11: the edge cases (`attention_edges`), then B 2, H 8, hd 64,
+    bf16 and f32, T 896 (the DiT slice's 5 s prompt) and T 3104 (the
+    production slice's mel bucket 2656 plus prompt bucket 448), lens below
+    T; the entry's headline is bf16 at T 896, the shape the slice runs."""
     g = torch.Generator(device=dev).manual_seed(10)
+    attention_edges(torch, dev, g)
     for kind, name, src in (("K9", "cfm_attention", "voice_tts_tpu/ops/attic/cfm_attention.py:64"),
                             ("K11", "flash_attention", "voice_tts_tpu/models/s2mel/dit.py:122")):
         print(f"{kind} tolerance: f32 {ATT_F32_TOL} (sums in another order), bf16 "
@@ -857,12 +951,14 @@ def check_attention(torch, dev, results):
                  for t, lens in ((896, [850, 600]), (3104, [3000, 2100]))]
         head = cases[0]
         results.append({
-            "name": name, "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_attention.cu",
+            "name": name, "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_attention_mma.cuh",
             "replaces": src, "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library_device_ms": head["library_device_ms"],
             "library_call": "torch.nn.functional.scaled_dot_product_attention (boolean mask)",
-            "ms_of": "one call, bf16, B 2, H 8, T 896, lens (850, 600)", "cases": cases})
+            "ms_of": "one call, bf16, B 2, H 8, T 896, lens (850, 600); f32 cases run "
+                     "csrc/dit_attention.cuh", "cases": cases})
 
 
 # K8 on the card against its plain version: the same bf16 rounding points,
@@ -1635,7 +1731,9 @@ def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
 
 def profile_request(torch, engine, prompt: bytes, text: str):
     """One more warm request under the CUDA profiler: device busy time
-    (sum of kernel times) against the host wall clock, top kernels."""
+    (sum of kernel times) against the host wall clock, top kernels, and the
+    DiT attention kernels' device time (K9 / K11, where the request ran
+    them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1653,7 +1751,10 @@ def profile_request(torch, engine, prompt: bytes, text: str):
         "metrics": engine.last_metrics,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_s": e.self_device_time_total / 1e6}
-                        for e in top]}))
+                        for e in top],
+        "dit_attention": [{"name": e.key[:80], "count": e.count,
+                           "device_s": e.self_device_time_total / 1e6}
+                          for e in events if "dit_attention" in e.key]}))
 
 
 def serve_requests(torch, engine, profile: str, counters, prompts_s=(5.0, 5.0, 5.0)):
@@ -1863,7 +1964,8 @@ def run_dit_slice(torch, dev, counters, bench_metrics):
 def run_flash_engine(torch, dev, counters, dit_engine):
     """K11: a second engine on the DiT slice engine's weights with
     `flash_attention` on and `fused_attention` / `fused_blocks` off, one
-    request at the 5 s prompt (T 896): K11 in every block and Euler step."""
+    request at the 5 s prompt (T 896): K11 in every block and Euler step,
+    then one profiled request."""
     from voice_tts_tpu_torch.engine.engine import TTSEngine
     from voice_tts_tpu_torch.models.s2mel.s2mel import S2Mel
 
@@ -1880,8 +1982,8 @@ def run_flash_engine(torch, dev, counters, dit_engine):
     s2mel.load_state_dict(dit_engine.models["s2mel"].state_dict())
     engine = TTSEngine(cfg, {**dit_engine.models, "s2mel": s2mel},
                        dit_engine.tokenizer, extras, dev)
-    launches, _, n_act, _, _, metrics, _ = serve_requests(torch, engine, "flash", counters,
-                                                          prompts_s=(5.0,))
+    launches, _, n_act, prompt, text, metrics, _ = serve_requests(
+        torch, engine, "flash", counters, prompts_s=(5.0,))
     want = cfg.engine.diffusion_steps * cfg.s2mel.dit.depth
     print(f"[flash] K11 {launches['flash_attention']} (want {want}), K8 "
           f"{launches['dit_block_chain']}, K9 {launches['cfm_attention']}; s2mel_time "
@@ -1891,6 +1993,8 @@ def run_flash_engine(torch, dev, counters, dit_engine):
         fail("[flash] K11 was not launched once per block and Euler step")
     if launches["aa_snake_activation"] != n_act:
         fail("[flash] K2 was not launched on every vocoder activation")
+    print("[flash] profiled request at T 896 (K11):")
+    profile_request(torch, engine, prompt, text)
     return launches
 
 

@@ -88,16 +88,25 @@ def assert_valid_rows_close(out, ref, lens, tol):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("tl,lens", [(160, (160, 96)), (128, (50, 128))])
+@pytest.mark.parametrize("tl,lens", [(160, (160, 96)), (128, (50, 128)), (130, (1, 0)),
+                                     (130, (65, 130)), (128, (0, 1))])
 def test_cfm_attention_ref_matches_jax_kernel(tl, lens, dtype):
+    """Every query row (K9 masks keys only), also at a T off the 64-key
+    tile, one valid key, a tile edge, and lens 0: the uniform row.  The JAX
+    kernel pads T to a multiple of 128 with zero keys that its lens mask
+    covers too, so its lens-0 row averages the padded length (v's zero rows
+    included); the port's averages the T keys, the JAX row times tp / T."""
     (qj, kj, vj), (q, k, v) = qkv_inputs(2, 4, tl, dtype, 0)
-    ref = jax_cfm_attention(qj, kj, vj, jnp.asarray(lens, jnp.int32), HD ** -0.5,
-                            interpret=True)
+    ref = np.array(jax_cfm_attention(qj, kj, vj, jnp.asarray(lens, jnp.int32), HD ** -0.5,
+                                     interpret=True).astype(jnp.float32))
+    tp = -(-tl // 128) * 128
+    for i, n in enumerate(lens):
+        if n == 0:
+            ref[i] *= tp / tl
     out = k9.cfm_attention(q, k, v, torch.tensor(lens), HD ** -0.5)
     assert out.dtype == q.dtype
     assert torch.isfinite(out.float()).all()
-    assert_valid_rows_close(out, ref.astype(jnp.float32), lens,
-                            F32_TOL if dtype == "f32" else BF16_TOL)
+    assert_valid_rows_close(out, ref, (tl, tl), F32_TOL if dtype == "f32" else BF16_TOL)
 
 
 def jax_flash_dit(q, k, v, lens):
@@ -119,7 +128,7 @@ def jax_flash_dit(q, k, v, lens):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("tl,lens", [(160, (160, 96)), (256, (200, 256))])
+@pytest.mark.parametrize("tl,lens", [(160, (160, 96)), (256, (200, 256)), (130, (1, 65))])
 def test_flash_attention_ref_matches_jax_flash(tl, lens, dtype):
     (qj, kj, vj), (q, k, v) = qkv_inputs(2, 2, tl, dtype, 1)
     ref = jax_flash_dit(qj, kj, vj, lens)
@@ -383,23 +392,53 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["cfm_attention", "flash_attention"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_attention_kernel_matches_plain_on_card(cuda_device, kernel, dtype):
+@pytest.mark.parametrize("tl,lens", [(200, (200, 77)), (65, (0, 1, 63, 64, 65, 65)),
+                                     (130, (0, 1, 63, 64, 65, 130))])
+def test_attention_kernel_matches_plain_on_card(cuda_device, kernel, dtype, tl, lens):
+    """Every query row, also at the tile's edges: a ragged last key tile; K9
+    at lens 0 (the uniform row), 1, 63, 64, 65 and T (the key loop stops at
+    ceil(lens / 64) tiles); K11 on the same key segments with one query row
+    whose segment matches no key (the uniform row)."""
     rng = np.random.default_rng(5)
-    q, k, v = (t(rng.standard_normal((2, 4, 200, HD))).to(cuda_device, dtype)
+    q, k, v = (t(rng.standard_normal((len(lens), 4, tl, HD))).to(cuda_device, dtype)
                for _ in range(3))
-    lens = torch.tensor([200, 77], device=cuda_device)
+    lens_t = torch.tensor(lens, device=cuda_device)
     if kernel == "cfm_attention":
-        args = (q, k, v, lens, HD ** -0.5)
+        args = (q, k, v, lens_t, HD ** -0.5)
         out, ref = k9.cfm_attention(*args), k9.cfm_attention_ref(*args)
     else:
-        seg = (torch.arange(200, device=cuda_device)[None, :] < lens[:, None]).int()
-        args = (q, k, v, seg, seg, HD ** -0.5)
+        kv_seg = (torch.arange(tl, device=cuda_device)[None, :] < lens_t[:, None]).int()
+        q_seg = kv_seg.clone()
+        q_seg[:, tl // 2] = 2
+        args = (q, k, v, q_seg, kv_seg, HD ** -0.5)
         out, ref = k11.flash_attention(*args), k11.flash_attention_ref(*args)
     torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
     # the kernel rounds the unnormalized probabilities, the plain K9 version
     # the normalized ones: one more bf16 ulp than against the JAX kernel
-    assert_valid_rows_close(out.cpu(), ref.float().cpu().numpy(), (200, 77),
+    assert_valid_rows_close(out.cpu(), ref.float().cpu().numpy(), [tl] * len(lens),
                             F32_TOL if dtype == torch.float32 else 2 * BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cfm_attention", "flash_attention"])
+@pytest.mark.parametrize("bad", ["offset", "stride"])
+def test_attention_kernel_rejects_misaligned_bf16_on_card(cuda_device, kernel, bad):
+    """The tensor-core kernel copies 16-byte chunks: a bf16 view one element
+    off, or with a time stride of 68, raises instead of launching."""
+    b, h, tl = 2, 4, 130
+    n = b * h * tl * HD
+    buf = torch.randn(b * h * tl * 68 + 8, device=cuda_device).to(torch.bfloat16)
+    good = buf[:n].view(b, h, tl, HD)
+    q = (buf[1:n + 1].view(b, h, tl, HD) if bad == "offset"
+         else buf.as_strided((b, h, tl, HD), (h * tl * 68, tl * 68, 68, 1)))
+    lens = torch.tensor([tl, 65], device=cuda_device)
+    seg = (torch.arange(tl, device=cuda_device)[None, :] < lens[:, None]).int()
+    with pytest.raises(ValueError, match="16-byte"):
+        if kernel == "cfm_attention":
+            k9.cfm_attention(q, good, good, lens, HD ** -0.5)
+        else:
+            k11.flash_attention(q, good, good, seg, seg, HD ** -0.5)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 // C entries of K9 (key-length-masked DiT attention) and K11 (segment-id
-// masked DiT attention); the kernel, its design and its bound are in
-// dit_attention.cuh, shared with the K8 block chain (dit_blocks.cu).
-#include "dit_attention.cuh"
+// masked DiT attention).  bf16 inputs run the tensor-core kernel of
+// dit_attention_mma.cuh; f32 inputs the CUDA-core kernel of
+// dit_attention.cuh, shared with the K8 block chain (dit_blocks.cu).  Each
+// header holds its kernel's design and bound.
+#include "dit_attention_mma.cuh"
 
 namespace {
 
@@ -25,8 +27,9 @@ vtt::AttnArgs make_args(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // K9.  q, k, v, o: (B, H, T, 64) views, bf16 (is_bf16 = 1) or f32, head dim
-// contiguous; `strides` (host, 12 ints): the (batch, head, time) element
-// strides of q, k, v, o in that order; lens: (B,) int32 valid keys.
+// contiguous (bf16: 16-byte-aligned bases, strides multiples of 8 elements);
+// `strides` (host, 12 ints): the (batch, head, time) element strides of q,
+// k, v, o in that order; lens: (B,) int32 valid keys.
 VTT_EXPORT int vtt_cfm_attention(const void* q, const void* k, const void* v, void* o,
                                  const int* strides, const int* lens, int is_bf16,
                                  int batch, int heads, int t_len, float scale,
@@ -35,7 +38,7 @@ VTT_EXPORT int vtt_cfm_attention(const void* q, const void* k, const void* v, vo
   a.lens = lens;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16
-                   ? vtt::launch_dit_attention<__nv_bfloat16, vtt::MASK_LENS>(a, batch, s)
+                   ? vtt::launch_dit_attention_mma<vtt::MASK_LENS>(a, batch, s)
                    : vtt::launch_dit_attention<float, vtt::MASK_LENS>(a, batch, s));
 }
 
@@ -49,6 +52,6 @@ VTT_EXPORT int vtt_flash_attention(const void* q, const void* k, const void* v, 
   a.kv_seg = kv_seg;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16
-                   ? vtt::launch_dit_attention<__nv_bfloat16, vtt::MASK_SEG>(a, batch, s)
+                   ? vtt::launch_dit_attention_mma<vtt::MASK_SEG>(a, batch, s)
                    : vtt::launch_dit_attention<float, vtt::MASK_SEG>(a, batch, s));
 }

@@ -13,7 +13,9 @@ TPU; that verdict is a TPU measurement, so the port keeps it under `ops/`.
 
 - `cfm_attention_ref`: PyTorch ops (CPU; the reference on the card);
 - `csrc/dit_attention.cu` (`vtt_cfm_attention`): the hand-written kernel,
-  launched for CUDA tensors (flash-style, `csrc/dit_attention.cuh`).
+  launched for CUDA tensors: bf16 on the tensor cores
+  (`csrc/dit_attention_mma.cuh`, which copies 16-byte chunks of each row:
+  see `check_qkv`), f32 on the CUDA cores (`csrc/dit_attention.cuh`).
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ def cfm_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise unless q, k, v are (B, H, T, 64) CUDA tensors of one dtype (f32
-    or bf16) on one device with a contiguous head dim and int32 strides."""
+    or bf16) on one device with a contiguous head dim and int32 strides; in
+    bf16 also with 16-byte-aligned bases and (batch, head, time) strides in
+    multiples of 8 elements, since the tensor-core kernel copies each row in
+    16-byte chunks (the wrappers' contiguous outputs meet that)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"{name}: q, k, v must be equal (B, H, T, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -66,6 +71,11 @@ def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             raise ValueError(f"{name}: {n} needs a contiguous head dim")
         if sum((n - 1) * s for n, s in zip(a.shape, a.stride())) >= 2 ** 31:
             raise ValueError(f"{name}: {n} is too large for int32 offsets")
+        if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or any(
+                s % 8 for d, s in zip(a.shape[:3], a.stride()[:3]) if d > 1)):
+            raise ValueError(f"{name}: bf16 {n} needs a 16-byte-aligned base and "
+                             f"strides in multiples of 8, got offset "
+                             f"{a.data_ptr() % 16} B, strides {a.stride()}")
 
 
 def strides_arg(*tensors: torch.Tensor):

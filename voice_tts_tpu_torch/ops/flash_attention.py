@@ -16,7 +16,7 @@ rows >= x_lens change, which nothing reads).
   f32-widened q and k and p cast to v's dtype before an f32 PV product;
 - `csrc/dit_attention.cu` (`vtt_flash_attention`): the hand-written
   kernel, launched for CUDA tensors (the K9 device code with the segment
-  mask, `csrc/dit_attention.cuh`).
+  mask: bf16 `csrc/dit_attention_mma.cuh`, f32 `csrc/dit_attention.cuh`).
 """
 
 from __future__ import annotations
