@@ -1,0 +1,58 @@
+"""The decode-loop timing script (`voice_tts_tpu_torch/scripts/decode_host_time.py`)
+on the CPU: the tiny engine through each profile's decode loop, one timed
+chain call a decode step and the chain function put back afterwards; and
+without a card the default `--device cuda` exits at once."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from voice_tts_tpu_torch.models.gpt import beam, decode
+from voice_tts_tpu_torch.scripts import decode_host_time as script
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("profile", ["production", "bench"])
+def test_tiny_profile_times_each_chain_call(profile, capsys):
+    """A cold and a warm request: each row counts one chain call a decode
+    step (K3 a beam step, K1 a step) with a positive host time, prints as
+    one JSON line, and the decode loop gets its own function back."""
+    module, name = script.CHAINS[profile]
+    before = getattr(module, name)
+    rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
+                        "--profiles", profile])
+    assert getattr(module, name) is before
+    assert [(r["request"], r["cold"]) for r in rows] == [(0, True), (1, False)]
+    for r in rows:
+        assert r["profile"] == profile
+        assert r["decode_steps"] > 0 and r["chain_calls"] == r["decode_steps"]
+        assert 0 < r["chain_host_ms_median"] and 0 < r["chain_host_ms_mean"]
+        assert r["step_ms"] == pytest.approx(1e3 * r["gpt_gen_time"] / r["decode_steps"])
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert out == rows
+
+
+def test_chains_name_the_decode_loops_calls():
+    """Each profile's chain is the function its decode loop calls by name."""
+    assert script.CHAINS == {"production": (beam, "fused_decode_step_batch"),
+                             "bench": (decode, "fused_decode_step")}
+    assert callable(beam.fused_decode_step_batch) and callable(decode.fused_decode_step)
+
+
+def test_refuses_without_cuda():
+    """Without a card the default `--device cuda` exits non-zero and prints
+    no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "-m",
+                          "voice_tts_tpu_torch.scripts.decode_host_time"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "gpt_gen_time" not in out.stdout

@@ -4,21 +4,26 @@ in interpret mode) at L=2, D=256, H=4, Tmax=256; the kernel wrappers' device
 dispatch; and (on a card only) the CUDA kernels against their plain
 versions."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from voice_tts_tpu.ops import fused_decode as jfd
-from voice_tts_tpu.ops.int8_matmul import int8_gemv as jax_int8_gemv
-from voice_tts_tpu.utils.quantize import quantize_gpt_params
 from voice_tts_tpu_torch.ops import fused_decode as pfd
 from voice_tts_tpu_torch.ops.aa_activation import aa_snake_activation
 from voice_tts_tpu_torch.ops.int8_matmul import int8_gemv as port_int8_gemv
 from voice_tts_tpu_torch.ops.int8_matmul import int8_gemv_plain
 from voice_tts_tpu_torch.utils.convert import flatten_params
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from voice_tts_tpu.ops import fused_decode as jfd
+    from voice_tts_tpu.ops.int8_matmul import int8_gemv as jax_int8_gemv
+    from voice_tts_tpu.utils.quantize import quantize_gpt_params
+except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
+    jax = None
 
 L, D, H, T_MAX, V = 2, 256, 4, 256, 300
 
@@ -48,10 +53,14 @@ def _gpt_tree(seed=0):
 
 @pytest.fixture(scope="module")
 def packs():
+    """(JAX pack, JAX readout, port pack, port readout); the JAX pair is
+    None where JAX is absent (the `cuda` cases need only the port's)."""
     tree = _gpt_tree()
-    jax_rt = quantize_gpt_params(jax.tree.map(jnp.asarray, tree))
-    jpack = jfd.pack_gpt(jax_rt, L)
-    jro = jfd.pack_readout(jax_rt)
+    jpack = jro = None
+    if jax is not None:
+        jax_rt = quantize_gpt_params(jax.tree.map(jnp.asarray, tree))
+        jpack = jfd.pack_gpt(jax_rt, L)
+        jro = jfd.pack_readout(jax_rt)
     state = quantize_gpt_state(flatten_params(tree))
     return jpack, jro, pfd.pack_gpt(state, L), pfd.pack_readout(state)
 

@@ -209,18 +209,12 @@ __global__ void __launch_bounds__(ATT_THREADS) dit_attention_kernel(const AttnAr
 }
 
 // Launch on `stream`; returns cudaGetLastError().  The dynamic shared memory
-// (49 KB) is above the 48 KB default, so the first launch of each
-// instantiation raises the kernel's limit.
+// (49 KB) is above the 48 KB default, so the kernel's limit is raised.
 template <typename T, int MASK>
 cudaError_t launch_dit_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dit_attention_kernel<T, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ATT_SMEM_BYTES);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  const cudaError_t e = vtt::allow_dynamic_smem((const void*)dit_attention_kernel<T, MASK>,
+                                                ATT_SMEM_BYTES);
+  if (e != cudaSuccess) return e;
   const dim3 grid((a.t_len + ATT_BQ - 1) / ATT_BQ, batch * a.heads);
   dit_attention_kernel<T, MASK><<<grid, ATT_THREADS, ATT_SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();

@@ -180,14 +180,9 @@ VTT_EXPORT int vtt_fused_resblock_stage(
     const float* beta_recip, float* xb, float* y, float* out, int c, int t_len,
     int k_max, int n_blocks, int n_iter, const int* kernel_sizes,
     const int* dilations, const float* taps_host, float inv_nk, void* stream) {
-  static bool attr_set = false;
   const size_t max_smem = smem_bytes(FV_MAX_HALO, FV_MAX_TAPS);
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stage_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  const cudaError_t attr = vtt::allow_dynamic_smem((const void*)stage_pair_kernel, max_smem);
+  if (attr != cudaSuccess) return (int)attr;
   if (c < 1 || t_len < 1 || n_blocks < 1 || n_iter < 1) return (int)cudaErrorInvalidValue;
   FVTaps taps;
   for (int i = 0; i < 6; ++i) {

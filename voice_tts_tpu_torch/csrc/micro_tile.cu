@@ -37,11 +37,7 @@ constexpr int kStages = 4;
 
 enum Mode { kDma = 0, kConvert = 1, kDot1 = 2, kDot8 = 3, kDot8i = 4 };
 
-// int8 byte j of a word (biased by 0x80 to 0..255) -> its signed value as
-// f32: the bits 0x4B0000bb are 2^23 + bb, exactly, for bb < 256.
-__device__ __forceinline__ float byte_to_f32(unsigned biased, int j) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + j)) - 8388736.0f;
-}
+using vtt::byte_to_f32;
 
 // f32 -> int8 as JAX's astype: cvt.rzi truncates toward zero, maps NaN to
 // 0 and saturates to int32; the clamp then saturates to int8.

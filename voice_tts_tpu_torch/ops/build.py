@@ -32,10 +32,10 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
     "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "vtt_int8_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "vtt_int8_gemv": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     "vtt_decode_attend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _P, _P, _I, _P],
+                          _P, _P, _I, _P, _I, _P, _P],
     "vtt_verify_attend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "vtt_cfm_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -85,20 +85,34 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into a shared library; returns its path.
 
-    One `nvcc` per source, all started together, then one link.  Reuses an
-    existing library built from identical sources.  `verbose` prints a
-    one-line summary of `ptxas -v` (registers, spills)."""
+    One `nvcc` per source, all started together, then one link.  Every
+    build keeps `ptxas -v`'s report beside its library (`ptxas_log`); an
+    existing library built from identical sources is reused where its report
+    is there too.  `verbose` prints a one-line summary of the report
+    (registers, spills)."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libvtt_kernels_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    if not (out.exists() and ptxas_log(out).exists()):
+        _compile(out)
+    if verbose:
+        text = ptxas_log(out).read_text()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
+        print(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, {spills} bytes of "
+              f"spill stores in all")
+    return out
+
+
+def _compile(out: Path) -> None:
+    """Build the library `out` and its ptxas report from csrc/*.cu."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC"] + (["-Xptxas", "-v"] if verbose else [])
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     work = BUILD_DIR / f"{out.stem}.tmp{os.getpid()}"
     work.mkdir(exist_ok=True)
     jobs = []
@@ -121,16 +135,36 @@ def build(verbose: bool = False) -> Path:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        text = "".join(report)
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
-        print(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
-              f"{max(regs, default=0)} registers a thread, {spills} bytes of "
-              f"spill stores in all")
+    # the report first: a library on disk always has its report beside it
+    ptxas_log(out).write_text("".join(report))
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
-    return out
+
+
+def ptxas_log(library: Path) -> Path:
+    """Where a build keeps `ptxas -v`'s report beside its library."""
+    return library.with_suffix(".ptxas.log")
+
+
+def ptxas_entries(library: Path, names) -> list:
+    """(kernel, registers a thread, bytes of spill stores) of every entry
+    function whose symbol contains one of `names`, from the ptxas report
+    of the build of `library`."""
+    rows, entry, spill = [], None, 0
+    for line in ptxas_log(library).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            if any(n in entry for n in names):
+                rows.append((entry, int(m.group(1)), spill))
+            entry = None
+    return rows
 
 
 def kernels(verbose: bool = False) -> KernelLibrary:

@@ -6,7 +6,9 @@ kernels.  `fused_decode_step` (K1), `fused_decode_step_batch` (K3) and
 `fused_decode_verify` (K6) count one per step (a step is a chain of
 launches, see `ops/fused_decode.py`); `fused_decode_int4` (K7) counts each
 of those chains that ran with an int4 pack, in addition to the chain's own
-count.  `dit_block_chain` (K8) counts one per trunk evaluation (one C call
+count; `int8_gemv` (K4) one per product (one C call of two launches, the
+split partials and their fixed-order sum, see `ops/int8_matmul.py`).
+`dit_block_chain` (K8) counts one per trunk evaluation (one C call
 of a few launches a layer, see `ops/dit_blocks.py`); `cfm_attention` (K9)
 and `flash_attention` (K11) one per attention call of a DiT block, not the
 attention stage inside a K8 chain.  `decode_attention` (K5) counts one per

@@ -22,6 +22,10 @@ with the scale of the row it is read from.
 - `fused_decode_step_batch_plain`: PyTorch ops mirroring the Pallas
   kernels' numerics (CPU; the reference on the card); K1's plain version is
   this at B = 1;
+- `fused_decode_step_batch_split_plain`: the same step with the CUDA
+  attention's arithmetic (the prefix in splits of BLOCK_T positions, their
+  softmax partials combined in split order), for the tests; `attend_splits`
+  and `attend_workspace` size the CUDA attention's grid and scratch;
 - `fused_decode_verify_plain`: the same trunk over the K rows with K6's
   attention (shared committed prefix, then a causal tail over the K rows'
   unrounded k/v);
@@ -395,12 +399,40 @@ def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int64, device=device)
 
 
-def fused_decode_step_batch_plain(x, pack: Pack, kv_cache, bias,
-                                  pos: Pos, heads: int,
-                                  kv_scales: Optional[torch.Tensor] = None,
-                                  beam_src: Optional[torch.Tensor] = None,
-                                  readout_pack: Optional[ReadoutPack] = None):
-    """Plain PyTorch version; see `fused_decode_step_batch`."""
+def _split_prefix_attention(qh, keys, values, mask, s_cur, v_cur, split_t: int):
+    """The K1 / K3 kernel's attention arithmetic: qh (B, H, hd) scaled
+    queries, keys / values (B, P, H, hd) f32, mask (B, P) additive (-inf
+    past a row's prefix), s_cur (B, H, 1) and v_cur (B, H, hd) the current
+    token's score and value.  Each split of `split_t` positions keeps its
+    max m, sum l and unnormalised weighted sum of V, o (a split with no
+    live position: m = -inf, l = 0, o = 0); the splits are combined in
+    order by the online-softmax recurrence (each rescaled to the running
+    max), then the current token.  Returns (B, H, hd)."""
+    scores = torch.einsum("bhd,bthd->bht", qh, keys) + mask[:, None, :]
+    m = torch.full_like(s_cur[..., 0], float("-inf"))
+    l, o = torch.zeros_like(m), torch.zeros_like(v_cur)
+    for c0 in range(0, keys.shape[1], split_t):
+        sc = scores[..., c0:c0 + split_t]
+        ms = sc.amax(-1)                                         # (B, H)
+        live = torch.isfinite(ms)
+        e = torch.where(live[..., None], torch.exp(sc - ms[..., None]),
+                        torch.zeros_like(sc))
+        o_s = torch.einsum("bht,bthd->bhd", e, values[:, c0:c0 + split_t])
+        # a row with no live position yet keeps (m, l, o) = (-inf, 0, 0)
+        m_new = torch.maximum(m, ms)
+        keep = torch.where(torch.isfinite(m), torch.exp(m - m_new), torch.zeros_like(m))
+        add = torch.where(live, torch.exp(ms - m_new), torch.zeros_like(ms))
+        l = l * keep + e.sum(-1) * add
+        o = o * keep[..., None] + o_s * add[..., None]
+        m = m_new
+    m_f = torch.maximum(m, s_cur[..., 0])
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_f), torch.zeros_like(m))
+    p_cur = torch.exp(s_cur[..., 0] - m_f)
+    return (o * alpha[..., None] + p_cur[..., None] * v_cur) / (l * alpha + p_cur)[..., None]
+
+
+def _step_batch_plain(x, pack: Pack, kv_cache, bias, pos: Pos, heads: int,
+                      kv_scales, beam_src, readout_pack, split_t: Optional[int]):
     n_layers, _, b, _, d = kv_cache.shape
     hd = d // heads
     dev = x.device
@@ -425,8 +457,12 @@ def fused_decode_step_batch_plain(x, pack: Pack, kv_cache, bias,
 
     def attend(layer, q, k, v):
         qh = (q * (hd ** -0.5)).reshape(b, heads, hd)
-        scores = torch.einsum("bhd,bthd->bht", qh, cached(layer, 0)) + mask[:, None, :]
         s_cur = (qh * k.reshape(b, heads, hd)).sum(-1, keepdim=True)
+        if split_t is not None:
+            return _split_prefix_attention(qh, cached(layer, 0), cached(layer, 1), mask,
+                                           s_cur, v.reshape(b, heads, hd),
+                                           split_t).reshape(b, d)
+        scores = torch.einsum("bhd,bthd->bht", qh, cached(layer, 0)) + mask[:, None, :]
         probs = torch.softmax(torch.cat([scores, s_cur], dim=-1), dim=-1)
         ctx = (torch.einsum("bht,bthd->bhd", probs[..., :p_max], cached(layer, 1))
                + probs[..., p_max:] * v.reshape(b, heads, hd))
@@ -434,6 +470,29 @@ def fused_decode_step_batch_plain(x, pack: Pack, kv_cache, bias,
 
     xs = _trunk_plain(x.float().reshape(b, d), pack, kv_new, attend)
     return xs, kv_new, _readout_plain(xs, readout_pack)
+
+
+def fused_decode_step_batch_plain(x, pack: Pack, kv_cache, bias,
+                                  pos: Pos, heads: int,
+                                  kv_scales: Optional[torch.Tensor] = None,
+                                  beam_src: Optional[torch.Tensor] = None,
+                                  readout_pack: Optional[ReadoutPack] = None):
+    """Plain PyTorch version; see `fused_decode_step_batch`."""
+    return _step_batch_plain(x, pack, kv_cache, bias, pos, heads, kv_scales,
+                             beam_src, readout_pack, None)
+
+
+def fused_decode_step_batch_split_plain(x, pack: Pack, kv_cache, bias,
+                                        pos: Pos, heads: int,
+                                        kv_scales: Optional[torch.Tensor] = None,
+                                        beam_src: Optional[torch.Tensor] = None,
+                                        readout_pack: Optional[ReadoutPack] = None):
+    """The plain step with the CUDA attention's arithmetic: the prefix cut
+    into splits of BLOCK_T positions, each split's softmax partials
+    combined in split order with the current token (`_split_prefix_attention`);
+    the same function as `fused_decode_step_batch_plain`, summed another way."""
+    return _step_batch_plain(x, pack, kv_cache, bias, pos, heads, kv_scales,
+                             beam_src, readout_pack, BLOCK_T)
 
 
 def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
@@ -483,6 +542,23 @@ def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: int,
 # ---------------------------------------------------------------------------
 # the CUDA chain
 # ---------------------------------------------------------------------------
+
+def attend_splits(pos: Pos, t_max: int) -> int:
+    """Splits of the CUDA attention's grid (one block per head, row and
+    split of BLOCK_T positions): enough for the longest live prefix, that
+    is ceil(pos / BLOCK_T) for a shared int pos (at least 1), and Tmax /
+    BLOCK_T for per-row positions, which stay on the card; a split past a
+    row's prefix contributes nothing."""
+    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
+        return t_max // BLOCK_T
+    return max(1, -(-min(int(pos), t_max) // BLOCK_T))
+
+
+def attend_workspace(b: int, heads: int, hd: int, splits: int) -> int:
+    """f32 scratch of one attention launch, (B, H, splits, hd + 2): each
+    split's weighted sum of V, max and sum.  Reused by every layer."""
+    return b * heads * splits * (hd + 2)
+
 
 def _check(name, t, dev, dtype, shape, align16=False):
     if t.device != dev:
@@ -563,6 +639,12 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     hid = torch.empty((b, 4 * d), dtype=torch.float32, device=dev)
     kv_new = torch.empty((n_layers, 2, b, d), device=dev,
                          dtype=torch.float32 if int8_kv else kv_cache.dtype)
+    if not verify:
+        splits = attend_splits(pos_rows if pos_rows is not None else pos, t_max)
+        work = torch.empty(attend_workspace(b, heads, hd, splits),
+                           dtype=torch.float32, device=dev)
+        # each launch leaves its arrival counts at zero for the next one
+        arrivals = torch.zeros(b * heads, dtype=torch.int32, device=dev)
     # byte addresses from the base pointers (no per-layer tensor views: the
     # chain is 5 launches a layer and its host cost sets the step time)
     row = d * 4                              # bytes per f32 row of consts
@@ -600,7 +682,8 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
             scales = (scale_base + layer * b * t_max * 2 * 4) if int8_kv else None
             call("vtt_decode_attend", qkvp, cache_k, cache_k + plane, scales,
                  bias_p, src_p, pos_p, pos, b, t_max, d, heads, q_scale, ctxp,
-                 kv_base + layer * kv_layer, int(int8_kv), stream)
+                 kv_base + layer * kv_layer, int(int8_kv), work.data_ptr(),
+                 splits, arrivals.data_ptr(), stream)
         # x += proj(ctx)   (tile 3, bias row 15)
         call("vtt_dq_gemv", ctxp, None, None, w0 + 3 * tile, 1, d,
              s0 + 3 * s_tile, gsz, c0 + 15 * row, xp, xp, d, b, _EPI_RESIDUAL,
