@@ -343,34 +343,24 @@ def _compare_values(torch, tag, out, ref):
 
 def compare_step(torch, tag, out, ref):
     """Hidden, kv_new and logits of a decode step against the plain version
-    (tolerance DECODE_TOL * max|ref|), and the logits' argmax per row."""
-    errs = _compare_values(torch, tag, out, ref)
-    am = out[2][:, :VOCAB].argmax(-1).tolist()
-    top2 = ref[2][:, :VOCAB].float().topk(2, -1)
-    am_p = top2.indices[:, 0].tolist()
-    gaps = [round(float(v), 5) for v in top2.values[:, 0] - top2.values[:, 1]]
-    print(f"{tag} argmax per row {am} vs plain {am_p} (plain top-2 gap {gaps})")
-    if am != am_p:
-        fail(f"{tag} logits argmax differs from the plain version")
-    return max(errs.values())
-
-
-def compare_step_ties(torch, tag, out, ref):
-    """`compare_step` for the K3 split edge cases, whose 60 rows of random
-    logits hold near-ties: the same value checks, and per row the argmax of
-    the plain version, or a token whose plain logit lies within the logits'
-    tolerance (DECODE_TOL * max|ref|) of the plain maximum, which another
-    f32 summation order may pick; such rows are printed."""
+    (tolerance DECODE_TOL * max|ref|), and per row the logits' argmax: the
+    plain argmax, or a token whose plain logit lies within the logits'
+    tolerance of the plain maximum (a near-tie, which another f32 summation
+    order may pick; such rows are printed).  Every row's plain top-2 gap is
+    printed."""
     errs = _compare_values(torch, tag, out, ref)
     lo, lr = out[2][:, :VOCAB].float(), ref[2][:, :VOCAB].float()
     tol = DECODE_TOL * float(lr.abs().max())
-    am, am_p = lo.argmax(-1), lr.argmax(-1)
-    gap = lr.max(-1).values - lr.gather(1, am[:, None])[:, 0]
+    top2 = lr.topk(2, -1)
+    am, am_p = lo.argmax(-1), top2.indices[:, 0]
+    gaps = [round(float(v), 5) for v in top2.values[:, 0] - top2.values[:, 1]]
+    under = top2.values[:, 0] - lr.gather(1, am[:, None])[:, 0]
     ties = (am != am_p).nonzero().flatten().tolist()
-    print(f"{tag} argmax per row {am.tolist()} vs plain {am_p.tolist()}"
-          + (f"; rows {ties} pick a token {[round(float(gap[r]), 5) for r in ties]} "
-             f"under the plain maximum (tolerance {tol:.4g})" if ties else ""))
-    if not bool((gap <= tol).all()):
+    print(f"{tag} argmax per row {am.tolist()} vs plain {am_p.tolist()} (plain top-2 "
+          f"gap {gaps})" + (f"; near-tie rows {ties} pick a token "
+                            f"{[round(float(under[r]), 5) for r in ties]} under the "
+                            f"plain maximum (tolerance {tol:.4g})" if ties else ""))
+    if not bool((under <= tol).all()):
         fail(f"{tag} logits argmax differs from the plain version beyond a near-tie")
     return max(errs.values())
 
@@ -507,7 +497,7 @@ def check_k3(torch, dev, results):
         if name in ("a", "b", "c"):
             worst = max(worst, compare_step(torch, tag, out, ref))
         else:
-            edges.append({"case": name, "max_abs_err": compare_step_ties(torch, tag, out, ref)})
+            edges.append({"case": name, "max_abs_err": compare_step(torch, tag, out, ref)})
             continue
         ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step_batch), 20)
         dev_ms = device_time_ms(torch, lambda: run(fd.fused_decode_step_batch), CHAIN_ITERS)
@@ -527,7 +517,7 @@ def check_k3(torch, dev, results):
           + json.dumps(prof["by_kernel"]))
     lib = build.kernels()
     for family in ("int8_gemv_partial", "int8_gemv_reduce", "dq_gemv_kernel",
-                   "attend_split_kernel"):
+                   "attend_split_kernel", "dq_gemv4_kernel", "verify_split_kernel"):
         rows = build.ptxas_entries(lib.path, (family,))
         if not rows:
             fail(f"no kernel {family} in the build's ptxas report")
@@ -571,6 +561,11 @@ def random_trunk_int4(torch, dev, seed: int, group: int):
 # then a warp reduction) against the plain version's, with no bf16 rounding
 # between them
 GEMV4_TOL = 1e-4
+# the same GEMV behind the LN prologue: the kernel's mean and variance (warp
+# sums) and the plain version's (torch's reductions) are f32 sums in another
+# order, which flip single bf16 roundings of the normalised activations; one
+# flip moves a column by up to 2^-8 of an activation times 8 times its scale
+GEMV4_LN_TOL = 1e-3
 # the library product rounds the group scales and its output to bf16 (8
 # significant bits each)
 GEMV4_LIB_TOL = 1e-2
@@ -602,71 +597,106 @@ def int4_library_call(torch, w, gs, gsz: int):
 
 def int4_gemv_cases(torch, dev, pack):
     """The K7 loader alone at the four int4 GEMVs of one layer of the int4
-    K1 chain (B = 1; qkv 1280 -> 3840, proj 1280 -> 1280, fc 1280 -> 5120,
-    fc2 5120 -> 1280 as four contraction tiles) with a zero bias, each
-    against its plain version (`_dot4` a contraction tile, GEMV4_TOL), with
-    its bound and the time of `torch._weight_int4pack_mm` on the same
-    nibbles and scales (checked against the plain version, GEMV4_LIB_TOL)."""
-    from voice_tts_tpu_torch.ops import build
+    chains (qkv 1280 -> 3840, proj 1280 -> 1280, fc 1280 -> 5120, fc2 5120
+    -> 1280 as four contraction tiles) at 1 row (the K1 drafts) and 3 rows
+    (the int4 K3 chain), each in two forms: the bare product (no LN, zero
+    bias, no epilogue), beside `torch._weight_int4pack_mm` on the same
+    nibbles and scales (checked against the plain version, GEMV4_LIB_TOL,
+    and timed in a host loop and device-only); and the chain's form (the LN
+    prologue on qkv and fc, GELU on fc, the residual on proj and fc2: the
+    planner's two columns a warp on the LN GEMVs).  Each against the
+    kernel's plain twin (`int4_gemv_plain`) and the plain version (`_dot4`
+    a contraction tile), GEMV4_TOL, two calls bit-equal, timed in a host
+    loop and device-only, with its bound."""
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
-    lib, stream = build.kernels(), build.stream_handle(dev)
     _, _, d, half = pack.w.shape
     n_groups = pack.gscales.shape[-1]
     gsz = d // n_groups
     g = torch.Generator(device=dev).manual_seed(9)
     cases = []
-    for name, t0, n_tiles, n_kt in (("qkv", 0, 3, 1), ("proj", 3, 1, 1),
-                                    ("fc", 4, 4, 1), ("fc2", 8, 4, 4)):
-        f, k = (d, n_kt * d) if n_kt > 1 else (n_tiles * d, d)
-        w = pack.w[0, t0:t0 + n_tiles].reshape(n_kt, f, half)
-        gs = pack.gscales[0, t0:t0 + n_tiles].reshape(n_kt, f, n_groups)
-        x = torch.randn(1, k, generator=g, device=dev) * 0.5
-        bias = torch.zeros(f, device=dev)
-        out = torch.empty(1, f, device=dev)
+    for rows in (1, 3):
+        for name, t0, n_tiles, n_kt, epi in (("qkv", 0, 3, 1, fd._EPI_NONE),
+                                             ("proj", 3, 1, 1, fd._EPI_RESIDUAL),
+                                             ("fc", 4, 4, 1, fd._EPI_GELU),
+                                             ("fc2", 8, 4, 4, fd._EPI_RESIDUAL)):
+            f, k = (d, n_kt * d) if n_kt > 1 else (n_tiles * d, d)
+            w = pack.w[0, t0:t0 + n_tiles].reshape(n_kt, f, half)
+            gs = pack.gscales[0, t0:t0 + n_tiles].reshape(n_kt, f, n_groups)
+            x = torch.randn(rows, k, generator=g, device=dev) * 0.5
+            for form in ("bare", "chain"):
+                chain = form == "chain"
+                bias = (torch.randn(f, generator=g, device=dev) * 0.02 if chain
+                        else torch.zeros(f, device=dev))
+                ln = ((1 + 0.05 * torch.randn(k, generator=g, device=dev),
+                       0.02 * torch.randn(k, generator=g, device=dev))
+                      if chain and name in ("qkv", "fc") else None)
+                e = epi if chain else fd._EPI_NONE
+                res = torch.randn(rows, f, generator=g, device=dev) if chain else None
 
-        def kernel():
-            lib.call("vtt_dq_gemv", x.data_ptr(), None, None, w.data_ptr(), n_kt,
-                     d, gs.data_ptr(), gsz, bias.data_ptr(), None, out.data_ptr(),
-                     f, 1, fd._EPI_NONE, stream)
-            return out
+                def kernel():
+                    return fd.int4_gemv(x, w, gs, bias, ln, res, e)
 
-        def plain():
-            y = bias
-            for kt in range(n_kt):
-                y = y + fd._dot4(x[:, kt * d:(kt + 1) * d], w[kt], gs[kt], 0.0)
-            return y
-        y = kernel().clone()
-        torch.cuda.synchronize()
-        ref = plain()
-        tag = f"K7 int4 GEMV {name} 1x{k}->{f} g{gsz}"
-        err, scale = max_err(torch, y, ref), float(ref.abs().max())
-        print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol "
-              f"{GEMV4_TOL} * max|ref|)")
-        if not err <= GEMV4_TOL * scale:
-            fail(f"{tag} disagrees with the plain version")
-        ms = cuda_time_ms(torch, kernel, 50)
-        plain_ms = cuda_time_ms(torch, plain, 20)
-        lib_ms = lib_err = None
-        lib_fn = int4_library_call(torch, w, gs, gsz)
-        if lib_fn is not None:
-            xb = x.to(torch.bfloat16)
-            lib_err = max_err(torch, lib_fn(xb), ref)
-            print(f"{tag} torch._weight_int4pack_mm: max_abs_err {lib_err:.4g} "
-                  f"(tol {GEMV4_LIB_TOL} * max|ref|)")
-            if lib_err <= GEMV4_LIB_TOL * scale:
-                lib_ms = library_time_ms(torch, lambda: lib_fn(xb), 50)
-            else:
-                print(f"{tag}: the library call computes another function here; "
-                      f"no library time")
-        # the nibbles and their scales read once, x and the bias read, the
-        # f32 output written; 2 K F operations
-        bnd = bound(nbytes(w, gs, x, bias, out), 2 * k * f)
-        print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms")
-        cases.append({"gemv": name, "k": k, "f": f, "group": gsz, "ms": ms,
-                      "plain_ms": plain_ms, "max_abs_err": err, "library_ms": lib_ms,
-                      "library_max_abs_err": lib_err, **bnd})
+                def twin():
+                    return fd.int4_gemv_plain(x, w, gs, bias, ln, res, e)
+
+                def plain():
+                    xb = fd._ln(x, *ln) if ln is not None else x
+                    y = bias
+                    for kt in range(n_kt):
+                        y = y + fd._dot4(xb[:, kt * d:(kt + 1) * d], w[kt], gs[kt], 0.0)
+                    if e == fd._EPI_GELU:
+                        return torch.nn.functional.gelu(y, approximate="tanh")
+                    return res + y if e == fd._EPI_RESIDUAL else y
+                y, y2 = kernel(), kernel()
+                torch.cuda.synchronize()
+                plan = fd.plan_int4_gemv(k, f, gsz, ln is not None)
+                tag = (f"K7 int4 GEMV {name} ({form}) {rows}x{k}->{f} g{gsz}, {plan.blocks} "
+                       f"blocks of {8 * plan.col_blocks} columns, {plan.warps} warps")
+                if not torch.equal(y, y2):
+                    fail(f"{tag}: two calls differ")
+                ref = plain()
+                err, err_twin = max_err(torch, y, ref), max_err(torch, y, twin())
+                scale = float(ref.abs().max())
+                tol = GEMV4_LN_TOL if ln is not None else GEMV4_TOL
+                print(f"{tag}: max_abs_err {err:.4g} against the plain version, "
+                      f"{err_twin:.4g} against the twin (max|ref| {scale:.4g}, tol "
+                      f"{tol} * max|ref|), two calls bit-equal")
+                if not max(err, err_twin) <= tol * scale:
+                    fail(f"{tag} disagrees with the plain version")
+                ms = cuda_time_ms(torch, kernel, 50)
+                dev_ms = device_time_ms(torch, kernel, 50)
+                plain_ms = cuda_time_ms(torch, plain, 20)
+                lib_ms = lib_dev_ms = lib_err = None
+                lib_fn = None if chain else int4_library_call(torch, w, gs, gsz)
+                if lib_fn is not None:
+                    xb = x.to(torch.bfloat16)
+                    lib_err = max_err(torch, lib_fn(xb), ref)
+                    print(f"{tag} torch._weight_int4pack_mm: max_abs_err {lib_err:.4g} "
+                          f"(tol {GEMV4_LIB_TOL} * max|ref|)")
+                    if lib_err <= GEMV4_LIB_TOL * scale:
+                        lib_ms = library_time_ms(torch, lambda: lib_fn(xb), 50)
+                        lib_dev_ms = library_time_ms(torch, lambda: lib_fn(xb), 50,
+                                                     timer=device_time_ms)
+                    else:
+                        print(f"{tag}: the library call computes another function "
+                              f"here; no library time")
+                # the nibbles and their scales read once, x, the bias, the LN
+                # constants and the residual read, the f32 output written;
+                # 2 rows K F operations
+                extra = (list(ln) if ln is not None else []) + ([res] if chain else [])
+                bnd = bound(nbytes(w, gs, x, bias, y, *extra), 2 * rows * k * f)
+                print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
+                      f"{plain_ms:.4f} ms plain, bound {bnd['bound_ms']:.4f} ms "
+                      f"({bnd['bound_by']}), library {lib_ms} ms ({lib_dev_ms} device-only)")
+                cases.append({"gemv": name, "form": form, "rows": rows, "k": k, "f": f,
+                              "group": gsz, "blocks": plan.blocks,
+                              "warps": plan.warps, "col_blocks": plan.col_blocks,
+                              "ms": ms,
+                              "device_ms": dev_ms, "plain_ms": plain_ms,
+                              "max_abs_err": max(err, err_twin), "library_ms": lib_ms,
+                              "library_device_ms": lib_dev_ms,
+                              "library_max_abs_err": lib_err, **bnd})
     return cases
 
 
@@ -706,84 +736,189 @@ def check_k7(torch, dev, results):
 
             def run(fn):
                 return fn(x, pack, cache, bias, pos, H, ro)
-        out = run(kernel)
+        out, again = run(kernel), run(kernel)
         torch.cuda.synchronize()
         tag = f"K7 int4 {name} B={b} pos={pos} Tmax={t_max}"
+        if not all(torch.equal(u, v) for u, v in zip(out, again)):
+            fail(f"{tag}: two calls differ")
         worst = max(worst, compare_step(torch, tag, out, run(plain)))
         ms = cuda_time_ms(torch, lambda: run(kernel), 20)
+        dev_ms = device_time_ms(torch, lambda: run(kernel), CHAIN_ITERS)
         plain_ms = cuda_time_ms(torch, lambda: run(plain), 3)
         bnd = decode_step_bound(torch, pack, ro, cache, scales, bias, pos, src=src,
                                 rows=b)
-        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
+              f"{plain_ms:.4f} ms plain, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); two calls bit-equal")
         cases.append({"case": name, "group": group, "rows": b, "pos": pos,
-                      "t_max": t_max, "ms": ms, "plain_ms": plain_ms, **bnd})
-    layer = bound(sum(c["bound_bytes"] for c in gemvs),
-                  sum(c["bound_ops"] for c in gemvs))
-    lib_times = [c["library_ms"] for c in gemvs]
+                      "t_max": t_max, "ms": ms, "device_ms": dev_ms,
+                      "plain_ms": plain_ms, **bnd})
+    one_row = [c for c in gemvs if c["rows"] == 1 and c["form"] == "bare"]
+    layer = bound(sum(c["bound_bytes"] for c in one_row),
+                  sum(c["bound_ops"] for c in one_row))
+
+    def total(key, cs):
+        vals = [c[key] for c in cs]
+        return None if None in vals else sum(vals)
+    for rows in (1, 3):
+        bare = [c for c in gemvs if c["rows"] == rows and c["form"] == "bare"]
+        chained = [c for c in gemvs if c["rows"] == rows and c["form"] == "chain"]
+        print(f"K7 a layer's four int4 GEMVs, {rows} row(s): bare {total('ms', bare):.4f} "
+              f"ms kernel ({total('device_ms', bare):.4f} device-only), library "
+              f"{total('library_ms', bare)} ms ({total('library_device_ms', bare)} "
+              f"device-only); chain form {total('device_ms', chained):.4f} device-only; "
+              f"bound {sum(c['bound_ms'] for c in bare):.4f} ms")
+    three = [c for c in gemvs if c["rows"] == 3 and c["form"] == "bare"]
     results.append({
         "name": "fused_decode_int4", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:137",
         "max_abs_err": max([worst] + [c["max_abs_err"] for c in gemvs]),
-        "ms": sum(c["ms"] for c in gemvs),
-        "plain_ms": sum(c["plain_ms"] for c in gemvs),
+        "ms": total("ms", one_row), "device_ms": total("device_ms", one_row),
+        "plain_ms": total("plain_ms", one_row),
         "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
-        "library_ms": None if None in lib_times else sum(lib_times),
+        "library_ms": total("library_ms", one_row),
+        "library_device_ms": total("library_device_ms", one_row),
         "library_call": "torch._weight_int4pack_mm",
-        "ms_of": "the int4 loader alone at the four GEMVs of one layer of the "
-                 "int4 (g128) K1 chain, summed; launches count int4 chains, "
-                 "96 loader launches each; the chains' times under cases",
+        "ms_of": "the int4 loader alone at the four bare GEMVs of one layer of "
+                 "the int4 (g128) K1 chain (1 row), summed; launches count int4 "
+                 "chains, 96 loader launches each; the 3-row and chain-form sets "
+                 "under gemvs, the chains' times under cases",
+        "three_row_device_ms": total("device_ms", three),
+        "three_row_library_device_ms": total("library_device_ms", three),
         "gemvs": gemvs, "cases": cases})
+
+
+def profile_spec_round(torch, dev):
+    """One speculative round of kernels as `spec_decode` runs it, at pos 300
+    / Tmax 512 and K = 4 (bf16 cache, random flagship trunks): three int4 K1
+    drafts without readout, each writing its kv row into the cache, then the
+    int8 verify of the four tokens and its span commit.  Profiled once warm:
+    kernels a round, the int4 GEMV (K7) and verify-attention spans, and the
+    device's busy time against the round's host wall time.  Under
+    programmatic dependent launch the spans overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack8, _, g = random_trunk(torch, dev, 8)
+    pack4, _, _ = random_trunk_int4(torch, dev, 7, 128)
+    L, _, _, D = pack8.w.shape
+    H, K, t_max, pos = 20, 4, 512, 300
+    cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.zeros((t_max, 1), device=dev)
+    bias[70:82] = -1e30
+    xs = torch.randn(K, D, generator=g, device=dev) * 0.5
+
+    def one_round():
+        for i in range(K - 1):
+            _, kv, _ = fd.fused_decode_step(xs[i:i + 1], pack4, cache, bias, pos + i, H)
+            fd.apply_kv_update(cache, kv, pos + i)
+        _, kv = fd.fused_decode_verify(xs, pack8, cache, bias, pos, H)
+        fd.apply_kv_update_span(cache, kv, pos)
+    one_round()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+
+    def span(*names):
+        return sum(e.self_device_time_total for e in events
+                   if any(n in e.key for n in names)) / 1e3
+    busy_ms = span("")
+    out = {"kernels_a_round": sum(e.count for e in events),
+           "int4_gemv_span_ms": span("dq_gemv4"),
+           "int8_gemv_span_ms": span("dq_gemv_kernel"),
+           "verify_attention_span_ms": span("verify_split"),
+           "draft_attention_span_ms": span("attend_split"),
+           "device_busy_ms": busy_ms, "wall_ms": wall_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "by_kernel": {e.key[:60]: {"count": e.count,
+                                      "device_ms": e.self_device_time_total / 1e3}
+                         for e in events}}
+    print("spec round profiled (3 int4 K1 drafts + K6 verify, pos 300, K 4): "
+          + json.dumps(out))
+    return out
 
 
 def check_k6(torch, dev, results):
     """K6, the speculative verify: K = 4 tokens of one sequence through the
-    int8 trunk, bf16 cache, at pos 300 / Tmax 512 and pos 1500 / Tmax 1792
-    (hidden rows and the bf16 kv rows against the plain version)."""
+    int8 trunk, bf16 cache, at pos 300 / Tmax 512 and pos 1500 / Tmax 1792,
+    timed in a host loop and device-only; then the split edge cases
+    (checked, not timed): an empty prefix (pos 0), a prefix ending on a
+    split edge, K = 2 and K = 8, pos + K = Tmax, and a split wholly under
+    the -1e30 bias.  Each finite, two calls bit-equal, hidden rows and the
+    bf16 kv rows within DECODE_TOL of the plain version; then one spec round
+    of kernels profiled."""
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
     pack, _, g = random_trunk(torch, dev, 8)
     L, _, _, D = pack.w.shape
-    H, K = 20, 4
-    cases, worst = [], 0.0
-    for t_max, pos in ((512, 300), (1792, 1500)):
+    H = 20
+    # name: (K, Tmax, pos, prompt-pad span under -1e30)
+    plan = [("pos 300", 4, 512, 300, (70, 82)), ("pos 1500", 4, 1792, 1500, (70, 82)),
+            ("empty prefix", 4, 512, 0, (70, 82)),
+            ("split edge", 4, 512, 320, (70, 82)),
+            ("K 2", 2, 512, 300, (70, 82)), ("K 8", 8, 1792, 1500, (70, 82)),
+            ("pos + K = Tmax", 4, 512, 508, (70, 82)),
+            ("split under the bias", 4, 512, 300, (64, 96))]
+    cases, edges, worst = [], [], 0.0
+    for name, K, t_max, pos, (lo, hi) in plan:
         cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
         bias = torch.zeros((t_max, 1), device=dev)
-        bias[70:82] = -1e30
+        bias[lo:hi] = -1e30
         x = torch.randn(K, D, generator=g, device=dev) * 0.5
 
         def run(fn):
             return fn(x, pack, cache, bias, pos, H)
-        out = run(fd.fused_decode_verify)
+        out, again = run(fd.fused_decode_verify), run(fd.fused_decode_verify)
         torch.cuda.synchronize()
         ref = run(fd.fused_decode_verify_plain)
-        tag = f"K6 verify K={K} pos={pos} Tmax={t_max}"
+        split_t, splits = fd.verify_splits(pos, H, t_max)
+        tag = (f"K6 verify ({name}) K={K} pos={pos} Tmax={t_max}, {splits} splits of "
+               f"{split_t}")
         if not all(bool(torch.isfinite(v).all()) for v in out):
             fail(f"{tag}: non-finite output")
-        for name, a, r in (("hidden", out[0], ref[0]), ("kv_new", out[1], ref[1])):
+        if not all(torch.equal(u, v) for u, v in zip(out, again)):
+            fail(f"{tag}: two calls differ")
+        err_case = 0.0
+        for part, a, r in (("hidden", out[0], ref[0]), ("kv_new", out[1], ref[1])):
             err, scale = max_err(torch, a, r), float(r.float().abs().max())
-            print(f"{tag} {name}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, "
-                  f"tol {DECODE_TOL} * max|ref|)")
+            print(f"{tag} {part}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, "
+                  f"tol {DECODE_TOL} * max|ref|); two calls bit-equal")
             if not err <= DECODE_TOL * scale:
-                fail(f"{tag} {name} disagrees with the plain version")
-            worst = max(worst, err)
+                fail(f"{tag} {part} disagrees with the plain version")
+            err_case = max(err_case, err)
+        worst = max(worst, err_case)
+        if name not in ("pos 300", "pos 1500"):
+            edges.append({"case": name, "k": K, "pos": pos, "t_max": t_max,
+                          "splits": splits, "split_t": split_t, "max_abs_err": err_case})
+            continue
         ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify), 20)
+        dev_ms = device_time_ms(torch, lambda: run(fd.fused_decode_verify), CHAIN_ITERS)
         plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify_plain), 3)
         bnd = decode_step_bound(torch, pack, None, cache, None, bias, pos, rows=K,
                                 verify=True)
-        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        cases.append({"k": K, "pos": pos, "t_max": t_max, "ms": ms,
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
+              f"{plain_ms:.4f} ms plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        cases.append({"k": K, "pos": pos, "t_max": t_max, "splits": splits,
+                      "split_t": split_t, "ms": ms, "device_ms": dev_ms,
                       "plain_ms": plain_ms, **bnd})
     results.append({
         "name": "fused_decode_verify", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:1322",
-        "max_abs_err": worst, "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+        "max_abs_err": worst, "ms": cases[0]["ms"], "device_ms": cases[0]["device_ms"],
+        "plain_ms": cases[0]["plain_ms"],
         "bound_ms": cases[0]["bound_ms"], "bound_by": cases[0]["bound_by"],
         "library_ms": None,
-        "ms_of": "one K = 4 verify, bf16 KV, pos 300, Tmax 512", "cases": cases})
+        "ms_of": "one K = 4 verify, bf16 KV, pos 300, Tmax 512", "cases": cases,
+        "edge_cases": edges,
+        "spec_round_profile": {k: v for k, v in profile_spec_round(torch, dev).items()
+                               if k != "by_kernel"}})
 
 
 # the (D, F) of a GPT layer's four int8 products on the unfused decode step
@@ -1887,6 +2022,8 @@ def profile_request(torch, engine, prompt: bytes, text: str):
         "dit_attention": [{"name": e.key[:80], "count": e.count,
                            "device_s": e.self_device_time_total / 1e6}
                           for e in events if "dit_attention" in e.key]}))
+    return {"wall_s": wall, "device_busy_s": busy, "metrics": dict(engine.last_metrics),
+            "kernels": [(e.key, e.count, e.self_device_time_total / 1e6) for e in events]}
 
 
 def serve_requests(torch, engine, profile: str, counters, prompts_s=(5.0, 5.0, 5.0)):
@@ -2035,7 +2172,21 @@ def run_spec_slice(torch, dev, counters, bench_metrics):
         "bench_gpt_gen_time": [m["gpt_gen_time"] for m in bench_metrics],
         "bench_rtf": [m["rtf"] for m in bench_metrics],
         "bench_decode_steps": [m["decode_steps"] for m in bench_metrics]}))
-    profile_request(torch, engine, prompt, text)
+    prof = profile_request(torch, engine, prompt, text)
+    n = prof["metrics"]["spec_rounds"]
+
+    chain = ("dq_gemv", "attend_split", "verify_split")
+
+    def span_s(*names):
+        return sum(t for key, _, t in prof["kernels"] if any(k in key for k in names))
+    print("[spec] profiled request a round: " + json.dumps({
+        "rounds": n,
+        "chain_kernels": sum(c for key, c, _ in prof["kernels"]
+                             if any(k in key for k in chain)) / n,
+        "int4_gemv_span_ms": 1e3 * span_s("dq_gemv4") / n,
+        "verify_attention_span_ms": 1e3 * span_s("verify_split") / n,
+        "chain_kernels_busy_ms": 1e3 * span_s(*chain) / n,
+        "gpt_gen_time_ms": 1e3 * prof["metrics"]["gpt_gen_time"] / n}))
     return launches
 
 

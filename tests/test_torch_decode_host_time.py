@@ -1,7 +1,8 @@
 """The decode-loop timing script (`voice_tts_tpu_torch/scripts/decode_host_time.py`)
 on the CPU: the tiny engine through each profile's decode loop, one timed
-chain call a decode step and the chain function put back afterwards; and
-without a card the default `--device cuda` exits at once."""
+chain call a decode step (the spec profile: three draft chains and one
+verify a round) and the chain functions put back afterwards; and without a
+card the default `--device cuda` exits at once."""
 
 import json
 import subprocess
@@ -38,11 +39,35 @@ def test_tiny_profile_times_each_chain_call(profile, capsys):
     assert out == rows
 
 
+def test_tiny_spec_profile_times_drafts_and_verifies(capsys):
+    """The spec profile (spec decode, K = 4): each request counts three
+    timed int4 K1 draft chains and one K6 verify chain a round, both with a
+    positive host time, and both functions are put back."""
+    before = decode.fused_decode_step, decode.fused_decode_verify
+    rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
+                        "--profiles", "spec"])
+    assert (decode.fused_decode_step, decode.fused_decode_verify) == before
+    assert [r["request"] for r in rows] == [0, 1]
+    for r in rows:
+        assert r["profile"] == "spec" and r["spec_rounds"] > 0
+        assert r["chain_calls"] == 3 * r["spec_rounds"]
+        assert r["verify_calls"] == r["spec_rounds"]
+        assert 0 < r["chain_host_ms_median"] and 0 < r["verify_host_ms_median"]
+        assert 0 <= r["spec_accepted"] <= 3 * r["spec_rounds"]
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert out == rows
+
+
 def test_chains_name_the_decode_loops_calls():
-    """Each profile's chain is the function its decode loop calls by name."""
+    """Each profile's chain is the function its decode loop calls by name;
+    the spec profile's drafts take K1, its rounds' verify K6."""
     assert script.CHAINS == {"production": (beam, "fused_decode_step_batch"),
-                             "bench": (decode, "fused_decode_step")}
+                             "bench": (decode, "fused_decode_step"),
+                             "spec": (decode, "fused_decode_step")}
+    assert script.VERIFY == {"spec": (decode, "fused_decode_verify")}
     assert callable(beam.fused_decode_step_batch) and callable(decode.fused_decode_step)
+    assert callable(decode.fused_decode_verify)
 
 
 def test_refuses_without_cuda():

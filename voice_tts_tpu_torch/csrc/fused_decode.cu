@@ -24,7 +24,7 @@
 //   dq_gemv  [residual epilogue]             h   -> x += fc2(h)   (K = 4D, 4 k-tiles)
 //   dq_gemv  [final-LN prologue]             x   -> logits (B, 12 * VT)
 //
-// K6 is the same chain over its K rows with `verify_attend` in place of
+// K6 is the same chain over its K rows with `verify_split` in place of
 // `attend`; an int4 pack (K7) runs `dq_gemv4` in place of `dq_gemv` for the
 // trunk's products (the readout stays int8).
 //
@@ -86,28 +86,43 @@
 //
 // K7, int4 weights (`dq_gemv4`).  Bound: device memory, half the int8
 // trunk: 236 MB of nibble pairs plus 14.7 MB of g128 scales a step at
-// L = 24, D = 1280, so about 0.075 ms at 3.35 TB/s.  A tile is stored (out,
-// in/2): one output column's D/2 bytes run along the contraction axis, byte
-// k holding contraction row k in its low nibble and row k + D/2 in its high
-// nibble; its group scales (G per tile, one per `gsize` contraction rows of
-// each half) sit beside it, contiguous.  The design is dq_gemv's: one warp
-// per output column streams the column's bytes once for all B rows, 4 bytes
-// a lane; each nibble is sign-extended in registers (((v & 15) ^ 8) - 8 and
-// v >> 4, the JAX kernel's unpack), and each lane keeps one f32 partial per
-// row for the low group and one for the high group, multiplied by the
-// group's scale at the group's end and added to the row's f32 sum, as the
-// JAX default scheme (`int4_expand=False`) sums its per-group products.
+// L = 24, D = 1280, so about 0.075 ms at 3.35 TB/s; one layer's four
+// GEMVs read 9.8 MB, 3 us.  A tile is stored (out, in/2): one output
+// column's D/2 bytes run along the contraction axis, byte k holding
+// contraction row k in its low nibble and row k + D/2 in its high nibble;
+// its group scales (G per tile, one per `gsize` contraction rows of each
+// half) sit beside it, contiguous.  As with the int8 GEMV, a launch's own
+// work is a few microseconds, so the design fights latency and issue
+// count: it runs under programmatic dependent launch, with the block's
+// nibble slab, scales and biases in flight (cp.async) before the
+// dependency wait; one block owns 1-4 runs of 8 columns (a run is one
+// tensor-core tile wide; more on the LN GEMVs, whose every block restages
+// x and the LN constants: qkv and fc 160 blocks); the group sums run on
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulation), a warp
+// a (run, tile, group) unit, the nibbles converted to exact bf16 pairs with a byte permute, a
+// mask and one bf16 subtraction (1.5 instructions a nibble where the CUDA
+// cores took 4 with the product); each group's sum is multiplied by its
+// scale and the sums added in group, then tile order by one thread a row
+// and column, as the JAX default scheme (`int4_expand=False`) sums its
+// per-group products.  The block's warps (4-16) come from the planner
+// (`plan_int4_gemv`): as few rounds of units as 16 warps allow.
 //
-// K6, the verify attention (`verify_attend`).  Bound: device memory, the
+// K6, the verify attention (`verify_split`).  Bound: device memory, the
 // int8 trunk once for all K rows (472 MB) plus the bf16 prefix (37 MB at
-// pos 300): about 0.15 ms at 3.35 TB/s.  One block per (head, query row j):
-// row j attends the committed prefix [0, pos) of the sequence's cache row
-// under the bias, as `attend` does, then rows i <= j of the K current
-// tokens with their unrounded f32 k/v read from `qkv` (never through the
-// cache: the JAX kernel keeps the causal tail in f32); the k/v rows written
-// for the cache are rounded to bf16.  Each of the K blocks of a head reads
-// the whole prefix: the Pallas kernel's shared slab (one block per head
-// reading each prefix row once for all K rows) is left to a later change.
+// pos 300): about 0.15 ms at 3.35 TB/s.  Row j attends the committed
+// prefix [0, pos) of the sequence's cache row under the bias, then rows
+// i <= j of the K current tokens with their unrounded f32 k/v read from
+// `qkv` (never through the cache: the JAX kernel keeps the causal tail in
+// f32); the k/v rows written for the cache are rounded to bf16.  The
+// Pallas kernel's shared slab joined to the split-prefix design of
+// `attend_split`: one block per (head, prefix split of `verify_splits`
+// positions, 32-256) attends its split for all K rows, so each prefix row
+// is read from device memory once per head, not once per row; the split's
+// k and v rows go to shared memory (cp.async) before the dependency wait;
+// the last block of a head to arrive stages every split's partials in
+// shared memory and combines them in split order, then the causal tail:
+// no launch of its own, deterministic.  200 blocks at pos 300, 320 at pos
+// 1500 (the unsplit kernel launched 80).
 #include <algorithm>
 #include <type_traits>
 
@@ -116,23 +131,18 @@
 namespace {
 
 constexpr int GEMV_WARPS = 8;
+constexpr int GEMV4_MIN_WARPS = 4, GEMV4_MAX_WARPS = 16;  // K7: a block's warps
+constexpr int GEMV4_MAX_COL_BLOCKS = 4;  // K7: runs of 8 output columns a block
 constexpr int ATT_WARPS = 8;
 constexpr int ATT_CHUNK = 256;
 constexpr int MAX_VERIFY = 8;   // K6 rows
+constexpr int VERIFY_MAX_SPLIT = 256;   // K6 prefix positions a block
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-}
-
-// Widen the 4 bf16 values of one 8-byte load to f32 (f[j] is element j).
-__device__ __forceinline__ void bf16x4_to_f32(const uint2 raw, float* f) {
-  f[0] = __uint_as_float(raw.x << 16);
-  f[1] = __uint_as_float(raw.x & 0xffff0000u);
-  f[2] = __uint_as_float(raw.y << 16);
-  f[3] = __uint_as_float(raw.y & 0xffff0000u);
 }
 
 // 8 cache values widened to f32: 16 bytes of bf16 or 8 bytes of int8.
@@ -150,101 +160,55 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
 }
 
 // Stage the nrows input rows x (nrows, k_total) f32 into shared memory as
-// bf16 (xs), through the LN prologue when ln_w != nullptr (`stage` holds
-// k_total floats of staging).  The caller synchronises afterwards.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ x,
-                                           const float* __restrict__ ln_w,
-                                           const float* __restrict__ ln_b,
-                                           __nv_bfloat16* xs, float* stage,
-                                           float* scratch, int k_total,
-                                           int nrows) {
-  for (int r = 0; r < nrows; ++r) {
-    const float* xr = x + (size_t)r * k_total;
-    __nv_bfloat16* xb = xs + (size_t)r * k_total;
-    if (ln_w != nullptr) {
-      // each thread reads back only the stage entries it wrote itself
-      float s = 0.0f;
-      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-        const float v = xr[i];
-        stage[i] = v;
-        s += v;
-      }
-      const float mean = vtt::block_sum(s, scratch) / (float)k_total;
-      float v = 0.0f;
-      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-        const float c = stage[i] - mean;
-        v += c * c;
-      }
-      const float var = vtt::block_sum(v, scratch) / (float)k_total;
-      const float rstd = rsqrtf(var + 1e-5f);
-      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-        xb[i] = __float2bfloat16_rn((stage[i] - mean) * rstd * ln_w[i] + ln_b[i]);
-      }
-    } else {
-      for (int i = threadIdx.x; i < k_total; i += blockDim.x) {
-        xb[i] = __float2bfloat16_rn(xr[i]);
-      }
-    }
-  }
-}
-
-// Lane 0 of a column's warp: out[r, col] = epi(acc summed over the warp ...)
-template <int EPI, int NB>
-__device__ __forceinline__ void gemv_epilogue(const float* acc, int nrows,
-                                              int lane, int col, float scale,
-                                              float bias, const float* res,
-                                              float* out, int f_total) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nrows) {
-      const float a = vtt::warp_sum(acc[r]);
-      if (lane == 0) {
-        float y = a * scale + bias;
-        if (EPI == EPI_GELU) y = gelu_tanh(y);
-        if (EPI == EPI_RESIDUAL) y = res[(size_t)r * f_total + col] + y;
-        out[(size_t)r * f_total + col] = y;
-      }
-    }
-  }
-}
-
-// Stage the nrows input rows x (nrows, k_total) f32 into shared memory as
-// bf16 (xs), 16 bytes a thread, k_total % 4 == 0.  With an LN prologue (xf
-// != nullptr) the rows are first copied as f32 into xf (nrows * k_total f32
-// of shared memory: one read of device memory), then one warp a row takes
-// the mean and variance from there with warp reductions and writes the
-// normalised row times lnw plus lnb (k_total f32 each, staged in shared
-// memory by the caller).  Ends with a barrier.
+// bf16 rows of xs_stride elements (xs), k_total % 4 == 0, each thread's
+// 16-byte loads of device memory issued STAGE_BATCH at a time before any
+// is used (one round trip a batch, not one a load).  With an LN prologue
+// (xf != nullptr) the rows are first copied as f32 into xf (nrows *
+// k_total f32 of shared memory), then one warp a row takes the mean and
+// variance from there with warp reductions and writes the normalised row
+// times lnw plus lnb (k_total f32 each, staged in shared memory by the
+// caller).  Ends with a barrier.
+constexpr int STAGE_BATCH = 4;
 __device__ __forceinline__ void stage_rows_smem(const float* __restrict__ x, float* xf,
-                                                const float* lnw, const float* lnb,
-                                                __nv_bfloat16* xs, int k_total,
-                                                int nrows) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+                                                   const float* lnw, const float* lnb,
+                                                   __nv_bfloat16* xs, int xs_stride,
+                                                   int k_total, int nrows) {
   const int k4 = k_total / 4;
+  const int n4 = nrows * k4;
   const float4* x4 = reinterpret_cast<const float4*>(x);
-  if (xf == nullptr) {
-    for (int i = threadIdx.x; i < nrows * k4; i += blockDim.x) {
-      const float4 v = x4[i];
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs) + 2 * i;
-      dst[0] = __floats2bfloat162_rn(v.x, v.y);
-      dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  for (int i0 = threadIdx.x; i0 < n4; i0 += STAGE_BATCH * blockDim.x) {
+    float4 v[STAGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < STAGE_BATCH; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n4) v[u] = x4[i];
     }
-    __syncthreads();
-    return;
-  }
-  for (int i = threadIdx.x; i < nrows * k4; i += blockDim.x) {
-    reinterpret_cast<float4*>(xf)[i] = x4[i];
+#pragma unroll
+    for (int u = 0; u < STAGE_BATCH; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= n4) break;
+      if (xf != nullptr) {
+        reinterpret_cast<float4*>(xf)[i] = v[u];
+      } else {
+        const int r = i / k4, c = i % k4;
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs + (size_t)r * xs_stride) + 2 * c;
+        dst[0] = __floats2bfloat162_rn(v[u].x, v[u].y);
+        dst[1] = __floats2bfloat162_rn(v[u].z, v[u].w);
+      }
+    }
   }
   __syncthreads();
+  if (xf == nullptr) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < nrows; r += nwarps) {
     const float4* xr = reinterpret_cast<const float4*>(xf + (size_t)r * k_total);
-    float s = 0.0f;
+    float sm = 0.0f;
     for (int i = lane; i < k4; i += 32) {
       const float4 v = xr[i];
-      s += (v.x + v.y) + (v.z + v.w);
+      sm += (v.x + v.y) + (v.z + v.w);
     }
-    const float mean = vtt::warp_sum(s) / (float)k_total;
+    const float mean = vtt::warp_sum(sm) / (float)k_total;
     float q = 0.0f;
     for (int i = lane; i < k4; i += 32) {
       const float4 v = xr[i];
@@ -252,7 +216,7 @@ __device__ __forceinline__ void stage_rows_smem(const float* __restrict__ x, flo
       q += (a * a + b * b) + (c * c + e * e);
     }
     const float rstd = rsqrtf(vtt::warp_sum(q) / (float)k_total + 1e-5f);
-    __nv_bfloat162* xb = reinterpret_cast<__nv_bfloat162*>(xs + (size_t)r * k_total);
+    __nv_bfloat162* xb = reinterpret_cast<__nv_bfloat162*>(xs + (size_t)r * xs_stride);
     for (int i = lane; i < k4; i += 32) {
       const float4 v = xr[i];
       const float4 g = reinterpret_cast<const float4*>(lnw)[i];
@@ -334,7 +298,7 @@ dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
     }
   vtt::cp_async_wait<1>();                   // the LN constants; the barrier in
                                              // stage_rows_smem publishes them
-  stage_rows_smem(x, ln_w != nullptr ? xf : nullptr, lnw, lnb, xs, k_total, nrows);
+  stage_rows_smem(x, ln_w != nullptr ? xf : nullptr, lnw, lnb, xs, k_total, k_total, nrows);
   vtt::cp_async_wait<0>();
   __syncthreads();
 
@@ -395,140 +359,193 @@ dq_gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   }
 }
 
-// The signed low and high nibble of one packed byte, as f32.
-__device__ __forceinline__ void unpack_int4(const signed char b, float& lo, float& hi) {
-  const int v = b;
-  lo = (float)(((v & 15) ^ 8) - 8);
-  hi = (float)(v >> 4);
+// Two nibbles of a packed word whose nibbles had their sign bit flipped
+// (word ^ 0x88888888: 0..15 for -8..7) as a bf16 pair, exactly: bytes
+// `sel` of the word spread to the pair's halves (a byte permute), the
+// nibble at `shift` of each or'ed into 0x4300 (bf16 128 + u), then 136
+// subtracted from both halves.
+template <int SEL, int SHIFT>
+__device__ __forceinline__ unsigned nibbles_to_bf16x2(unsigned flipped) {
+  const unsigned v = ((__byte_perm(flipped, 0u, SEL) >> SHIFT) & 0x000F000Fu) | 0x43004300u;
+  unsigned out;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(out) : "r"(v), "r"(0x43084308u));
+  return out;
 }
 
-// The int4 GEMV (K7): out[r, f] = epi(sum over the groups of a tile, in
-// group order, of (sum_k bf16(ln(x[r]))[k] * nibble[f, k]) * gscale[f, g],
-// summed over the contraction tiles, + bias[f]).  W: [n_ktiles][F][ktile/2]
-// nibble pairs (byte k: contraction row k low, row k + ktile/2 high);
-// gscale: [n_ktiles][F][G], G = ktile / gsize, the low half's G/2 groups
-// first.  Shared memory as dq_gemv_kernel's.
-template <int EPI, int NB>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
+// D += A B on the tensor cores: m16n8k16, bf16 inputs, f32 accumulation
+// (A 16 x 16 row-major in four registers, B 16 x 8 in two, D 16 x 8).
+__device__ __forceinline__ void mma_bf16_16816(float* d, unsigned a0, unsigned a1, unsigned a2,
+                                               unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The int4 GEMV (K7), launched with programmatic dependent launch:
+// out[r, f] = epi(sum over the contraction tiles, in order, of the tile's
+// sum over its groups, in group order (low half, then high half), of
+// (sum_k bf16(ln(x[r]))[k] * nibble[f, k]) * gscale[f, g], then + bias[f]).
+// W: [n_ktiles][F][ktile/2] nibble pairs (byte k: contraction row k low,
+// row k + ktile/2 high); gscale: [n_ktiles][F][G], G = ktile / gsize, the
+// low half's G/2 groups first.  A block owns col_blocks runs of 8 output
+// columns (a run is one tensor-core tile wide).  Before the dependency
+// wait it puts its nibble slab (a contiguous run of each tile; in shared
+// memory each column padded by 16 bytes, so that 8 columns' reads fall in
+// distinct banks), group scales and biases in flight as 16-byte cp.async
+// copies, with the LN constants; after it, it stages x as bf16 (through
+// the LN; its loads batched) and reads the residual rows.  The group sums
+// run on the tensor cores: a unit is one run, tile and group, and the
+// block's warps (4-16, the planner's choice) take the units in turn.  A
+// unit is gsize / 16 steps of two m16n8k16 products (low half, high half)
+// into two f32 accumulators: lane (g, t) loads 4 bytes of column g at 4t
+// of the step's 16 and the 4 activations of row g they multiply (one
+// permutation of the step's 16 contraction rows for both operands), and
+// converts the 8 nibbles into 4 exact bf16 pairs with a byte permute, a
+// mask and one bf16 subtraction; the rows past nrows are zeros.  A unit's
+// group sums, each times its column's group scale, go to shared memory;
+// then one thread a (row, column) adds them in tile and group order, adds
+// the bias and applies the epilogue.  BIG: more than 8 rows (the A rows
+// g + 8 are live).  Dynamic shared memory: the slab 8 * col_blocks *
+// (ktile / 2 + 16) bytes a tile, the scales (n_ktiles * 8 * col_blocks * G
+// f32), the biases, the units' scaled sums (units * 2 * nrows * 8 f32),
+// the bf16 rows (nrows * (K + 8)), and with an LN the LN weight and bias
+// (K f32 each) and the f32 rows.
+template <int EPI, bool BIG>
+__global__ void __launch_bounds__(GEMV4_MAX_WARPS * 32)
 dq_gemv4_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
                 const float* __restrict__ ln_b, const int8_t* __restrict__ w,
                 int n_ktiles, int ktile, const float* __restrict__ gscale,
                 int gsize, const float* __restrict__ bias, const float* res,
-                float* out, int f_total, int nrows) {
+                float* out, int f_total, int nrows, int col_blocks) {
   extern __shared__ uint4 smem4[];
-  __shared__ float scratch[32];
+  const int kcols = 8 * col_blocks;          // output columns a block owns
   const int k_total = n_ktiles * ktile;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  float* stage = reinterpret_cast<float*>(xs + (size_t)nrows * k_total);
-  stage_rows(x, ln_w, ln_b, xs, stage, scratch, k_total, nrows);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * GEMV_WARPS + warp;
-  if (col >= f_total) return;
-  const int half = ktile / 2;            // packed bytes of a column per tile
+  const int half = ktile / 2;                // packed bytes of a column a tile
+  const int cstride = half + 16;             // a column's bytes in shared memory
   const int n_groups = ktile / gsize;
   const int per_half = n_groups / 2;
-  float acc[NB];
+  const int n_units = col_blocks * n_ktiles * per_half;
+  const int xstride = k_total + 8;           // a bf16 row in shared memory
+  int8_t* ws = reinterpret_cast<int8_t*>(smem4);                       // [n_ktiles][kcols][cstride]
+  float* gss = reinterpret_cast<float*>(ws + (size_t)n_ktiles * kcols * cstride);  // [n_ktiles][kcols][G]
+  float* bs = gss + (size_t)n_ktiles * kcols * n_groups;               // [kcols]
+  float* gsum = bs + kcols;                  // [n_units][2][nrows][8]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(gsum + (size_t)n_units * 2 * nrows * 8);
+  float* lnw = reinterpret_cast<float*>(xs + (size_t)nrows * xstride);  // LN only
+  float* lnb = lnw + k_total;
+  float* xf = lnb + k_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int col0 = blockIdx.x * kcols;
+  const int ncols = min(kcols, f_total - col0);   // a multiple of 8
+
+  if (ln_w != nullptr) {                     // copy group 1: the LN constants
+    for (int i = tid; i < k_total / 4; i += blockDim.x) {
+      vtt::cp_async16(lnw + 4 * i, ln_w + 4 * i);
+      vtt::cp_async16(lnb + 4 * i, ln_b + 4 * i);
+    }
+  }
+  vtt::cp_async_commit();
+  const int cchunks = half / 16;             // 16-byte copies a column and tile
+  for (int i = tid; i < n_ktiles * ncols * cchunks; i += blockDim.x) {
+    const int kc = i / cchunks, s = i - kc * cchunks;   // kc = kt * ncols + column
+    const int kt = kc / ncols, c = kc - kt * ncols;
+    vtt::cp_async16(ws + ((size_t)kt * kcols + c) * cstride + s * 16,
+                    w + ((size_t)kt * f_total + col0 + c) * half + s * 16);
+  }
+  const int gseg = ncols * n_groups / 4;     // scale copies a k-tile
+  for (int i = tid; i < n_ktiles * gseg; i += blockDim.x) {
+    const int kt = i / gseg, s = i - kt * gseg;
+    vtt::cp_async16(gss + (size_t)kt * kcols * n_groups + s * 4,
+                    gscale + ((size_t)kt * f_total + col0) * n_groups + s * 4);
+  }
+  if (tid < ncols / 4) vtt::cp_async16(bs + 4 * tid, bias + col0 + 4 * tid);
+  vtt::cp_async_commit();                    // copy group 2: slab, scales, biases
+
+  vtt::grid_dependency_wait();
+  // the epilogue's (row, column) elements of this thread: their residuals now
+  constexpr int kEpi = 3;                    // 12 rows x 32 columns over 128 threads
+  const int n_out = nrows * ncols;
+  float rv[kEpi];
 #pragma unroll
-  for (int r = 0; r < NB; ++r) acc[r] = 0.0f;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int8_t* wcol = w + ((size_t)kt * f_total + col) * half;
-    const float* scol = gscale + ((size_t)kt * f_total + col) * n_groups;
-    const __nv_bfloat16* xk = xs + (size_t)kt * ktile;
-    for (int g = 0; g < per_half; ++g) {
-      float plo[NB], phi[NB];
-#pragma unroll
-      for (int r = 0; r < NB; ++r) plo[r] = phi[r] = 0.0f;
-      for (int c = g * gsize + lane * 4; c < (g + 1) * gsize; c += 32 * 4) {
-        const char4 q = *reinterpret_cast<const char4*>(wcol + c);
-        float lo[4], hi[4];
-        unpack_int4(q.x, lo[0], hi[0]);
-        unpack_int4(q.y, lo[1], hi[1]);
-        unpack_int4(q.z, lo[2], hi[2]);
-        unpack_int4(q.w, lo[3], hi[3]);
-#pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          if (r < nrows) {
-            const __nv_bfloat16* xr = xk + (size_t)r * k_total;
-            float xl[4], xh[4];
-            bf16x4_to_f32(*reinterpret_cast<const uint2*>(xr + c), xl);
-            bf16x4_to_f32(*reinterpret_cast<const uint2*>(xr + half + c), xh);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              plo[r] += xl[j] * lo[j];
-              phi[r] += xh[j] * hi[j];
-            }
-          }
-        }
+  for (int j = 0; j < kEpi; ++j) {
+    const int e = tid + j * blockDim.x;
+    rv[j] = EPI == EPI_RESIDUAL && e < n_out
+                ? res[(size_t)(e / ncols) * f_total + col0 + e % ncols] : 0.0f;
+  }
+  vtt::cp_async_wait<1>();                   // the LN constants; the barrier in
+                                             // stage_rows_smem publishes them
+  stage_rows_smem(x, ln_w != nullptr ? xf : nullptr, lnw, lnb, xs, xstride, k_total, nrows);
+  vtt::cp_async_wait<0>();
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;     // the fragments' group and lane in it
+  const bool row_lo = g < nrows, row_hi = BIG && g + 8 < nrows;
+  for (int u = warp; u < n_units; u += nwarps) {
+    const int nb = u % col_blocks, kg = u / col_blocks;   // a group's column blocks
+    const int kt = kg / per_half, gi = kg - kt * per_half;
+    if (nb * 8 >= ncols) continue;           // uniform across the warp
+    const int8_t* wc = ws + ((size_t)kt * kcols + nb * 8 + g) * cstride;
+    const __nv_bfloat16* xr = xs + (size_t)kt * ktile;
+    float dlo[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dhi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = gi * gsize; k0 < (gi + 1) * gsize; k0 += 16) {
+      const int k = k0 + 4 * t;
+      const unsigned q = *reinterpret_cast<const unsigned*>(wc + k) ^ 0x88888888u;
+      uint2 alo = make_uint2(0u, 0u), ahi = make_uint2(0u, 0u);
+      uint2 alo8 = make_uint2(0u, 0u), ahi8 = make_uint2(0u, 0u);
+      if (row_lo) {
+        alo = *reinterpret_cast<const uint2*>(xr + (size_t)g * xstride + k);
+        ahi = *reinterpret_cast<const uint2*>(xr + (size_t)g * xstride + half + k);
       }
-      const float s_lo = scol[g], s_hi = scol[per_half + g];
+      if (row_hi) {
+        alo8 = *reinterpret_cast<const uint2*>(xr + (size_t)(g + 8) * xstride + k);
+        ahi8 = *reinterpret_cast<const uint2*>(xr + (size_t)(g + 8) * xstride + half + k);
+      }
+      mma_bf16_16816(dlo, alo.x, alo8.x, alo.y, alo8.y, nibbles_to_bf16x2<0x4140, 0>(q),
+                     nibbles_to_bf16x2<0x4342, 0>(q));
+      mma_bf16_16816(dhi, ahi.x, ahi8.x, ahi.y, ahi8.y, nibbles_to_bf16x2<0x4140, 4>(q),
+                     nibbles_to_bf16x2<0x4342, 4>(q));
+    }
+    // the unit's group sums of (row g | g + 8, columns 2t, 2t + 1), each
+    // times its column's scale
+    const float* sc = gss + ((size_t)kt * kcols + nb * 8) * n_groups;
+    float* gu = gsum + (size_t)u * 2 * nrows * 8;
 #pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        acc[r] += plo[r] * s_lo;
-        acc[r] += phi[r] * s_hi;
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + (e >> 1) * 8, c = 2 * t + (e & 1);
+      if (r < nrows) {
+        gu[r * 8 + c] = __fmul_rn(dlo[e], sc[c * n_groups + gi]);
+        gu[(nrows + r) * 8 + c] = __fmul_rn(dhi[e], sc[c * n_groups + per_half + gi]);
       }
     }
   }
-  gemv_epilogue<EPI, NB>(acc, nrows, lane, col, 1.0f, bias[col], res, out,
-                         f_total);
-}
-
-// K6's online softmax of one block's query over the prefix [0, pos) of
-// the sequence's bf16 cache row.  Lane layout: a cache row of hd values is
-// read by lpr = hd/8 lanes, 8 values each (`sub`); a warp covers rows =
-// 32/lpr positions at once (`g`); brow is the additive bias.  Scores of a
-// chunk of ATT_CHUNK positions go to shared memory (p); on return m and l
-// hold the running max and sum (the same in every thread) and acc this
-// lane's 8 partial weighted sums of V.
-__device__ __forceinline__ void attend_prefix(
-    const float* q, const __nv_bfloat16* __restrict__ cache_k,
-    const __nv_bfloat16* __restrict__ cache_v, const float* __restrict__ brow,
-    int pos, int d, size_t col, int lpr, int rows, int g, int sub, int warp,
-    float* p, float* scratch, float& m, float& l, float* acc) {
-  m = -INFINITY;
-  l = 0.0f;
+  vtt::launch_dependents();
+  __syncthreads();
+  // a thread a (row, column) element: the scaled group sums in group order
+  // into each tile's sum, the tiles' sums in tile order, then bias and
+  // epilogue
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-  for (int c0 = 0; c0 < pos; c0 += ATT_CHUNK) {
-    const int n = min(ATT_CHUNK, pos - c0);
-    for (int r0 = warp * rows; r0 < n; r0 += ATT_WARPS * rows) {
-      const int tt = r0 + g;
-      float s = 0.0f;
-      if (tt < n) {
-        float kr[8];
-        load8(cache_k + (size_t)(c0 + tt) * d + col, kr);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += q[j] * kr[j];
+  for (int j = 0; j < kEpi; ++j) {
+    const int e = tid + j * blockDim.x;
+    if (e >= n_out) break;
+    const int er = e / ncols, ec = e % ncols, nb = ec >> 3, c8 = ec & 7;
+    float acc = 0.0f;
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      float tile = 0.0f;
+      for (int gi = 0; gi < per_half; ++gi) {
+        const float* gu =
+            gsum + (size_t)((kt * per_half + gi) * col_blocks + nb) * 2 * nrows * 8;
+        tile = __fadd_rn(tile, gu[er * 8 + c8]);
+        tile = __fadd_rn(tile, gu[(nrows + er) * 8 + c8]);
       }
-      for (int o = lpr / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (tt < n && sub == 0) p[tt] = s + brow[c0 + tt];
+      acc = __fadd_rn(acc, tile);
     }
-    __syncthreads();
-    float cm = -INFINITY;
-    for (int tt = threadIdx.x; tt < n; tt += blockDim.x) cm = fmaxf(cm, p[tt]);
-    cm = vtt::block_max(cm, scratch);
-    const float m_new = fmaxf(m, cm);
-    const float alpha = expf(m - m_new);
-    float ps = 0.0f;
-    for (int tt = threadIdx.x; tt < n; tt += blockDim.x) {
-      const float e = expf(p[tt] - m_new);
-      p[tt] = e;
-      ps += e;
-    }
-    ps = vtt::block_sum(ps, scratch);  // ends with a barrier: p is complete
-    l = l * alpha + ps;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] *= alpha;
-    for (int tt = warp * rows + g; tt < n; tt += ATT_WARPS * rows) {
-      float vr[8];
-      load8(cache_v + (size_t)(c0 + tt) * d + col, vr);
-      const float pt = p[tt];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += pt * vr[j];
-    }
-    m = m_new;
-    __syncthreads();  // p is rewritten by the next chunk
+    float y = __fadd_rn(acc, bs[ec]);
+    if (EPI == EPI_GELU) y = gelu_tanh(y);
+    if (EPI == EPI_RESIDUAL) y = rv[j] + y;
+    out[(size_t)er * f_total + col0 + ec] = y;
   }
 }
 
@@ -771,74 +788,245 @@ attend_split_kernel(const float* __restrict__ qkv, const CacheT* __restrict__ ca
   }
 }
 
-// K6's attention, one block per (head, query row j) of K <= MAX_VERIFY rows
-// of ONE sequence at positions pos .. pos + K - 1: the committed prefix
-// [0, pos) of the sequence's cache row under the bias (`attend_prefix`),
-// then rows i <= j of the K current tokens with their unrounded k/v from
-// `qkv` (B = K rows, as in attend_split_kernel).  cache_k, cache_v: this layer's
-// (1, Tmax, D) bf16 planes; bias: (1, Tmax); kv_new: (2, K, D) bf16.
+// K6's attention (split prefix), launched with programmatic dependent
+// launch: K <= KMAX rows of ONE sequence at positions pos .. pos + K - 1.
+// Row j attends the committed prefix [0, pos) of the sequence's cache row
+// under the bias, then rows i <= j of the K current tokens with their
+// unrounded f32 k/v from `qkv` (K rows of (3D) f32 [q | k | v]).  One block
+// per (head, split): split s covers prefix positions [s * split_t, (s + 1)
+// * split_t), and the block attends them for all K rows at once, so each
+// prefix row is read from device memory once per head, not once per row.
+// The cache and the bias are read-only for the step, so before the
+// dependency wait the block copies its split's k and v rows into shared
+// memory (16-byte cp.async) and stages the bias; after it, it reads the K
+// queries.  A position's k row is read once for the K scores, a warp takes
+// a row's softmax over the split, and a position's v row is read once for
+// the K weighted sums.  Each block writes every row's (o, m, l) to `work`
+// [H][S][K][hd + 2] (a split with no live position: m = -inf, l = 0, o =
+// 0) and counts itself in `arrivals` [H]; the last block of a head to
+// arrive resets the count and combines, for each row, the splits in split
+// order, then the causal tail, and writes ctx and the bf16 kv_new rows: no
+// launch of its own, and the same result whichever block comes last.
+// cache_k, cache_v: this layer's (1, Tmax, D) bf16 planes; bias: (1, Tmax)
+// f32; kv_new: (2, K, D) bf16.  Dynamic shared memory: k and v [split_t][hd]
+// bf16 each, the scores [K][split_t], the bias [split_t] and the warp
+// partials [ATT_WARPS][K][hd] f32.
+// Bytes of shared memory at the start of K6's block: its split's k and v
+// rows, which then hold every split's (o, m, l) of every row for the
+// combine; a multiple of 16.
+__host__ __device__ __forceinline__ size_t verify_kv_bytes(int split_t, int hd, int n_splits,
+                                                           int kk) {
+  const size_t kv = 2 * (size_t)split_t * hd * sizeof(__nv_bfloat16);
+  const size_t comb = (size_t)n_splits * kk * (hd + 2) * sizeof(float);
+  return ((kv > comb ? kv : comb) + 15) / 16 * 16;
+}
+
+template <int KMAX>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-verify_attend_kernel(const float* __restrict__ qkv,
-                     const __nv_bfloat16* __restrict__ cache_k,
-                     const __nv_bfloat16* __restrict__ cache_v,
-                     const float* __restrict__ bias, int pos, int t_max, int d,
-                     int hd, float q_scale, float* __restrict__ ctx,
-                     __nv_bfloat16* __restrict__ kv_new) {
-  __shared__ float p[ATT_CHUNK];
-  __shared__ float scratch[32];
-  __shared__ float s_tail[MAX_VERIFY];  // scores of the causal tail rows
-  extern __shared__ float part[];       // ATT_WARPS * hd partial sums of V
-  const int h = blockIdx.x, j = blockIdx.y, kk = gridDim.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+verify_split_kernel(const float* __restrict__ qkv,
+                    const __nv_bfloat16* __restrict__ cache_k,
+                    const __nv_bfloat16* __restrict__ cache_v,
+                    const float* __restrict__ bias, int pos, int kk, int d, int hd,
+                    float q_scale, int split_t, float* __restrict__ ctx,
+                    __nv_bfloat16* __restrict__ kv_new, float* __restrict__ work,
+                    int* __restrict__ arrivals) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vc = kc + (size_t)split_t * hd;
+  float* p = reinterpret_cast<float*>(                                // [kk][split_t]
+      smem + verify_kv_bytes(split_t, hd, gridDim.y, kk));
+  float* bs = p + (size_t)kk * split_t;                              // [split_t]
+  float* part = bs + split_t;      // [ATT_WARPS][kk][hd]; the combine's tail scores
+  __shared__ float ml[KMAX][2];    // each row's max and sum over the split
+  __shared__ int last;
+  const int h = blockIdx.x, sp = blockIdx.y;
+  const int n_splits = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lpr = hd / 8, rows = 32 / lpr;
   const int g = lane / lpr, sub = lane % lpr;
-  const size_t col = (size_t)h * hd + sub * 8;
-  const size_t stride = (size_t)3 * d;  // one qkv row
-  const float* qrow = qkv + (size_t)j * stride;
+  const size_t row3 = (size_t)3 * d;         // one qkv row
+  const int c0 = sp * split_t;
+  const int n = max(0, min(split_t, pos - c0));
 
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-    kv_new[(size_t)j * d + h * hd + i] = __float2bfloat16_rn(qrow[d + h * hd + i]);
-    kv_new[(size_t)(kk + j) * d + h * hd + i] =
-        __float2bfloat16_rn(qrow[2 * d + h * hd + i]);
+  // the split's k and v rows and its bias: read-only for the step
+  const int segs = hd / 8;                   // 16-byte copies a row
+  for (int i = tid; i < n * segs; i += blockDim.x) {
+    const int tt = i / segs, sg = i % segs;
+    const size_t at = (size_t)(c0 + tt) * d + (size_t)h * hd + sg * 8;
+    vtt::cp_async16(kc + (size_t)tt * hd + sg * 8, cache_k + at);
+    vtt::cp_async16(vc + (size_t)tt * hd + sg * 8, cache_v + at);
   }
-  float q[8], acc[8];
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) q[jj] = qrow[col + jj] * q_scale;
-  // tail row i is scored by row group g of warp w with i = w * rows + g
-  // (ATT_WARPS * rows >= 8 >= K for every hd this kernel takes)
-  const int i_tail = warp * rows + g;
-  float st = 0.0f;
-  if (i_tail <= j) {
-    const float* k_i = qkv + i_tail * stride + d + h * hd + sub * 8;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) st += q[jj] * k_i[jj];
-  }
-  for (int o = lpr / 2; o > 0; o >>= 1) st += __shfl_xor_sync(0xffffffffu, st, o);
-  if (i_tail <= j && sub == 0) s_tail[i_tail] = st;
+  vtt::cp_async_commit();
+  for (int tt = tid; tt < n; tt += blockDim.x) bs[tt] = bias[c0 + tt];
 
-  float m, l;
-  attend_prefix(q, cache_k, cache_v, bias, min(pos, t_max), d, col, lpr, rows, g,
-                sub, warp, p, scratch, m, l, acc);
-  store_partials(acc, part, lpr, g, sub, warp, hd);  // its barrier publishes s_tail
-  float m_f = m;
-  for (int i = 0; i <= j; ++i) m_f = fmaxf(m_f, s_tail[i]);
-  const float alpha = expf(m - m_f);
-  float l_f = l * alpha;
-  for (int i = 0; i <= j; ++i) l_f += expf(s_tail[i] - m_f);
-  float* crow = ctx + (size_t)j * d + h * hd;
-  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
-    float a = 0.0f;
-    for (int w = 0; w < ATT_WARPS; ++w) a += part[w * hd + c];
-    a *= alpha;
-    for (int i = 0; i <= j; ++i) {
-      a += expf(s_tail[i] - m_f) * qkv[i * stride + 2 * d + h * hd + c];
+  vtt::grid_dependency_wait();
+  float q[KMAX][8];                          // the K queries' 8 values of this lane
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      q[j][i] = j < kk ? qkv[j * row3 + (size_t)h * hd + sub * 8 + i] * q_scale : 0.0f;
     }
-    crow[c] = a / l_f;
+  vtt::cp_async_wait<0>();
+  __syncthreads();
+
+  if (n > 0) {                               // uniform across the block
+    for (int r0 = warp * rows; r0 < n; r0 += ATT_WARPS * rows) {
+      const int tt = r0 + g;
+      float kr[8], s[KMAX];
+      if (tt < n) {
+        load8(kc + (size_t)tt * hd + sub * 8, kr);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kr[i] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        s[j] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[j] += q[j][i] * kr[i];
+        for (int o = lpr / 2; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+      }
+      if (tt < n && sub == 0) {
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j < kk) p[(size_t)j * split_t + tt] = s[j] + bs[tt];
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < kk) {                         // warp j: row j's softmax over the split
+      float* pj = p + (size_t)warp * split_t;
+      float cm = -INFINITY;
+      for (int tt = lane; tt < n; tt += 32) cm = fmaxf(cm, pj[tt]);
+      cm = vtt::warp_max(cm);
+      float ps = 0.0f;
+      for (int tt = lane; tt < n; tt += 32) {
+        const float e = expf(pj[tt] - cm);
+        pj[tt] = e;
+        ps += e;
+      }
+      ps = vtt::warp_sum(ps);
+      if (lane == 0) {
+        ml[warp][0] = cm;
+        ml[warp][1] = ps;
+      }
+    }
+    __syncthreads();
+    float acc[KMAX][8];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+    for (int tt = warp * rows + g; tt < n; tt += ATT_WARPS * rows) {
+      float vr[8];
+      load8(vc + (size_t)tt * hd + sub * 8, vr);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        const float pt = j < kk ? p[(size_t)j * split_t + tt] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j][i] += pt * vr[i];
+      }
+    }
+    // the row groups of each warp (lanes sharing `sub`), then per warp
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        for (int o = lpr; o < 32; o <<= 1) acc[j][i] += __shfl_xor_sync(0xffffffffu, acc[j][i], o);
+      }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < kk) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) part[((size_t)warp * kk + j) * hd + sub * 8 + i] = acc[j][i];
+        }
+      }
+    }
+  }
+  vtt::launch_dependents();
+  __syncthreads();
+
+  const int stride = hd + 2;                 // one row's (o, m, l)
+  float* mine = work + ((size_t)h * n_splits + sp) * kk * stride;
+  for (int i = tid; i < kk * hd; i += blockDim.x) {
+    const int j = i / hd, c = i % hd;
+    float a = 0.0f;
+    if (n > 0) {
+      for (int w = 0; w < ATT_WARPS; ++w) a += part[((size_t)w * kk + j) * hd + c];
+    }
+    mine[j * stride + c] = a;
+  }
+  if (tid < kk) {
+    mine[tid * stride + hd] = n > 0 ? ml[tid][0] : -INFINITY;
+    mine[tid * stride + hd + 1] = n > 0 ? ml[tid][1] : 0.0f;
+  }
+  __threadfence();                           // the partials before the count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrivals + h, 1) == n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                           // the other splits' partials after it
+  if (tid == 0) arrivals[h] = 0;
+
+  // the combine: every split's (o, m, l) of every row into shared memory at
+  // once (over the k and v rows), and the causal tail's scores, row j
+  // against the unrounded k of token i <= j (a warp a pair)
+  const size_t split_stride = (size_t)kk * stride;
+  float* all = reinterpret_cast<float*>(smem);   // [n_splits][kk][hd + 2]
+  const float* mine_all = work + (size_t)h * n_splits * split_stride;
+  for (int i = tid; i < n_splits * (int)split_stride; i += blockDim.x) {
+    all[i] = __ldcg(mine_all + i);
+  }
+  float* s_tail = part;                      // [kk][kk]
+  for (int pr = warp; pr < kk * kk; pr += ATT_WARPS) {
+    const int j = pr / kk, i = pr % kk;
+    if (i > j) continue;                     // uniform across the warp
+    float s = 0.0f;
+    for (int c = lane; c < hd; c += 32) {
+      s += qkv[j * row3 + (size_t)h * hd + c] * q_scale * qkv[i * row3 + d + (size_t)h * hd + c];
+    }
+    s = vtt::warp_sum(s);
+    if (lane == 0) s_tail[pr] = s;
+  }
+  __syncthreads();
+  // then, for each row and value: the splits in split order (the
+  // online-softmax recurrence, a split with m = -inf adding nothing), then
+  // rows i <= j of the tail; and the kv rows for the cache, in bf16
+  for (int e = tid; e < kk * hd; e += blockDim.x) {
+    const int j = e / hd, c = e % hd;
+    const float* oj = all + (size_t)j * stride;
+    float m_run = oj[hd], l_run = oj[hd + 1], a = oj[c];
+    for (int s = 1; s < n_splits; ++s) {
+      const float* os = oj + s * split_stride;
+      const float ms = os[hd];
+      const float m_new = fmaxf(m_run, ms);
+      if (m_new == -INFINITY) continue;      // no live position yet
+      const float keep = expf(m_run - m_new), add = expf(ms - m_new);
+      l_run = l_run * keep + os[hd + 1] * add;
+      a = a * keep + os[c] * add;
+      m_run = m_new;
+    }
+    float m_f = m_run;
+    for (int i = 0; i <= j; ++i) m_f = fmaxf(m_f, s_tail[j * kk + i]);
+    const float alpha = expf(m_run - m_f);
+    float l_f = l_run * alpha;
+    a *= alpha;
+    const size_t hc = (size_t)h * hd + c;
+    for (int i = 0; i <= j; ++i) {
+      const float pt = expf(s_tail[j * kk + i] - m_f);
+      l_f += pt;
+      a += pt * qkv[i * row3 + 2 * d + hc];
+    }
+    ctx[(size_t)j * d + hc] = a / l_f;
+    kv_new[(size_t)j * d + hc] = __float2bfloat16_rn(qkv[j * row3 + d + hc]);
+    kv_new[(size_t)(kk + j) * d + hc] = __float2bfloat16_rn(qkv[j * row3 + 2 * d + hc]);
   }
 }
 
-// One GEMV launch: int8 weights with a per-column scale (gsize == 0) or
-// int4 nibble pairs with group scales of gsize contraction rows (gsize > 0).
+// One GEMV launch: int8 weights with a per-column scale, or int4 nibble
+// pairs with group scales of gsize contraction rows (`scale`).
 struct GemvArgs {
   const float* x;
   const float* ln_w;
@@ -866,96 +1054,164 @@ cudaError_t launch_dq_gemv(const GemvArgs& a, cudaStream_t stream) {
                          a.scale, a.bias, a.res, a.out, a.f_total, a.nrows);
 }
 
-template <int EPI, int NB>
-cudaError_t launch_gemv_nb(const GemvArgs& a, cudaStream_t stream) {
+template <int EPI, bool BIG>
+cudaError_t launch_dq_gemv4(const GemvArgs& a, int warps, int col_blocks, cudaStream_t stream) {
+  const size_t kcols = 8 * col_blocks;
   const size_t k_total = (size_t)a.n_ktiles * a.ktile;
-  const int grid = (a.f_total + GEMV_WARPS - 1) / GEMV_WARPS;
-  if (a.gsize == 0) {
-    // an LN GEMV restages x and the LN constants in every block: two
-    // columns a warp halve the blocks that do it, up to 8 rows
-    if constexpr (EPI != EPI_RESIDUAL && NB <= 8) {
-      if (a.ln_w != nullptr) return launch_dq_gemv<EPI, NB, 2>(a, stream);
-    }
-    return launch_dq_gemv<EPI, NB, 1>(a, stream);
-  }
-  const size_t smem = a.nrows * k_total * sizeof(__nv_bfloat16)
-                      + (a.ln_w != nullptr ? k_total * sizeof(float) : 0);
-  const cudaError_t e = vtt::allow_dynamic_smem((const void*)dq_gemv4_kernel<EPI, NB>, smem);
+  const int grid = (a.f_total + (int)kcols - 1) / (int)kcols;
+  const size_t n_groups = a.ktile / a.gsize;
+  const size_t units = col_blocks * a.n_ktiles * n_groups / 2;
+  const size_t smem = a.n_ktiles * kcols * (a.ktile / 2 + 16)
+                      + (a.n_ktiles * kcols * n_groups + kcols + units * 2 * a.nrows * 8)
+                            * sizeof(float)
+                      + a.nrows * (k_total + 8) * sizeof(__nv_bfloat16)
+                      + (a.ln_w != nullptr ? (2 + a.nrows) * k_total * sizeof(float) : 0);
+  const cudaError_t e = vtt::allow_dynamic_smem((const void*)dq_gemv4_kernel<EPI, BIG>, smem);
   if (e != cudaSuccess) return e;
-  dq_gemv4_kernel<EPI, NB><<<grid, GEMV_WARPS * 32, smem, stream>>>(
-      a.x, a.ln_w, a.ln_b, a.w, a.n_ktiles, a.ktile, a.scale, a.gsize,
-      a.bias, a.res, a.out, a.f_total, a.nrows);
-  return cudaGetLastError();
+  return vtt::launch_pdl(dq_gemv4_kernel<EPI, BIG>, dim3(grid), dim3(warps * 32), smem, stream,
+                         a.x, a.ln_w, a.ln_b, a.w, a.n_ktiles, a.ktile, a.scale, a.gsize,
+                         a.bias, a.res, a.out, a.f_total, a.nrows, col_blocks);
+}
+
+template <int EPI>
+cudaError_t launch_gemv4_epi(const GemvArgs& a, int warps, int col_blocks, cudaStream_t stream) {
+  return a.nrows > 8 ? launch_dq_gemv4<EPI, true>(a, warps, col_blocks, stream)
+                     : launch_dq_gemv4<EPI, false>(a, warps, col_blocks, stream);
+}
+
+// cpw: output columns a warp (1, or 2 for an LN GEMV up to 8 rows)
+template <int EPI, int NB>
+cudaError_t launch_gemv_nb(const GemvArgs& a, int cpw, cudaStream_t stream) {
+  if constexpr (EPI != EPI_RESIDUAL && NB <= 8) {
+    if (cpw == 2) return launch_dq_gemv<EPI, NB, 2>(a, stream);
+  }
+  if (cpw != 1) return cudaErrorInvalidValue;
+  return launch_dq_gemv<EPI, NB, 1>(a, stream);
 }
 
 // rows are rounded up to an instantiated accumulator count
 template <int EPI>
-cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
-  if (a.nrows <= 1) return launch_gemv_nb<EPI, 1>(a, stream);
-  if (a.nrows <= 2) return launch_gemv_nb<EPI, 2>(a, stream);
-  if (a.nrows <= 3) return launch_gemv_nb<EPI, 3>(a, stream);
-  if (a.nrows <= 4) return launch_gemv_nb<EPI, 4>(a, stream);
-  if (a.nrows <= 8) return launch_gemv_nb<EPI, 8>(a, stream);
-  return launch_gemv_nb<EPI, 12>(a, stream);
+cudaError_t launch_gemv(const GemvArgs& a, int cpw, cudaStream_t stream) {
+  if (a.nrows <= 1) return launch_gemv_nb<EPI, 1>(a, cpw, stream);
+  if (a.nrows <= 2) return launch_gemv_nb<EPI, 2>(a, cpw, stream);
+  if (a.nrows <= 3) return launch_gemv_nb<EPI, 3>(a, cpw, stream);
+  if (a.nrows <= 4) return launch_gemv_nb<EPI, 4>(a, cpw, stream);
+  if (a.nrows <= 8) return launch_gemv_nb<EPI, 8>(a, cpw, stream);
+  return launch_gemv_nb<EPI, 12>(a, cpw, stream);
 }
 
-}  // namespace
+template <int KMAX>
+int launch_verify(dim3 grid, size_t smem, cudaStream_t s, const float* qkv,
+                  const __nv_bfloat16* ck, const __nv_bfloat16* cv, const float* bias,
+                  int pos, int nrows, int d, int hd, float q_scale, int split_t, float* ctx,
+                  __nv_bfloat16* kvn, float* work, int* arrivals) {
+  const cudaError_t e = vtt::allow_dynamic_smem((const void*)verify_split_kernel<KMAX>, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)vtt::launch_pdl(verify_split_kernel<KMAX>, grid, dim3(ATT_WARPS * 32), smem, s,
+                              qkv, ck, cv, bias, pos, nrows, d, hd, q_scale, split_t, ctx, kvn,
+                              work, arrivals);
+}
 
-// Dequantizing GEMV over 1 <= nrows <= 12 rows with optional LN prologue
-// and epilogue (0 none, 1 GELU-tanh, 2 residual add `res`).  gsize == 0:
-// int8 weights [n_ktiles][F][ktile] and one scale per output column
-// (`scale`, F floats); ktile % 16 == 0, w 16-byte aligned (the kernel runs
-// under programmatic dependent launch).  gsize > 0: int4
-// nibble pairs [n_ktiles][F][ktile / 2] and group scales
-// [n_ktiles][F][ktile / gsize] (`scale`), an even number of groups a tile,
-// gsize % 4 == 0.  ln_w / ln_b / res may be null where unused.
-VTT_EXPORT int vtt_dq_gemv(const float* x, const float* ln_w, const float* ln_b,
-                           const int8_t* w, int n_ktiles, int ktile,
-                           const float* scale, int gsize, const float* bias,
-                           const float* res, float* out, int f_total, int nrows,
-                           int epilogue, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nrows < 1 || nrows > 12 || ktile % 4 != 0 || (gsize == 0 && ktile % 16 != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (gsize != 0 && (gsize < 0 || gsize % 4 != 0 || ktile % gsize != 0
-                     || (ktile / gsize) % 2 != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const GemvArgs a{x, ln_w, ln_b, w, n_ktiles, ktile, scale, gsize, bias, res,
-                   out, f_total, nrows};
+int launch_gemv_epi(const GemvArgs& a, int epilogue, int cpw, cudaStream_t s) {
   switch (epilogue) {
     case EPI_NONE:
-      return (int)launch_gemv<EPI_NONE>(a, s);
+      return (int)launch_gemv<EPI_NONE>(a, cpw, s);
     case EPI_GELU:
-      return (int)launch_gemv<EPI_GELU>(a, s);
+      return (int)launch_gemv<EPI_GELU>(a, cpw, s);
     case EPI_RESIDUAL:
-      return (int)launch_gemv<EPI_RESIDUAL>(a, s);
+      return (int)launch_gemv<EPI_RESIDUAL>(a, cpw, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// K6's attention of one layer for 2 <= nrows <= 8 rows of one sequence at
-// positions pos .. pos + nrows - 1; see verify_attend_kernel.  bf16 cache,
-// hd as in vtt_decode_attend.
+}  // namespace
+
+// The int8 dequantizing GEMV over 1 <= nrows <= 12 rows with optional LN
+// prologue and epilogue (0 none, 1 GELU-tanh, 2 residual add `res`): int8
+// weights [n_ktiles][F][ktile] and one scale per output column (`scale`, F
+// floats); ktile % 16 == 0, w 16-byte aligned (the kernel runs under
+// programmatic dependent launch).  An LN GEMV (ln_w set) up to 8 rows
+// takes two columns a warp: that halves the blocks that restage x and the
+// LN constants.  ln_w / ln_b / res may be null where unused.
+VTT_EXPORT int vtt_dq_gemv(const float* x, const float* ln_w, const float* ln_b,
+                           const int8_t* w, int n_ktiles, int ktile,
+                           const float* scale, const float* bias,
+                           const float* res, float* out, int f_total, int nrows,
+                           int epilogue, void* stream) {
+  if (nrows < 1 || nrows > 12 || ktile % 16 != 0) return (int)cudaErrorInvalidValue;
+  const GemvArgs a{x, ln_w, ln_b, w, n_ktiles, ktile, scale, 0, bias, res,
+                   out, f_total, nrows};
+  const int cpw = ln_w != nullptr && epilogue != EPI_RESIDUAL && nrows <= 8 ? 2 : 1;
+  return launch_gemv_epi(a, epilogue, cpw, (cudaStream_t)stream);
+}
+
+// The int4 GEMV (K7) over 1 <= nrows <= 12 rows; see dq_gemv4_kernel.
+// Nibble pairs [n_ktiles][F][ktile / 2] and group scales [n_ktiles][F][G],
+// G = ktile / gsize even; gsize % 16 == 0, ktile % 32 == 0, F % 8 == 0,
+// w, gscale and bias 16-byte aligned.  warps (4-16) and col_blocks (1-4
+// runs of 8 output columns) a block come from the caller's plan
+// (`plan_int4_gemv`).  ln_w / ln_b / res may be null where unused.
+VTT_EXPORT int vtt_dq_gemv4(const float* x, const float* ln_w, const float* ln_b,
+                            const int8_t* w, int n_ktiles, int ktile,
+                            const float* gscale, int gsize, const float* bias,
+                            const float* res, float* out, int f_total, int nrows,
+                            int epilogue, int warps, int col_blocks, void* stream) {
+  if (nrows < 1 || nrows > 12 || n_ktiles < 1 || ktile % 32 != 0 || f_total % 8 != 0
+      || gsize < 16 || gsize % 16 != 0 || ktile % gsize != 0 || (ktile / gsize) % 2 != 0
+      || warps < GEMV4_MIN_WARPS || warps > GEMV4_MAX_WARPS || col_blocks < 1
+      || col_blocks > GEMV4_MAX_COL_BLOCKS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const GemvArgs a{x, ln_w, ln_b, w, n_ktiles, ktile, gscale, gsize, bias, res,
+                   out, f_total, nrows};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (epilogue) {
+    case EPI_NONE:
+      return (int)launch_gemv4_epi<EPI_NONE>(a, warps, col_blocks, s);
+    case EPI_GELU:
+      return (int)launch_gemv4_epi<EPI_GELU>(a, warps, col_blocks, s);
+    case EPI_RESIDUAL:
+      return (int)launch_gemv4_epi<EPI_RESIDUAL>(a, warps, col_blocks, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6's attention of one layer for 1 <= nrows <= 8 rows of one sequence at
+// positions pos .. pos + nrows - 1; see verify_split_kernel.  bf16 cache,
+// hd as in vtt_decode_attend.  The prefix [0, pos) in n_splits splits of
+// split_t positions (`verify_splits`): 1 <= split_t <= VERIFY_MAX_SPLIT,
+// n_splits * split_t >= pos, at least one split; work: (heads, n_splits,
+// nrows, hd + 2) f32 scratch; arrivals: (heads,) int32, zero before the
+// first launch and left zero by each.
 VTT_EXPORT int vtt_verify_attend(const float* qkv, const void* cache_k,
                                  const void* cache_v, const float* bias,
                                  int pos, int nrows, int t_max, int d,
                                  int heads, float q_scale, float* ctx,
-                                 void* kv_new, void* stream) {
+                                 void* kv_new, float* work, int split_t,
+                                 int n_splits, int* arrivals, void* stream) {
   const int hd = d / heads;
   if (d % heads != 0 || hd % 8 != 0 || 32 % (hd / 8) != 0 || nrows < 1
-      || nrows > MAX_VERIFY || pos < 0 || pos + nrows > t_max) {
+      || nrows > MAX_VERIFY || pos < 0 || pos + nrows > t_max || split_t < 1
+      || split_t > VERIFY_MAX_SPLIT || n_splits < 1
+      || (long long)n_splits * split_t < pos) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)ATT_WARPS * hd * sizeof(float);
-  verify_attend_kernel<<<dim3(heads, nrows), ATT_WARPS * 32, smem,
-                         (cudaStream_t)stream>>>(
-      qkv, static_cast<const __nv_bfloat16*>(cache_k),
-      static_cast<const __nv_bfloat16*>(cache_v), bias, pos, t_max, d, hd,
-      q_scale, ctx, static_cast<__nv_bfloat16*>(kv_new));
-  return (int)cudaGetLastError();
+  const size_t smem = verify_kv_bytes(split_t, hd, n_splits, nrows)
+                      + ((size_t)(nrows + 1) * split_t + (size_t)ATT_WARPS * nrows * hd)
+                            * sizeof(float);
+  const dim3 grid(heads, n_splits);
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* ck = static_cast<const __nv_bfloat16*>(cache_k);
+  const auto* cv = static_cast<const __nv_bfloat16*>(cache_v);
+  auto* kvn = static_cast<__nv_bfloat16*>(kv_new);
+  if (nrows <= 4) {
+    return launch_verify<4>(grid, smem, s, qkv, ck, cv, bias, pos, nrows, d, hd, q_scale,
+                            split_t, ctx, kvn, work, arrivals);
+  }
+  return launch_verify<MAX_VERIFY>(grid, smem, s, qkv, ck, cv, bias, pos, nrows, d, hd,
+                                   q_scale, split_t, ctx, kvn, work, arrivals);
 }
 
 // Attention of one layer for nrows rows; see attend_split_kernel.  hd = d /

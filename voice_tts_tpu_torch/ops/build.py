@@ -33,10 +33,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "vtt_int8_gemv": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "vtt_dq_gemv": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "vtt_dq_gemv": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
+    "vtt_dq_gemv4": [_P] * 4 + [_I] * 2 + [_P, _I] + [_P] * 3 + [_I] * 5 + [_P],
     "vtt_decode_attend": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P, _P, _I, _P, _I, _P, _P],
-    "vtt_verify_attend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "vtt_verify_attend": [_P] * 4 + [_I] * 5 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2,
     "vtt_cfm_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_dit_block_chain": [_P] * 14 + [_I] * 5 + [_P],

@@ -28,11 +28,14 @@ with the scale of the row it is read from.
   and `attend_workspace` size the CUDA attention's grid and scratch;
 - `fused_decode_verify_plain`: the same trunk over the K rows with K6's
   attention (shared committed prefix, then a causal tail over the K rows'
-  unrounded k/v);
+  unrounded k/v); `fused_decode_verify_split_plain` sums it as the CUDA
+  verify attention does (the prefix in the splits of `verify_splits`);
+- `int4_gemv_plain`: one int4 GEMV (K7) summed as its kernel sums it, and
+  `int4_gemv` its wrapper; `plan_int4_gemv` sizes the kernel's grid;
 - `csrc/fused_decode.cu`: hand-written kernels, launched as a host-sequenced
   chain (5 launches per layer + 1 readout) by `_decode_chain_cuda`; K1 is
   the chain at B = 1, K6 the chain at K rows with the verify attention, and
-  an int4 pack (K7) selects the int4 weight loader of the same GEMV.
+  an int4 pack (K7) selects the int4 GEMV for the trunk's products.
 
 Pack layout.  The JAX pack holds (L, 12, D, D) int8 tiles in (in, out)
 order.  The port stores every tile transposed, (out, in): tiles 0-2 then
@@ -352,6 +355,40 @@ def _dot4(src, w_t, gscale, bias):
     return y + bias
 
 
+def int4_gemv_plain(x, w, gscales, bias, ln=None, res=None, epilogue: int = _EPI_NONE):
+    """One int4 GEMV of the chain (K7) summed as the kernel sums it: x (R,
+    n_kt * ktile) f32, through the LN `ln` = (weight, bias) when given, then
+    rounded to bf16; w (n_kt, F, ktile / 2) int8 nibble pairs; gscales
+    (n_kt, F, G) f32.  Each contraction tile's sum starts at 0 and takes, in
+    group order (low half, then high half), each group's f32 sum times its
+    scale; the tiles' sums are added in tile order, then the bias (F,), then
+    the epilogue (GELU-tanh, or `res` + y).  At one tile this is `_dot4`;
+    over the fc2's four it associates the tile sums as the kernel does."""
+    n_kt, f, half = w.shape
+    ktile = 2 * half
+    xb = (_ln(x, *ln) if ln is not None else x).to(torch.bfloat16).float()
+    acc = torch.zeros((x.shape[0], f), dtype=torch.float32, device=x.device)
+    for kt in range(n_kt):
+        lo, hi = _unpack_int4(w[kt])
+        gs = gscales[kt]
+        per_half = gs.shape[1] // 2
+        gsz = half // per_half
+        xk = xb[:, kt * ktile:(kt + 1) * ktile]
+        tile = torch.zeros_like(acc)
+        for g in range(per_half):
+            sl = slice(g * gsz, (g + 1) * gsz)
+            tile = tile + (xk[:, sl] @ lo[:, sl].t()) * gs[:, g]
+            tile = tile + (xk[:, half + g * gsz:half + (g + 1) * gsz] @ hi[:, sl].t()
+                           ) * gs[:, per_half + g]
+        acc = acc + tile
+    y = acc + bias
+    if epilogue == _EPI_GELU:
+        return torch.nn.functional.gelu(y, approximate="tanh")
+    if epilogue == _EPI_RESIDUAL:
+        return res + y
+    return y
+
+
 def _layer_dot(pack: Pack, layer: int):
     """dot(src, t): the product of `src` with weight tile t of `layer`, the
     dequant scale and bias row t + 12, for an int8 or an int4 pack."""
@@ -362,11 +399,15 @@ def _layer_dot(pack: Pack, layer: int):
     return lambda src, t: _dot(src, w[t], c[t], c[t + 12])
 
 
-def _trunk_plain(xs, pack: Pack, kv_new, attend):
+def _trunk_plain(xs, pack: Pack, kv_new, attend, kernel_order: bool = False):
     """Every layer of one step over the rows of xs (B, D) f32: LN1 -> QKV ->
     `attend(layer, q, k, v)` -> projection + residual -> LN2 -> fc -> GELU-tanh
     -> fc2 + residual.  Writes each layer's k/v rows into kv_new (L, 2, B, D)
-    and returns the hidden rows."""
+    and returns the hidden rows.  fc2 adds its four tiles' products, each
+    with its bias row, as the JAX kernels do; with `kernel_order` an int4
+    pack's fc2 is summed as the K7 kernel sums it (`int4_gemv_plain`: the
+    tiles' sums, then the bias once)."""
+    twin_fc2 = kernel_order and isinstance(pack, FusedDecodePackInt4)
     for layer in range(pack.w.shape[0]):
         dot, c = _layer_dot(pack, layer), pack.consts[layer]
         h = _ln(xs, c[24], c[25])
@@ -377,6 +418,10 @@ def _trunk_plain(xs, pack: Pack, kv_new, attend):
         h = _ln(xs, c[26], c[27])
         hs = [torch.nn.functional.gelu(dot(h, t), approximate="tanh")
               for t in range(4, 8)]
+        if twin_fc2:
+            xs = xs + int4_gemv_plain(torch.cat(hs, dim=1), pack.w[layer, 8:12],
+                                      pack.gscales[layer, 8:12], c[23])
+            continue
         acc = None
         for t in range(8, 12):
             part = dot(hs[t - 8], t)
@@ -399,18 +444,19 @@ def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int64, device=device)
 
 
-def _split_prefix_attention(qh, keys, values, mask, s_cur, v_cur, split_t: int):
-    """The K1 / K3 kernel's attention arithmetic: qh (B, H, hd) scaled
+def _split_attention(qh, keys, values, mask, s_tail, v_tail, split_t: int):
+    """The CUDA attentions' arithmetic (K1 / K3, K6): qh (B, H, hd) scaled
     queries, keys / values (B, P, H, hd) f32, mask (B, P) additive (-inf
-    past a row's prefix), s_cur (B, H, 1) and v_cur (B, H, hd) the current
-    token's score and value.  Each split of `split_t` positions keeps its
-    max m, sum l and unnormalised weighted sum of V, o (a split with no
-    live position: m = -inf, l = 0, o = 0); the splits are combined in
-    order by the online-softmax recurrence (each rescaled to the running
-    max), then the current token.  Returns (B, H, hd)."""
+    past a row's prefix), s_tail (B, H, N) the scores of the N tokens
+    attended after the prefix (-inf where a row may not see one; at least
+    one seen a row) and v_tail (B, H, N, hd) their values.  Each split of
+    `split_t` positions keeps its max m, sum l and unnormalised weighted sum
+    of V, o (a split with no live position: m = -inf, l = 0, o = 0); the
+    splits are combined in order by the online-softmax recurrence (each
+    rescaled to the running max), then the tail.  Returns (B, H, hd)."""
     scores = torch.einsum("bhd,bthd->bht", qh, keys) + mask[:, None, :]
-    m = torch.full_like(s_cur[..., 0], float("-inf"))
-    l, o = torch.zeros_like(m), torch.zeros_like(v_cur)
+    m = torch.full_like(s_tail[..., 0], float("-inf"))
+    l, o = torch.zeros_like(m), torch.zeros_like(v_tail[:, :, 0])
     for c0 in range(0, keys.shape[1], split_t):
         sc = scores[..., c0:c0 + split_t]
         ms = sc.amax(-1)                                         # (B, H)
@@ -425,10 +471,18 @@ def _split_prefix_attention(qh, keys, values, mask, s_cur, v_cur, split_t: int):
         l = l * keep + e.sum(-1) * add
         o = o * keep[..., None] + o_s * add[..., None]
         m = m_new
-    m_f = torch.maximum(m, s_cur[..., 0])
+    m_f = torch.maximum(m, s_tail.amax(-1))
     alpha = torch.where(torch.isfinite(m), torch.exp(m - m_f), torch.zeros_like(m))
-    p_cur = torch.exp(s_cur[..., 0] - m_f)
-    return (o * alpha[..., None] + p_cur[..., None] * v_cur) / (l * alpha + p_cur)[..., None]
+    p = torch.exp(s_tail - m_f[..., None])                       # (B, H, N)
+    return ((o * alpha[..., None] + (p[..., None] * v_tail).sum(-2))
+            / (l * alpha + p.sum(-1))[..., None])
+
+
+def _split_prefix_attention(qh, keys, values, mask, s_cur, v_cur, split_t: int):
+    """K1 / K3's split attention (`_split_attention`) with the current
+    token as the tail: s_cur (B, H, 1) its score, v_cur (B, H, hd) its
+    value."""
+    return _split_attention(qh, keys, values, mask, s_cur, v_cur[:, :, None], split_t)
 
 
 def _step_batch_plain(x, pack: Pack, kv_cache, bias, pos: Pos, heads: int,
@@ -468,7 +522,8 @@ def _step_batch_plain(x, pack: Pack, kv_cache, bias, pos: Pos, heads: int,
                + probs[..., p_max:] * v.reshape(b, heads, hd))
         return ctx.reshape(b, d)
 
-    xs = _trunk_plain(x.float().reshape(b, d), pack, kv_new, attend)
+    xs = _trunk_plain(x.float().reshape(b, d), pack, kv_new, attend,
+                      kernel_order=split_t is not None)
     return xs, kv_new, _readout_plain(xs, readout_pack)
 
 
@@ -487,19 +542,17 @@ def fused_decode_step_batch_split_plain(x, pack: Pack, kv_cache, bias,
                                         kv_scales: Optional[torch.Tensor] = None,
                                         beam_src: Optional[torch.Tensor] = None,
                                         readout_pack: Optional[ReadoutPack] = None):
-    """The plain step with the CUDA attention's arithmetic: the prefix cut
-    into splits of BLOCK_T positions, each split's softmax partials
-    combined in split order with the current token (`_split_prefix_attention`);
-    the same function as `fused_decode_step_batch_plain`, summed another way."""
+    """The plain step summed as the CUDA chain sums it: the prefix cut into
+    splits of BLOCK_T positions, each split's softmax partials combined in
+    split order with the current token (`_split_prefix_attention`), and an
+    int4 pack's fc2 in the K7 kernel's order (`int4_gemv_plain`); the same
+    function as `fused_decode_step_batch_plain`, summed another way."""
     return _step_batch_plain(x, pack, kv_cache, bias, pos, heads, kv_scales,
                              beam_src, readout_pack, BLOCK_T)
 
 
-def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
-                              pos: int, heads: int):
-    """Plain PyTorch version; see `fused_decode_verify`.  Row j attends the
-    committed prefix [0, pos) under the bias, then rows i <= j of the K
-    current tokens with their unrounded f32 k/v (JAX `_attend_verify`)."""
+def _verify_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int, heads: int,
+                  split_t: Optional[int]):
     n_layers, _, _, _, d = kv_cache.shape
     kk = x.shape[0]
     hd = d // heads
@@ -514,9 +567,15 @@ def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
         qh = (q * (hd ** -0.5)).reshape(kk, heads, hd)
         ck = kv_cache[layer, 0, 0, :pos].float().reshape(pos, heads, hd)
         cv = kv_cache[layer, 1, 0, :pos].float().reshape(pos, heads, hd)
-        s_pre = torch.einsum("jhd,thd->jht", qh, ck) + pre_bias
         s_tail = torch.einsum("jhd,ihd->jhi", qh, k.reshape(kk, heads, hd))
         s_tail = torch.where(causal[:, None, :], s_tail, neg)
+        if split_t is not None:
+            v_tail = v.reshape(kk, heads, hd).transpose(0, 1)[None].expand(kk, -1, -1, -1)
+            return _split_attention(qh, ck[None].expand(kk, -1, -1, -1),
+                                    cv[None].expand(kk, -1, -1, -1),
+                                    pre_bias[None].expand(kk, -1), s_tail, v_tail,
+                                    split_t).reshape(kk, d)
+        s_pre = torch.einsum("jhd,thd->jht", qh, ck) + pre_bias
         probs = torch.softmax(torch.cat([s_pre, s_tail], dim=-1), dim=-1)
         ctx = (torch.einsum("jht,thd->jhd", probs[..., :pos], cv)
                + torch.einsum("jhi,ihd->jhd", probs[..., pos:],
@@ -525,6 +584,25 @@ def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
 
     xs = _trunk_plain(x.float().reshape(kk, d), pack, kv_new, attend)
     return xs, kv_new
+
+
+def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
+                              pos: int, heads: int):
+    """Plain PyTorch version; see `fused_decode_verify`.  Row j attends the
+    committed prefix [0, pos) under the bias, then rows i <= j of the K
+    current tokens with their unrounded f32 k/v (JAX `_attend_verify`)."""
+    return _verify_plain(x, pack, kv_cache, bias, pos, heads, None)
+
+
+def fused_decode_verify_split_plain(x, pack: FusedDecodePack, kv_cache, bias,
+                                    pos: int, heads: int):
+    """The plain verify with the CUDA verify attention's arithmetic: the
+    committed prefix in the splits of `verify_splits`, each split's softmax
+    partials of every row combined in split order, then the row's causal
+    tail (`_split_attention`); the same function as
+    `fused_decode_verify_plain`, summed another way."""
+    split_t, _ = verify_splits(pos, heads, kv_cache.shape[3])
+    return _verify_plain(x, pack, kv_cache, bias, pos, heads, split_t)
 
 
 def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: int,
@@ -558,6 +636,66 @@ def attend_workspace(b: int, heads: int, hd: int, splits: int) -> int:
     """f32 scratch of one attention launch, (B, H, splits, hd + 2): each
     split's weighted sum of V, max and sum.  Reused by every layer."""
     return b * heads * splits * (hd + 2)
+
+
+SMS = 132              # streaming multiprocessors of the H100
+
+
+K7_MIN_WARPS, K7_MAX_WARPS = 4, 16   # warps a block of the int4 GEMV
+K7_MAX_COL_BLOCKS = 4                # runs of 8 output columns a block
+
+
+class Int4GemvPlan(NamedTuple):
+    warps: int             # warps a block (K7_MIN_WARPS .. K7_MAX_WARPS)
+    col_blocks: int        # runs of 8 output columns a block (1 .. K7_MAX_COL_BLOCKS)
+    blocks: int
+    units: int             # (column run, contraction tile, group) triples a block
+
+
+def plan_int4_gemv(k: int, f: int, gsize: int, ln: bool) -> Int4GemvPlan:
+    """The K7 grid for a (K, F) GEMV with scale groups of `gsize` rows. A
+    block owns runs of 8 output columns (one tensor-core tile wide): one,
+    or on a GEMV with an LN prologue as many (up to 4) as keep a block an
+    SM, since every block restages x and the LN constants from L2.  Its
+    units of work, one a (run, contraction tile, group), its warps take in
+    rounds: as few rounds as K7_MAX_WARPS allow, the units spread evenly,
+    at least K7_MIN_WARPS warps.  At the flagship widths, g128: qkv 160
+    blocks of 3 runs (15 units, 15 warps), proj 160 of 1 (5, 5), fc 160 of
+    4 (20 units in two rounds of 10 warps), fc2 160 of 1 (20, 10)."""
+    runs = f // 8
+    col_blocks = 1
+    if ln:
+        col_blocks = next((c for c in range(K7_MAX_COL_BLOCKS, 0, -1)
+                           if runs % c == 0 and runs // c >= SMS), 1)
+    units = col_blocks * (k // (2 * gsize))
+    rounds = -(-units // K7_MAX_WARPS)
+    warps = max(K7_MIN_WARPS, -(-units // rounds))
+    return Int4GemvPlan(warps, col_blocks, -(-runs // col_blocks), units)
+
+
+VERIFY_MIN_SPLIT, VERIFY_MAX_SPLIT = 32, 256   # prefix positions a K6 block
+VERIFY_MIN_BLOCKS = 2 * SMS
+
+
+def verify_splits(pos: int, heads: int, t_max: int):
+    """(split width, splits) of the K6 attention's grid, one block per
+    (head, split) attending its split for all K rows: the committed prefix
+    [0, pos) cut into splits of a multiple of 32 positions (one pass of a
+    block's warps at hd 64), 32-256, at least VERIFY_MIN_BLOCKS blocks
+    unless the width is at a bound; at least one split (an empty prefix
+    still needs the block that combines the causal tail).  At 20 heads:
+    pos 300, 10 splits of 32; pos 1500, 16 of 96."""
+    live = min(int(pos), t_max)
+    want = -(-VERIFY_MIN_BLOCKS // heads)
+    width = -(-max(live, 1) // want) // 32 * 32
+    width = min(VERIFY_MAX_SPLIT, max(VERIFY_MIN_SPLIT, width))
+    return width, max(1, -(-live // width))
+
+
+def verify_workspace(heads: int, splits: int, k: int, hd: int) -> int:
+    """f32 scratch of one K6 attention launch, (H, splits, K, hd + 2): each
+    split's weighted sum of V, max and sum for every row."""
+    return heads * splits * k * (hd + 2)
 
 
 def _check(name, t, dev, dtype, shape, align16=False):
@@ -602,13 +740,13 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     _check(f"{kernel}: pack.w", pack.w, dev, torch.int8,
            (n_layers, 12, d, d // 2 if int4 else d), True)
     _check(f"{kernel}: pack.consts", pack.consts, dev, torch.float32, (n_layers, 28, d))
-    gsz = 0                                  # 0 selects the int8 loader
     if int4:
         n_groups = pack.gscales.shape[-1]
         gsz = d // max(n_groups, 1)
-        if n_groups < 2 or n_groups % 2 or gsz * n_groups != d or gsz % 4:
+        if n_groups < 2 or n_groups % 2 or gsz * n_groups != d or gsz % 16 or d % 32:
             raise ValueError(f"{kernel}: int4 groups {n_groups} at D {d}: needs an "
-                             "even count of groups of a multiple of 4 rows")
+                             "even count of groups of a multiple of 16 rows and "
+                             "D % 32 == 0")
         _check(f"{kernel}: pack.gscales", pack.gscales, dev, torch.float32,
                (n_layers, 12, d, n_groups))
     _check(f"{kernel}: bias", bias, dev, torch.float32, (cb, t_max))
@@ -639,7 +777,12 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     hid = torch.empty((b, 4 * d), dtype=torch.float32, device=dev)
     kv_new = torch.empty((n_layers, 2, b, d), device=dev,
                          dtype=torch.float32 if int8_kv else kv_cache.dtype)
-    if not verify:
+    if verify:
+        split_t, splits = verify_splits(pos, heads, t_max)
+        work = torch.empty(verify_workspace(heads, splits, b, hd),
+                           dtype=torch.float32, device=dev)
+        arrivals = torch.zeros(heads, dtype=torch.int32, device=dev)
+    else:
         splits = attend_splits(pos_rows if pos_rows is not None else pos, t_max)
         work = torch.empty(attend_workspace(b, heads, hd, splits),
                            dtype=torch.float32, device=dev)
@@ -663,6 +806,19 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     src_p = beam_src.data_ptr() if beam_src is not None else None
     pos_p = pos_rows.data_ptr() if pos_rows is not None else None
     bias_p = bias.data_ptr()
+    work_p, arrivals_p = work.data_ptr(), arrivals.data_ptr()
+    if int4:
+        # the K7 grid of each GEMV: qkv, proj, fc, fc2
+        plans = [plan_int4_gemv(k, f, gsz, ln) for k, f, ln in
+                 ((d, 3 * d, True), (d, d, False), (d, 4 * d, True), (4 * d, d, False))]
+
+        def gemv(i, x_p, ln_w, ln_b, w_p, n_kt, s_p, bias_p_, res_p, out_p, f, epi):
+            call("vtt_dq_gemv4", x_p, ln_w, ln_b, w_p, n_kt, d, s_p, gsz, bias_p_,
+                 res_p, out_p, f, b, epi, plans[i].warps, plans[i].col_blocks, stream)
+    else:
+        def gemv(i, x_p, ln_w, ln_b, w_p, n_kt, s_p, bias_p_, res_p, out_p, f, epi):
+            call("vtt_dq_gemv", x_p, ln_w, ln_b, w_p, n_kt, d, s_p, bias_p_, res_p,
+                 out_p, f, b, epi, stream)
     LAUNCHES[kernel] += 1
     if int4:
         LAUNCHES["fused_decode_int4"] += 1
@@ -672,38 +828,36 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
         s0 = g_base + layer * TILES_PER_LAYER * s_tile if int4 else c0
         cache_k = cache_base + 2 * layer * plane
         # LN1 -> qkv (tiles 0-2, biases rows 12-14)
-        call("vtt_dq_gemv", xp, c0 + 24 * row, c0 + 25 * row, w0, 1, d,
-             s0, gsz, c0 + 12 * row, None, qkvp, 3 * d, b, _EPI_NONE, stream)
+        gemv(0, xp, c0 + 24 * row, c0 + 25 * row, w0, 1, s0, c0 + 12 * row, None,
+             qkvp, 3 * d, _EPI_NONE)
         if verify:
             call("vtt_verify_attend", qkvp, cache_k, cache_k + plane, bias_p,
                  pos, b, t_max, d, heads, q_scale, ctxp,
-                 kv_base + layer * kv_layer, stream)
+                 kv_base + layer * kv_layer, work_p, split_t, splits, arrivals_p,
+                 stream)
         else:
             scales = (scale_base + layer * b * t_max * 2 * 4) if int8_kv else None
             call("vtt_decode_attend", qkvp, cache_k, cache_k + plane, scales,
                  bias_p, src_p, pos_p, pos, b, t_max, d, heads, q_scale, ctxp,
-                 kv_base + layer * kv_layer, int(int8_kv), work.data_ptr(),
-                 splits, arrivals.data_ptr(), stream)
+                 kv_base + layer * kv_layer, int(int8_kv), work_p, splits,
+                 arrivals_p, stream)
         # x += proj(ctx)   (tile 3, bias row 15)
-        call("vtt_dq_gemv", ctxp, None, None, w0 + 3 * tile, 1, d,
-             s0 + 3 * s_tile, gsz, c0 + 15 * row, xp, xp, d, b, _EPI_RESIDUAL,
-             stream)
+        gemv(1, ctxp, None, None, w0 + 3 * tile, 1, s0 + 3 * s_tile, c0 + 15 * row,
+             xp, xp, d, _EPI_RESIDUAL)
         # LN2 -> fc -> GELU   (tiles 4-7, biases rows 16-19)
-        call("vtt_dq_gemv", xp, c0 + 26 * row, c0 + 27 * row, w0 + 4 * tile,
-             1, d, s0 + 4 * s_tile, gsz, c0 + 16 * row, None, hidp, 4 * d, b,
-             _EPI_GELU, stream)
+        gemv(2, xp, c0 + 26 * row, c0 + 27 * row, w0 + 4 * tile, 1, s0 + 4 * s_tile,
+             c0 + 16 * row, None, hidp, 4 * d, _EPI_GELU)
         # x += fc2(h)   (tiles 8-11 = 4 contraction tiles; int8: one scale
         # row 8; int4: each tile's own group scales; the bias once, row 23)
-        call("vtt_dq_gemv", hidp, None, None, w0 + 8 * tile, 4, d,
-             s0 + 8 * s_tile, gsz, c0 + 23 * row, xp, xp, d, b, _EPI_RESIDUAL,
-             stream)
+        gemv(3, hidp, None, None, w0 + 8 * tile, 4, s0 + 8 * s_tile, c0 + 23 * row,
+             xp, xp, d, _EPI_RESIDUAL)
     if readout_pack is None:
         return xs, kv_new, None
     v_pad = readout_pack.w.shape[0]
     logits = torch.empty((b, v_pad), dtype=torch.float32, device=dev)
     lnf = readout_pack.lnf
     call("vtt_dq_gemv", xp, lnf[0].data_ptr(), lnf[1].data_ptr(),
-         readout_pack.w.data_ptr(), 1, d, readout_pack.consts[0].data_ptr(), 0,
+         readout_pack.w.data_ptr(), 1, d, readout_pack.consts[0].data_ptr(),
          readout_pack.consts[1].data_ptr(), None, logits.data_ptr(), v_pad, b,
          _EPI_NONE, stream)
     return xs, kv_new, logits
@@ -826,3 +980,46 @@ def fused_decode_verify(x: torch.Tensor, pack: FusedDecodePack,
     if x.device.type != "cpu":
         raise ValueError(f"fused_decode_verify: unsupported device {x.device}")
     return fused_decode_verify_plain(x, pack, kv_cache, bias, int(pos), heads)
+
+
+def int4_gemv(x: torch.Tensor, w: torch.Tensor, gscales: torch.Tensor,
+              bias: torch.Tensor, ln=None, res: Optional[torch.Tensor] = None,
+              epilogue: int = _EPI_NONE) -> torch.Tensor:
+    """One int4 GEMV of the chain (K7) on its own: x (R <= 12, n_kt *
+    ktile) f32; w (n_kt, F, ktile / 2) int8 nibble pairs and gscales (n_kt,
+    F, G) f32, the layout of a `pack_gpt_int4` tile run; bias (F,) f32; ln
+    (weight, bias) (K,) f32 each or None; res (R, F) f32 for the residual
+    epilogue.  Returns (R, F) f32.  CPU tensors take `int4_gemv_plain`;
+    CUDA tensors launch the kernel with the grid of `plan_int4_gemv`."""
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"int4_gemv: unsupported device {x.device}")
+        return int4_gemv_plain(x, w, gscales, bias, ln, res, epilogue)
+    rows, k = x.shape
+    n_kt, f, half = w.shape
+    n_groups = gscales.shape[-1]
+    gsz = 2 * half // max(n_groups, 1)
+    if (k != 2 * half * n_kt or not 1 <= rows <= 12 or n_groups % 2 or gsz % 16
+            or gsz * n_groups != 2 * half or half % 16 or f % 8):
+        raise ValueError(f"int4_gemv: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"gscales {tuple(gscales.shape)}")
+    dev = x.device
+    _check("int4_gemv: x", x, dev, torch.float32, None)
+    _check("int4_gemv: w", w, dev, torch.int8, None, True)
+    _check("int4_gemv: gscales", gscales, dev, torch.float32, (n_kt, f, n_groups), True)
+    _check("int4_gemv: bias", bias, dev, torch.float32, (f,), True)
+    if ln is not None:
+        for t in ln:
+            _check("int4_gemv: ln", t, dev, torch.float32, (k,), True)
+    if epilogue == _EPI_RESIDUAL:
+        _check("int4_gemv: res", res, dev, torch.float32, (rows, f))
+    out = torch.empty((rows, f), dtype=torch.float32, device=dev)
+    plan = plan_int4_gemv(k, f, gsz, ln is not None)
+    LAUNCHES["fused_decode_int4"] += 1
+    build.kernels().call(
+        "vtt_dq_gemv4", x.data_ptr(), ln[0].data_ptr() if ln is not None else None,
+        ln[1].data_ptr() if ln is not None else None, w.data_ptr(), n_kt, 2 * half,
+        gscales.data_ptr(), gsz, bias.data_ptr(),
+        res.data_ptr() if epilogue == _EPI_RESIDUAL else None, out.data_ptr(), f, rows,
+        epilogue, plan.warps, plan.col_blocks, build.stream_handle(dev))
+    return out
