@@ -4,6 +4,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+(`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
+without the slices and without the result line.)
+
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
 1. device check: CUDA must be available; prints the card's name and power
@@ -14,7 +17,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    the flagship shapes of the paths, with the tolerance printed, both timed
    with CUDA events, beside its bound (the bytes it must move over 3.35
    TB/s, or its operations over the peak rate, whichever is larger): K5,
-   K10 (below), K2, K4 (a layer's four products on the unfused decode
+   K10 (below), K2 (every activation of a 448- and a 2656-frame vocode,
+   host loop and device-only), K4 (a layer's four products on the unfused decode
    step at 1, 3, 8 and 32 rows, each also device-only beside
    `torch._weight_int8pack_mm`, two calls bit-equal, the entry's times that
    set at 1 row; and a grid of 1 / 8 / 32 rows at D 1280),
@@ -84,10 +88,18 @@ and a query row that matches no segment, and misaligned bf16 views must
 raise; then T 896 and 3104, timed in a host loop and device-only behind a
 `torch.cuda._sleep`) beside `F.scaled_dot_product_attention` with the same
 boolean mask, timed alike, K8
-(the 13-block trunk at B 2, T 704), K5 (bf16 and f32; B 1, Tmax 512,
-length 343 and B 3, Tmax 2048, length 1571) beside
-`F.scaled_dot_product_attention` on the live prefix, and K10 (the four
-fused stages of the flagship BigVGAN at 448 frames); the tiny-engine phase
+(the 13-block trunk at B 2, T 704, lens 650 and at T 130, lens (1, 77):
+the GEMM planner's tiles, checked against the C launch's; two calls
+bit-equal; host loop and device-only; one evaluation profiled, with
+attention, GEMM and adaRMS spans and no retired kernel, and again without
+programmatic dependent launch, where the spans do not overlap),
+K5 (bf16 and f32; B 1, Tmax 512, length 343 and B 3, Tmax 2048, length
+1571, host loop and device-only at the planner's split and at every split
+width, beside `F.scaled_dot_product_attention` on the live prefix; then
+lengths 1, 31, 32, 33, a split under the -1e30 bias, length = Tmax, a
+split boundary at B 3 and a fully masked row, two calls bit-equal), and
+K10 (the four fused stages of the flagship BigVGAN at 448 frames, host
+loop and device-only); the tiny-engine phase
 runs K9 and K11 whole requests, K8 on the s2mel stage with bf16 s2mel (D
 256 DiT), `pallas_decode_attention` with one beam and with the production
 flags (f32 GPT), the int8 + bf16 unfused step with K5 and with the einsum
@@ -517,7 +529,8 @@ def check_k3(torch, dev, results):
           + json.dumps(prof["by_kernel"]))
     lib = build.kernels()
     for family in ("int8_gemv_partial", "int8_gemv_reduce", "dq_gemv_kernel",
-                   "attend_split_kernel", "dq_gemv4_kernel", "verify_split_kernel"):
+                   "attend_split_kernel", "dq_gemv4_kernel", "verify_split_kernel",
+                   "gemm_wgmma_kernel", "decode_attention_split_kernel"):
         rows = build.ptxas_entries(lib.path, (family,))
         if not rows:
             fail(f"no kernel {family} in the build's ptxas report")
@@ -1018,18 +1031,17 @@ def vocoder_shapes(frames: int):
     return shapes
 
 
-def check_k2(torch, dev, results):
-    from voice_tts_tpu_torch.ops import aa_activation as aa
-
-    g = torch.Generator(device=dev).manual_seed(3)
-    worst, vocode_ms, vocode_plain_ms = 0.0, 0.0, 0.0
-    vocode_bytes = vocode_ops = 0
-    # ~5 s at 22.05 kHz: the slice's 256-code bucket -> 448 mel frames.  A
-    # vocode runs 18 activations per stage (3 resblocks x 3 dilations x 2)
-    # and one more at the last stage's shape; (24, 7) checks a short signal.
-    shapes = vocoder_shapes(448)
-    per_vocode = [18] * len(shapes) + [1]
-    for (c, t), count in zip(shapes + [shapes[-1], (24, 7)], per_vocode + [0]):
+def k2_vocode(torch, dev, g, aa, frames: int, checks=()):
+    """K2 at every activation shape of one vocode of `frames` mel frames
+    (18 activations a stage of 3 resblocks x 3 dilations x 2, and one more
+    at the last stage's shape: 109), plus `checks` (C, T) shapes held but
+    not counted: each against its plain version, timed in a host loop and
+    device-only; the vocode's sums and bound."""
+    shapes = vocoder_shapes(frames)
+    per_vocode = [18] * len(shapes) + [1] + [0] * len(checks)
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    worst = 0.0
+    for (c, t), count in zip(shapes + [shapes[-1]] + list(checks), per_vocode):
         x = torch.randn(1, c, t, generator=g, device=dev)
         alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
         br = 1.0 / (torch.exp(0.3 * torch.randn(c, generator=g, device=dev)) + 1e-9)
@@ -1044,27 +1056,50 @@ def check_k2(torch, dev, results):
         if not err <= tol:
             fail(f"K2 aa_snake C={c} T={t} disagrees with the plain version")
         worst = max(worst, err)
+        del y, y_p
+        if not count:
+            continue
         ms = cuda_time_ms(torch, lambda: aa.aa_snake_activation(x, alpha, br), 20)
-        plain_ms = cuda_time_ms(torch, lambda: aa.aa_snake_plain(x, alpha, br), 20)
-        print(f"K2 C={c} T={t}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-        vocode_ms += count * ms
-        vocode_plain_ms += count * plain_ms
+        dev_ms = device_time_ms(torch, lambda: aa.aa_snake_activation(x, alpha, br), 20)
+        plain_ms = cuda_time_ms(torch, lambda: aa.aa_snake_plain(x, alpha, br),
+                                20 if frames <= 448 else 2, warmup=1)
+        print(f"K2 C={c} T={t}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
+              f"{plain_ms:.4f} ms plain")
+        tot["ms"] += count * ms
+        tot["device_ms"] += count * dev_ms
+        tot["plain_ms"] += count * plain_ms
         # x read and y written in f32, alpha and beta read; per sample the
         # 12-tap upsampling (two outputs of 6 taps, 24), the snake of the two
         # (4 operations each) and the 12-tap downsampling (24): 56
-        vocode_bytes += count * (2 * nbytes(x) + nbytes(alpha, br))
-        vocode_ops += count * 56 * c * t
-    b = bound(vocode_bytes, vocode_ops, "f32")
-    print(f"K2 per vocode (109 activations, 448 frames): {vocode_ms:.4f} ms "
-          f"kernel, {vocode_plain_ms:.4f} ms plain, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})")
+        tot["bytes"] += count * (2 * nbytes(x) + nbytes(alpha, br))
+        tot["ops"] += count * 56 * c * t
+    b = bound(tot["bytes"], tot["ops"], "f32")
+    print(f"K2 per vocode (109 activations, {frames} frames): {tot['ms']:.4f} ms kernel "
+          f"({tot['device_ms']:.4f} device-only), {tot['plain_ms']:.4f} ms plain, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return worst, {"frames": frames, "ms": tot["ms"], "device_ms": tot["device_ms"],
+                   "plain_ms": tot["plain_ms"], **b}
+
+
+def check_k2(torch, dev, results):
+    """K2 at the activations of a 448-frame vocode (~5 s, the bench slice's
+    256-code bucket; the entry's headline) and of a 2656-frame one (the
+    production slice's mel bucket, the server default's size), with (24, 7)
+    for a short signal."""
+    from voice_tts_tpu_torch.ops import aa_activation as aa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst, bench = k2_vocode(torch, dev, g, aa, 448, checks=[(24, 7)])
+    worst_p, prod = k2_vocode(torch, dev, g, aa, 2656)
     results.append({
         "name": "aa_snake_activation", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/aa_snake.cu",
         "replaces": "voice_tts_tpu/ops/aa_activation.py:210",
-        "max_abs_err": worst, "ms": vocode_ms, "plain_ms": vocode_plain_ms,
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-        "ms_of": "the 109 activations of one 448-frame vocode"})
+        "max_abs_err": max(worst, worst_p), "ms": bench["ms"],
+        "device_ms": bench["device_ms"], "plain_ms": bench["plain_ms"],
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"], "library_ms": None,
+        "ms_of": "the 109 activations of one 448-frame vocode",
+        "production_vocode": prod})
 
 
 # f32 attention: sums of up to 3104 products in another order, and one
@@ -1233,11 +1268,69 @@ def check_attention(torch, dev, results):
 # attention's probabilities rounded before the normalisation flip single bf16
 # roundings, compounded over 13 blocks
 K8_TOL = 2e-2
+# kernels a K8 call must not launch: the CUDA-core attention loop and the
+# mma.sync GEMM tile, replaced by the tensor-core attention tile and the
+# wgmma GEMM
+K8_RETIRED = ("dit_attention_kernel", "gemm_bf16_kernel")
+# K8 cases: (T, valid keys of each of the B 2 rows); the first is the DiT
+# slice's T 704 and is timed, the second a ragged T with one valid key
+K8_CASES = ((704, (650, 650)), (130, (1, 77)))
+# chained trunk evaluations a device-only K8 time queues behind the sleep
+# (a call is 92 launches)
+K8_ITERS = 4
+
+
+def profile_k8(torch, run):
+    """One K8 evaluation under the CUDA profiler: device time by kernel and
+    its spans (attention, the GEMMs, adaRMS).  Under programmatic dependent
+    launch a span includes its wait for the previous launch, so the spans
+    overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+
+    def span(name):
+        return sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+    return {"kernels_a_call": sum(e.count for e in events),
+            "attention_span_ms": span("dit_attention"), "gemm_span_ms": span("gemm"),
+            "ada_rms_span_ms": span("ada_rms"), "device_busy_ms": span(""),
+            "by_kernel": {e.key[:90]: {"count": e.count,
+                                       "device_ms": e.self_device_time_total / 1e3}
+                          for e in events}}
+
+
+def k8_plans(torch, k8, b, t, d):
+    """The tile of each of the chain's GEMMs at B, T: `plan_dit_gemm`'s,
+    which must be the C launch's (`vtt_dit_gemm_plan`); printed."""
+    import ctypes
+
+    from voice_tts_tpu_torch.ops import build
+
+    lib, plans = build.kernels().lib, {}
+    for name, (m, n, k) in k8.dit_gemm_shapes(b, t, d).items():
+        tile = k8.plan_dit_gemm(m, n, k)
+        bm, bn = ctypes.c_int(), ctypes.c_int()
+        if lib.vtt_dit_gemm_plan(m, n, k, ctypes.byref(bm), ctypes.byref(bn)) != 0:
+            fail(f"vtt_dit_gemm_plan refused M {m}, N {n}, K {k}")
+        if (bm.value, bn.value) != (tile.bm, tile.bn):
+            fail(f"K8 {name} GEMM: the C launch plans {bm.value} x {bn.value}, "
+                 f"plan_dit_gemm {tile.bm} x {tile.bn}")
+        plans[name] = {"m": m, "n": n, "k": k, **tile._asdict()}
+    print(f"K8 GEMM tiles at B {b}, T {t}: " + json.dumps(plans))
+    return plans
 
 
 def check_k8(torch, dev, results):
     """K8 at the flagship trunk (13 blocks, D 512, 8 heads) with random DiT
-    weights, B 2 (CFG), T 704 (the DiT slice's 2.5 s prompt), lens 650."""
+    weights, B 2 (CFG), at each of K8_CASES: against the plain version on
+    valid rows, two calls bit-equal, the GEMM planner's tiles printed; the
+    first case (T 704, lens 650) timed in a host loop and device-only, with
+    one evaluation profiled."""
     from voice_tts_tpu_torch.config import TTSConfig
     from voice_tts_tpu_torch.models.layers import init_weights
     from voice_tts_tpu_torch.models.s2mel.dit import DiT
@@ -1248,44 +1341,80 @@ def check_k8(torch, dev, results):
     with torch.device(dev):
         dit = init_weights(DiT(cfg.dit, cfg.wavenet), g).eval()
     d, heads, depth = cfg.dit.hidden_dim, cfg.dit.num_heads, cfg.dit.depth
-    b, t, n = 2, 704, 650
     with torch.no_grad():
         tables = dit.step_tables(torch.tensor([0.36], device=dev))
         wb = k8.pack_dit_tables(dit, tables)[0]
         pack = k8.pack_dit_blocks(dit)
-    x = torch.randn(b, t, d, generator=g, device=dev)
-    cos, sin = k8.rope_tables(t, d // heads, cfg.dit.rope_base, dev)
-    lens = torch.tensor([n, n], device=dev, dtype=torch.int32)
+    print(f"K8 tolerance: {K8_TOL} * max|ref| of each row's valid positions (bf16 "
+          f"roundings flipped by sums in another order, compounded over {depth} blocks)")
+    errs, plans = [], {}
+    for case, (t, lens) in enumerate(K8_CASES):
+        b = len(lens)
+        plans[t] = k8_plans(torch, k8, b, t, d)
+        x = torch.randn(b, t, d, generator=g, device=dev)
+        cos, sin = k8.rope_tables(t, d // heads, cfg.dit.rope_base, dev)
+        lens_t = torch.tensor(lens, device=dev, dtype=torch.int32)
 
-    def run(fn):
-        return fn(x, pack, wb, cos, sin, lens, heads)
-    out = run(k8.dit_block_chain)
-    torch.cuda.synchronize()
-    ref = run(k8.dit_block_chain_ref)
-    err = max_err(torch, out[:, :n], ref[:, :n])
-    scale = float(ref[:, :n].abs().max())
-    print(f"K8 tolerance: {K8_TOL} * max|ref| (bf16 roundings flipped by sums "
-          f"in another order, compounded over {depth} blocks)")
-    print(f"K8 L={depth} D={d} H={heads} B={b} T={t} lens={n}: max_abs_err "
-          f"{err:.4g} on valid rows (max|ref| {scale:.4g})")
-    if not torch.isfinite(out).all() or not err <= K8_TOL * scale:
-        fail("K8 dit_block_chain disagrees with the plain version")
-    ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain), 10)
-    plain_ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain_ref), 3)
-    # bytes: the bf16 weights once, x read and the output written in f32, the
-    # tables; operations: 2 per multiply-add of the 13 D^2 weights a row, and
-    # 4 a (query, valid key, head dim) of the attention, every layer
-    ops = depth * (2 * b * t * 13 * d * d + 4 * d * b * t * n)
-    bnd = bound(nbytes(*pack, x, out, wb, cos, sin, lens), ops)
-    print(f"K8: {ms:.4f} ms kernel chain, {plain_ms:.4f} ms plain, bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        def run(fn):
+            return fn(x, pack, wb, cos, sin, lens_t, heads)
+        out = run(k8.dit_block_chain)
+        again = run(k8.dit_block_chain)
+        torch.cuda.synchronize()
+        ref = run(k8.dit_block_chain_ref)
+        tag = f"K8 L={depth} D={d} H={heads} B={b} T={t} lens={lens}"
+        for i, n in enumerate(lens):
+            err, scale = max_err(torch, out[i, :n], ref[i, :n]), float(ref[i, :n].abs().max())
+            print(f"{tag} row {i}: max_abs_err {err:.4g} on its {n} valid rows "
+                  f"(max|ref| {scale:.4g})")
+            if not torch.isfinite(out[i, :n]).all() or not err <= K8_TOL * scale:
+                fail(f"{tag} row {i} disagrees with the plain version")
+            errs.append(err)
+        if not torch.equal(out, again):
+            fail(f"{tag}: two calls differ")
+        print(f"{tag}: two calls bit-equal")
+        if case:
+            continue
+        ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain), 10)
+        dev_ms = device_time_ms(torch, lambda: run(k8.dit_block_chain), K8_ITERS)
+        plain_ms = cuda_time_ms(torch, lambda: run(k8.dit_block_chain_ref), 3)
+        prof = profile_k8(torch, lambda: run(k8.dit_block_chain))
+        print(f"{tag} profiled: " + json.dumps(prof))
+
+        def run_serial():
+            return k8.dit_block_chain_cuda(x, pack, wb, cos, sin, lens_t, heads, pdl=False)
+        serial_ms = device_time_ms(torch, run_serial, K8_ITERS)
+        serial = profile_k8(torch, run_serial)
+        print(f"{tag} without programmatic dependent launch: {serial_ms:.4f} ms "
+              f"device-only; profiled (spans do not overlap): " + json.dumps(serial))
+        retired = [k for k in prof["by_kernel"] if any(r in k for r in K8_RETIRED)]
+        # bytes: the bf16 weights once, x read and the output written in f32,
+        # the tables; operations: 2 per multiply-add of the 13 D^2 weights a
+        # row, and 4 a (query, valid key, head dim) of the attention, every layer
+        n = lens[0]
+        ops = depth * (2 * b * t * 13 * d * d + 4 * d * b * t * n)
+        bnd = bound(nbytes(*pack, x, out, wb, cos, sin, lens_t), ops)
+        print(f"K8: {ms:.4f} ms kernel chain ({dev_ms:.4f} device-only), {plain_ms:.4f} "
+              f"ms plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        head = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "profile": prof,
+                "serial_device_ms": serial_ms, "serial_profile": serial,
+                **bnd}
+        if retired:
+            fail(f"K8 launched retired kernels: {retired}")
     results.append({
         "name": "dit_block_chain", "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_blocks.cu",
-        "replaces": "voice_tts_tpu/ops/attic/dit_blocks.py:243", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-        "bound_by": bnd["bound_by"], "library_ms": None,
+        "replaces": "voice_tts_tpu/ops/attic/dit_blocks.py:243", "max_abs_err": max(errs),
+        "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
         "ms_of": "one trunk evaluation (13 blocks), B 2, T 704, lens 650",
-        "bound_bytes": bnd["bound_bytes"], "bound_ops": bnd["bound_ops"]})
+        "bound_bytes": head["bound_bytes"], "bound_ops": head["bound_ops"],
+        "spans_ms": {k: head["profile"][k] for k in
+                     ("attention_span_ms", "gemm_span_ms", "ada_rms_span_ms",
+                      "device_busy_ms")},
+        "serial": {"device_ms": head["serial_device_ms"],
+                   **{k: head["serial_profile"][k] for k in
+                      ("attention_span_ms", "gemm_span_ms", "ada_rms_span_ms",
+                       "device_busy_ms")}},
+        "gemm_tiles": plans})
 
 
 # K5 against its plain version: f32 sums in another order (and over other
@@ -1294,14 +1423,62 @@ def check_k8(torch, dev, results):
 # near the largest magnitude m is up to 2^-7 * m
 K5_F32_TOL = 1e-5
 K5_BF16_TOL = 2 ** -7
+K5_WIDTHS = (32, 64, 128, 256, 512)     # the split widths the kernel takes
+# K5's edges: (B, Tmax, length, each row's -1e30 positions [lo, hi) or
+# None).  Lengths 1, 31, 32, 33 around the 32-position split; a split
+# wholly under the bias at length 100 (splits of 32); length = Tmax; B 3
+# one position past a split boundary (5 splits of 128); a row whose whole
+# live prefix is masked (the uniform average over it)
+K5_EDGES = ((1, 512, 1, [None]), (1, 512, 31, [None]), (1, 512, 32, [(8, 9)]),
+            (1, 512, 33, [None]), (1, 512, 100, [(32, 64)]), (1, 512, 512, [(40, 52)]),
+            (3, 2048, 513, [(40, 52), None, (256, 512)]),
+            (3, 512, 40, [(0, 64), (3, 5), None]))
+
+
+def k5_inputs(torch, dev, g, dtype, b, t_max, masked):
+    h, hd = 20, 64
+    q = torch.randn(b, h, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, h, hd, t_max, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    bias = torch.zeros(b, t_max, device=dev)
+    for i, span in enumerate(masked):
+        if span is not None:
+            bias[i, span[0]:span[1]] = -1e30
+    return q, k, v, bias
+
+
+def k5_edges(torch, dev, g):
+    """K5 against its plain version at K5_EDGES, bf16 and f32, the
+    planner's split printed; two calls bit-equal."""
+    from voice_tts_tpu_torch.ops import decode_attention as k5
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = K5_F32_TOL if dtype == torch.float32 else K5_BF16_TOL
+        for b, t_max, length, masked in K5_EDGES:
+            q, k, v, bias = k5_inputs(torch, dev, g, dtype, b, t_max, masked)
+            out = k5.decode_attention(q, k, v, bias, length)
+            again = k5.decode_attention(q, k, v, bias, length)
+            torch.cuda.synchronize()
+            ref = k5.decode_attention_plain(q, k, v, bias, length)
+            err, scale = max_err(torch, out, ref), float(ref.float().abs().max())
+            tag = (f"K5 edge {str(dtype).split('.')[-1]} B={b} Tmax={t_max} "
+                   f"length={length} masked={masked} splits "
+                   f"{k5.plan_decode_splits(b, 20, length)}")
+            print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g})")
+            if not torch.isfinite(out.float()).all() or not err <= tol * scale:
+                fail(f"{tag} disagrees with the plain version")
+            if not torch.equal(out, again):
+                fail(f"{tag}: two calls differ")
 
 
 def check_k5(torch, dev, results):
     """K5 at the flagged decode paths' shapes (GPT 20 heads of 64): B 1, Tmax
     512, length 343 (the bench configuration with the flag) and B 3, Tmax
     2048, length 1571 (beam-3 in the production profile with the flag), bf16
-    and f32, beside `F.scaled_dot_product_attention` on the same live prefix
-    with the bias as its additive mask.  The headline is bf16 at B 1."""
+    and f32, timed in a host loop and device-only, beside
+    `F.scaled_dot_product_attention` on the same live prefix with the bias
+    as its additive mask; then the edges (`k5_edges`).  The headline is
+    bf16 at B 1."""
     import torch.nn.functional as F
     from voice_tts_tpu_torch.ops import decode_attention as k5
 
@@ -1311,22 +1488,30 @@ def check_k5(torch, dev, results):
     h, hd, cases = 20, 64, []
     for dtype in (torch.bfloat16, torch.float32):
         for b, t_max, length in ((1, 512, 343), (3, 2048, 1571)):
-            q = torch.randn(b, h, hd, generator=g, device=dev).to(dtype)
-            k, v = (torch.randn(b, h, hd, t_max, generator=g, device=dev).to(dtype)
-                    for _ in range(2))
-            bias = torch.zeros(b, t_max, device=dev)
-            bias[:, 40:52] = -1e30                  # padded prompt positions
+            q, k, v, bias = k5_inputs(torch, dev, g, dtype, b, t_max, [(40, 52)] * b)
             args = (q, k, v, bias, length)
             out = k5.decode_attention(*args)
+            again = k5.decode_attention(*args)
             torch.cuda.synchronize()
             ref = k5.decode_attention_plain(*args)
             tol = K5_F32_TOL if dtype == torch.float32 else K5_BF16_TOL
             err, scale = max_err(torch, out, ref), float(ref.float().abs().max())
-            tag = f"K5 {str(dtype).split('.')[-1]} B={b} H={h} Tmax={t_max} length={length}"
+            split_t, splits = k5.plan_decode_splits(b, h, length)
+            tag = (f"K5 {str(dtype).split('.')[-1]} B={b} H={h} Tmax={t_max} length={length} "
+                   f"({splits} splits of {split_t})")
             print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g})")
             if not torch.isfinite(out.float()).all() or not err <= tol * scale:
                 fail(f"{tag} disagrees with the plain version")
+            if not torch.equal(out, again):
+                fail(f"{tag}: two calls differ")
             ms = cuda_time_ms(torch, lambda: k5.decode_attention(*args), 50)
+            dev_ms = device_time_ms(torch, lambda: k5.decode_attention(*args), 50)
+            # every width the planner could choose, device-only: the planner's
+            # choice against the others
+            by_width = {w: device_time_ms(
+                torch, lambda w=w: k5.decode_attention_cuda(*args, split_t=w), 50)
+                for w in K5_WIDTHS}
+            print(f"{tag}: device-only ms by split width " + json.dumps(by_width))
             plain_ms = cuda_time_ms(torch, lambda: k5.decode_attention_plain(*args), 20)
             kl = k[..., :length].transpose(-1, -2)  # (B, H, L, hd) views of the cache
             vl = v[..., :length].transpose(-1, -2)
@@ -1335,29 +1520,35 @@ def check_k5(torch, dev, results):
             def library():
                 return F.scaled_dot_product_attention(q[:, :, None], kl, vl,
                                                       attn_mask=mask)[:, :, 0]
-            lib_ms = None
+            lib_ms = lib_dev_ms = None
             lib_err = max_err(torch, library(), ref)
             print(f"{tag} F.scaled_dot_product_attention: max_abs_err {lib_err:.4g}")
             if lib_err <= 4 * tol * scale:
                 lib_ms = library_time_ms(torch, library, 50)
+                lib_dev_ms = library_time_ms(torch, library, 50, timer=device_time_ms)
             # the K and V prefix read once, q, the bias prefix, the output
             # written; 4 operations a (head, dim, attended position)
             el = q.element_size()
             bnd = bound(2 * b * h * hd * length * el + nbytes(q, out) + 4 * b * length,
                         4 * b * h * hd * length, "f32" if dtype == torch.float32 else "bf16")
-            print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-                  f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), library {lib_ms} ms")
+            print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), {plain_ms:.4f} "
+                  f"ms plain, bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), "
+                  f"library {lib_ms} ms ({lib_dev_ms} device-only)")
             cases.append({"dtype": str(dtype).split(".")[-1], "b": b, "t_max": t_max,
-                          "length": length, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms, "max_abs_err": err, **bnd})
+                          "length": length, "split_t": split_t, "splits": splits,
+                          "ms": ms, "device_ms": dev_ms, "device_ms_by_width": by_width,
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "library_device_ms": lib_dev_ms, "max_abs_err": err, **bnd})
+    k5_edges(torch, dev, g)
     head = cases[0]
     results.append({
         "name": "decode_attention", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "voice_tts_tpu/ops/decode_attention.py:104",
         "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "library_device_ms": head["library_device_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention (additive mask)",
         "ms_of": "one call, bf16, B 1, H 20, Tmax 512, length 343", "cases": cases})
 
@@ -1414,6 +1605,8 @@ def check_k10(torch, dev, results):
         if not torch.isfinite(out).all() or not err <= K10_TOL * scale:
             fail(f"{tag} disagrees with the plain version")
         ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage(x, pack, dil), 5, warmup=1)
+        dev_ms = device_time_ms(torch, lambda: k10.fused_resblock_stage(x, pack, dil), 5,
+                                warmup=1)
         plain_ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage_plain(x, pack, dil),
                                 3, warmup=1)
         # x read and the output written once, each block's own taps (2 n_iter
@@ -1421,10 +1614,10 @@ def check_k10(torch, dev, results):
         # operations a multiply-add of 2 C^2 T n_iter sum_j k_j
         weights = 4 * (2 * n_iter * sum_k * c * c + 3 * pack.b.numel())
         bnd = bound(2 * nbytes(x) + weights, 2 * c * c * t * 2 * n_iter * sum_k, "f32")
-        print(f"{tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        cases.append({"stage": i, "c": c, "t": t, "ms": ms, "plain_ms": plain_ms,
-                      "max_abs_err": err, **bnd})
+        print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), {plain_ms:.4f} ms "
+              f"plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        cases.append({"stage": i, "c": c, "t": t, "ms": ms, "device_ms": dev_ms,
+                      "plain_ms": plain_ms, "max_abs_err": err, **bnd})
     total = bound(sum(c["bound_bytes"] for c in cases), sum(c["bound_ops"] for c in cases),
                   "f32")
     results.append({
@@ -1432,7 +1625,8 @@ def check_k10(torch, dev, results):
         "source": "voice_tts_tpu_torch/csrc/fused_vocoder.cu",
         "replaces": "voice_tts_tpu/ops/attic/fused_vocoder.py:192",
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": sum(c["ms"] for c in cases), "plain_ms": sum(c["plain_ms"] for c in cases),
+        "ms": sum(c["ms"] for c in cases), "device_ms": sum(c["device_ms"] for c in cases),
+        "plain_ms": sum(c["plain_ms"] for c in cases),
         "bound_ms": total["bound_ms"], "bound_by": total["bound_by"], "library_ms": None,
         "ms_of": "the four fused stages of one 448-frame vocode, summed", "cases": cases})
     del voc, packs
@@ -2438,8 +2632,17 @@ def vocoder_ab(torch, dev, vocoder):
 # main
 # ---------------------------------------------------------------------------
 
+KERNEL_CHECKS = {"k2": check_k2, "k4": check_k4, "k1": check_k1, "k3": check_k3,
+                 "k7": check_k7, "k6": check_k6, "attention": check_attention,
+                 "k8": check_k8, "k5": check_k5, "k10": check_k10}
+
+
 def main():
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS),
+                    help="run only these kernel checks, in this order, and print "
+                         "their JSON (no slice runs, no result line)")
+    args = ap.parse_args()
 
     torch, card = device_check()
     dev = torch.device("cuda:0")
@@ -2451,16 +2654,14 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s ({lib.path.name})")
 
     results = []
-    check_k2(torch, dev, results)
-    check_k4(torch, dev, results)
-    check_k1(torch, dev, results)
-    check_k3(torch, dev, results)
-    check_k7(torch, dev, results)
-    check_k6(torch, dev, results)
-    check_attention(torch, dev, results)
-    check_k8(torch, dev, results)
-    check_k5(torch, dev, results)
-    check_k10(torch, dev, results)
+    if args.only:
+        for name in args.only:
+            KERNEL_CHECKS[name](torch, dev, results)
+        print(card)
+        print(json.dumps({"kernels": results}))
+        return
+    for check in KERNEL_CHECKS.values():
+        check(torch, dev, results)
     torch.cuda.empty_cache()
     by_path = {"micro": run_micro_path(torch, dev, counters, results)}
     torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 """The decode-loop timing script (`voice_tts_tpu_torch/scripts/decode_host_time.py`)
 on the CPU: the tiny engine through each profile's decode loop, one timed
 chain call a decode step (the spec profile: three draft chains and one
-verify a round) and the chain functions put back afterwards; and without a
-card the default `--device cuda` exits at once."""
+verify a round; the dit profile one K8 call an Euler step; the k5 profile
+one K5 call a layer and step) and the timed functions put back afterwards;
+and without a card the default `--device cuda` exits at once."""
 
 import json
 import subprocess
@@ -12,7 +13,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from voice_tts_tpu_torch.models.gpt import beam, decode
+from voice_tts_tpu_torch.engine.engine import tiny_config
+from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
+from voice_tts_tpu_torch.ops import decode_attention, dit_blocks
 from voice_tts_tpu_torch.scripts import decode_host_time as script
 
 REPO = Path(__file__).resolve().parents[1]
@@ -60,14 +63,52 @@ def test_tiny_spec_profile_times_drafts_and_verifies(capsys):
 
 
 def test_chains_name_the_decode_loops_calls():
-    """Each profile's chain is the function its decode loop calls by name;
-    the spec profile's drafts take K1, its rounds' verify K6."""
+    """Each profile's chain is the function its caller calls by name; the
+    spec profile's drafts take K1, its rounds' verify K6; the dit profile
+    times K8 as the DiT calls it, the k5 profile K5 as the unfused step
+    does."""
     assert script.CHAINS == {"production": (beam, "fused_decode_step_batch"),
                              "bench": (decode, "fused_decode_step"),
-                             "spec": (decode, "fused_decode_step")}
+                             "spec": (decode, "fused_decode_step"),
+                             "dit": (dit_blocks, "dit_block_chain"),
+                             "k5": (gpt2, "decode_attention")}
     assert script.VERIFY == {"spec": (decode, "fused_decode_verify")}
     assert callable(beam.fused_decode_step_batch) and callable(decode.fused_decode_step)
     assert callable(decode.fused_decode_verify)
+    assert gpt2.decode_attention is decode_attention.decode_attention
+
+
+def test_tiny_dit_profile_times_each_k8_call(capsys):
+    """The dit profile (bf16 s2mel, the K8 trunk, D 256 DiT): each request
+    times one K8 call an Euler step (a positive multiple of the steps),
+    reports `s2mel_time`, and the DiT gets K8 back."""
+    before = dit_blocks.dit_block_chain
+    rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
+                        "--profiles", "dit"])
+    assert dit_blocks.dit_block_chain is before
+    steps = tiny_config().engine.diffusion_steps
+    assert [r["request"] for r in rows] == [0, 1]
+    for r in rows:
+        assert r["profile"] == "dit" and r["s2mel_time"] > 0
+        assert r["chain_calls"] > 0 and r["chain_calls"] % steps == 0
+        assert 0 < r["chain_host_ms_median"]
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert out == rows
+
+
+def test_tiny_k5_profile_times_each_k5_call(capsys):
+    """The k5 profile (`pallas_decode_attention`): each request times one K5
+    call a layer and decode step, and the decode step gets K5 back."""
+    before = gpt2.decode_attention
+    rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
+                        "--profiles", "k5"])
+    assert gpt2.decode_attention is before
+    layers = tiny_config().gpt.layers
+    for r in rows:
+        assert r["profile"] == "k5" and r["decode_steps"] > 0
+        assert r["chain_calls"] == layers * r["decode_steps"]
+        assert 0 < r["chain_host_ms_median"] and r["gpt_gen_time"] > 0
 
 
 def test_refuses_without_cuda():

@@ -1,8 +1,8 @@
 // C entries of K9 (key-length-masked DiT attention) and K11 (segment-id
 // masked DiT attention).  bf16 inputs run the tensor-core kernel of
 // dit_attention_mma.cuh; f32 inputs the CUDA-core kernel of
-// dit_attention.cuh, shared with the K8 block chain (dit_blocks.cu).  Each
-// header holds its kernel's design and bound.
+// dit_attention.cuh.  Each header holds its kernel's design and bound; the
+// K8 block chain (dit_blocks.cu) runs the tensor-core one.
 #include "dit_attention_mma.cuh"
 
 namespace {

@@ -1,13 +1,13 @@
-// Masked full (non-causal) attention of the DiT, shared by K9, K11 and the
-// attention stage of the K8 block chain.
+// Masked full (non-causal) attention of the DiT on the CUDA cores: the f32
+// branch of K9 and K11 (bf16 runs the tensor-core tile of
+// dit_attention_mma.cuh, as does the K8 block chain's attention stage).
 //
-// Replaces the attention of three TPU kernels:
+// Replaces the attention of these TPU kernels:
 //   K9  voice_tts_tpu/ops/attic/cfm_attention.py `cfm_attention` (keys at
 //       col >= lens[b] masked to -1e30),
 //   K11 jax.experimental.pallas.ops.tpu.flash_attention as the DiT calls it
 //       (voice_tts_tpu/models/s2mel/dit.py:122-148; query i sees key j only
-//       where their segment ids are equal, others get -0.7 * FLT_MAX added),
-//   K8  stage 1 of voice_tts_tpu/ops/attic/dit_blocks.py `_kernel`.
+//       where their segment ids are equal, others get -0.7 * FLT_MAX added).
 //
 // The K9 TPU kernel holds one (T, T) f32 score tile in VMEM; at T = 3104 that
 // is 38 MB, far past the 227 KB of shared memory a block may use.  This

@@ -54,8 +54,8 @@
 // f32 inputs keep the CUDA-core kernel of dit_attention.cuh: TF32 tensor
 // cores would round q and k to 10 mantissa bits and break the f32
 // tolerance (1e-4 against the plain version).  The K8 block chain
-// (dit_blocks.cu) keeps it too; its attention stage can move to this tile
-// when K8 is redesigned.
+// (dit_blocks.cu) runs this tile as its attention stage, under
+// programmatic dependent launch.
 //
 // The wrapper (ops/cfm_attention.py `check_qkv`) guarantees what the
 // 16-byte copies need: 16-byte-aligned bases and (batch, head, time)
@@ -175,6 +175,10 @@ __global__ void __launch_bounds__(MMA_THREADS) dit_attention_mma_kernel(const At
   const bf16* vg = static_cast<const bf16*>(a.v) + (long)b * a.v_sb + (long)h * a.v_sh;
   bf16* og = static_cast<bf16*>(a.o) + (long)b * a.o_sb + (long)h * a.o_sh;
   const int* kv_seg = MASK == MASK_SEG ? a.kv_seg + (long)b * t_len : nullptr;
+  // q, k, v are the previous launch's output under programmatic dependent
+  // launch (K8's chain); no-ops for a plain launch (K9, K11)
+  grid_dependency_wait();
+  launch_dependents();
 
   int n_tiles = (t_len + MMA_BK - 1) / MMA_BK;
   const int n_valid = MASK == MASK_LENS ? a.lens[b] : 0;
@@ -319,11 +323,14 @@ __global__ void __launch_bounds__(MMA_THREADS) dit_attention_mma_kernel(const At
   }
 }
 
-// Launch on `stream`; returns cudaGetLastError().  41.5 KB of static shared
-// memory a block, under the 48 KB default.
+// Launch on `stream`, under programmatic dependent launch if `pdl`;
+// returns the launch's error.  41.5 KB of static shared memory a block,
+// under the 48 KB default.
 template <int MASK>
-cudaError_t launch_dit_attention_mma(const AttnArgs& a, int batch, cudaStream_t stream) {
+cudaError_t launch_dit_attention_mma(const AttnArgs& a, int batch, cudaStream_t stream,
+                                     bool pdl = false) {
   const dim3 grid((a.t_len + MMA_BQ - 1) / MMA_BQ, batch * a.heads);
+  if (pdl) return launch_pdl(dit_attention_mma_kernel<MASK>, grid, dim3(MMA_THREADS), 0, stream, a);
   dit_attention_mma_kernel<MASK><<<grid, MMA_THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -40,8 +40,9 @@ _SIGNATURES = {
     "vtt_verify_attend": [_P] * 4 + [_I] * 5 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2,
     "vtt_cfm_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vtt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "vtt_dit_block_chain": [_P] * 14 + [_I] * 5 + [_P],
-    "vtt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "vtt_dit_block_chain": [_P] * 14 + [_I] * 6 + [_P],
+    "vtt_dit_gemm_plan": [_I] * 3 + [_P] * 2,
+    "vtt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P, _P, _P],
     "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _P],
     "vtt_micro_tile": [_P] * 4 + [_I] * 4 + [_P],
     "vtt_micro_int4": [_P] * 5 + [_I] * 4 + [_P],

@@ -25,8 +25,13 @@ layout, bf16, with W1 and W3 rows interleaved so that one GEMM column pair
 is (gate, up) of one FFN unit.
 
 - `dit_block_chain_ref`: PyTorch ops (CPU; the reference on the card);
+- `plan_dit_gemm`: the tile of each of the chain's GEMMs (the C launch
+  applies the same rule, `vtt_dit_gemm_plan`);
 - `csrc/dit_blocks.cu` (`vtt_dit_block_chain`): the hand-written chain of
-  kernels, one C call per velocity evaluation, launched for CUDA tensors.
+  kernels, one C call per velocity evaluation, launched for CUDA tensors:
+  per layer adaRMS, the QKV GEMM (RoPE epilogue), the tensor-core
+  attention tile, Wo, adaRMS, W1 | W3 (SwiGLU epilogue), W2; the GEMMs on
+  `wgmma` fed by TMA, the launches under programmatic dependent launch.
 """
 
 from __future__ import annotations
@@ -42,6 +47,32 @@ from voice_tts_tpu_torch.ops.cfm_attention import HEAD_DIM, cfm_attention_ref
 from voice_tts_tpu_torch.ops.counters import LAUNCHES
 
 EPS = 1e-5
+GEMM_MIN_BLOCKS = 132   # the H100's SMs
+
+
+class GemmTile(NamedTuple):
+    bm: int
+    bn: int
+    blocks: int
+
+
+def plan_dit_gemm(m: int, n: int, k: int) -> GemmTile:
+    """The tile of one of the chain's (M, N, K) GEMMs: 128 x 128 (two
+    warpgroups) where that launches at least GEMM_MIN_BLOCKS blocks, else
+    64 x 64 (one warpgroup).  At B 2, T 704 (M 1408, D 512): QKV 128 x 128,
+    132 blocks; W1 | W3 128 x 128, 264; Wo and W2 64 x 64, 176."""
+    if n % 64 or k % 64 or m < 1:
+        raise ValueError(f"plan_dit_gemm: N and K multiples of 64, got M {m}, N {n}, K {k}")
+    if n % 128 == 0 and -(-m // 128) * (n // 128) >= GEMM_MIN_BLOCKS:
+        return GemmTile(128, 128, -(-m // 128) * (n // 128))
+    return GemmTile(64, 64, -(-m // 64) * (n // 64))
+
+
+def dit_gemm_shapes(b: int, t: int, d: int) -> dict:
+    """(M, N, K) of the chain's four GEMMs a layer at B rows of T frames."""
+    m = b * t
+    return {"qkv": (m, 3 * d, d), "wo": (m, d, d), "w13": (m, 6 * d, d),
+            "w2": (m, d, 3 * d)}
 
 
 class DiTPack(NamedTuple):
@@ -173,7 +204,11 @@ def dit_block_chain_ref(x: torch.Tensor, pack: DiTPack, wb: torch.Tensor,
     return h.reshape(b, t, d)
 
 
-def dit_block_chain_cuda(x, pack: DiTPack, wb, cos, sin, x_lens, heads: int):
+def dit_block_chain_cuda(x, pack: DiTPack, wb, cos, sin, x_lens, heads: int,
+                         pdl: bool = True):
+    """Launch the chain; `pdl=False` launches every kernel in full stream
+    order (a measurement arm: a profiler's kernel spans then do not
+    overlap)."""
     b, t, d = x.shape
     n_layers = pack.wqkv.shape[0]
     if d % 64 or d // heads != HEAD_DIM:
@@ -197,6 +232,9 @@ def dit_block_chain_cuda(x, pack: DiTPack, wb, cos, sin, x_lens, heads: int):
     for a in tensors:
         if not a.is_cuda or a.device != dev or not a.is_contiguous():
             raise ValueError(f"dit_block_chain: every input must be contiguous on {dev}")
+        if a.data_ptr() % 16:
+            raise ValueError("dit_block_chain: every input must be 16-byte aligned "
+                             "(the weights are read by TMA)")
     m = b * t
     out = torch.empty_like(x)
     y = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
@@ -209,7 +247,7 @@ def dit_block_chain_cuda(x, pack: DiTPack, wb, cos, sin, x_lens, heads: int):
              pack.wqkv.data_ptr(), pack.wo.data_ptr(), pack.w13.data_ptr(),
              pack.w2.data_ptr(), wb.data_ptr(), cos.data_ptr(), sin.data_ptr(),
              lens.data_ptr(), y.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-             act.data_ptr(), b, t, d, heads, n_layers, build.stream_handle(dev))
+             act.data_ptr(), b, t, d, heads, n_layers, int(pdl), build.stream_handle(dev))
     return out
 
 

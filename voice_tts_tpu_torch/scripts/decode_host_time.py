@@ -1,15 +1,18 @@
 """Time the flagship decode loop request by request: each request's
-`gpt_gen_time`, decode steps and RTF, and the host time of every call of the
-decode step's CUDA chain (K3 on the production profile's beam steps, K1 on
-the bench profile's one-beam steps; on the spec profile, the bench
-configuration with `spec_decode_k = 4`, the int4 K1 draft chain and the K6
-verify chain of each round), that is the time its wrapper takes to check
-its inputs and enqueue a step's launches.  The rest of a step's wall time
-is the beam, sampling or acceptance logic, its syncs and the device's tail.
-One JSON line a request; the first request of a profile is the cold one.
+`gpt_gen_time`, `s2mel_time`, decode steps and RTF, and the host time of
+every call of one kernel wrapper (K3 on the production profile's beam
+steps, K1 on the bench profile's one-beam steps; on the spec profile, the
+bench configuration with `spec_decode_k = 4`, the int4 K1 draft chain and
+the K6 verify chain of each round; on the dit profile, `dit_config()` with
+a 2.5 s prompt (T 704), the K8 trunk chain of each Euler step; on the k5
+profile, `k5_config()`, the K5 attention of each layer and decode step),
+that is the time its wrapper takes to check its inputs and enqueue its
+launches.  The rest of a step's wall time is the beam, sampling or
+acceptance logic, the other launches, syncs and the device's tail.  One
+JSON line a request; the first request of a profile is the cold one.
 
     python -m voice_tts_tpu_torch.scripts.decode_host_time [--profiles
-        production bench spec] [--requests 3] [--device cuda]
+        production bench spec dit k5] [--requests 3] [--device cuda]
 
 It times the `voice_tts_tpu_torch` that comes first on the path, so one copy
 of the script times another checkout of the package alike: run it by file
@@ -34,14 +37,18 @@ import voice_tts_tpu_torch
 from voice_tts_tpu_torch.audio import encode_wav_int16
 from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config, serving_config,
                                                tiny_config)
-from voice_tts_tpu_torch.models.gpt import beam, decode
+from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
+from voice_tts_tpu_torch.ops import dit_blocks
 
 TEXT = "欢迎大家来体验这个语音合成系统谢谢大家."
-# the decode-step chain of each profile, as its decode loop names it (the
-# spec profile's K1 chain is the int4 draft step)
+# the kernel wrapper each profile times, as its caller names it (the spec
+# profile's K1 chain is the int4 draft step; the DiT calls K8 through the
+# module, the unfused decode step K5 by name)
 CHAINS = {"production": (beam, "fused_decode_step_batch"),
           "bench": (decode, "fused_decode_step"),
-          "spec": (decode, "fused_decode_step")}
+          "spec": (decode, "fused_decode_step"),
+          "dit": (dit_blocks, "dit_block_chain"),
+          "k5": (gpt2, "decode_attention")}
 # the second chain a profile times: the spec round's verify (K6)
 VERIFY = {"spec": (decode, "fused_decode_verify")}
 # the tiny engine with the production flags: K3 with the ancestor table,
@@ -51,6 +58,12 @@ TINY_FLAGS = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
                   use_fused_beam_decode=True, use_int8_kv=True, fold_readout=True)
 TINY_SPEC_FLAGS = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
                        spec_decode_k=4)
+# the bench flags of the tiny engine (one beam through K1)
+TINY_BENCH_FLAGS = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
+                        fold_readout=True)
+# prompt seconds of each flagship profile: 2.5 s puts the DiT slice at T 704,
+# the K8 trunk (prompt bucket 256 + mel bucket 448)
+PROMPT_S = {"dit": 2.5}
 
 
 def tone_prompt(seconds: float, sr: int) -> bytes:
@@ -86,16 +99,12 @@ def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool) -> l
     """A cold request and `requests` warm ones on a fresh random engine
     (seed 0, as `chip_smoke.py` builds its slices)."""
     if tiny:
-        flags = TINY_SPEC_FLAGS if profile == "spec" else TINY_FLAGS
-        engine = TTSEngine.random(tiny_config(**flags), device=str(dev), seed=0)
+        engine = TTSEngine.random(tiny_profile(profile), device=str(dev), seed=0)
         prompt = tone_prompt(1.0, 16000)
         kwargs = {"num_beams": 3 if profile == "production" else 1}
     else:
-        cfg = serving_config() if profile == "production" else bench_config()
-        if profile == "spec":
-            cfg.engine.spec_decode_k = 4
-        engine = TTSEngine.random(cfg, device=str(dev), seed=0)
-        prompt, kwargs = tone_prompt(5.0, 22050), {}
+        engine = TTSEngine.random(flagship_profile(profile), device=str(dev), seed=0)
+        prompt, kwargs = tone_prompt(PROMPT_S.get(profile, 5.0), 22050), {}
     module, name = CHAINS[profile]
     rows = []
     for i in range(requests + 1):
@@ -111,7 +120,8 @@ def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool) -> l
         m = engine.last_metrics
         steps = m["decode_steps"]
         row = {"profile": profile, "request": i, "cold": i == 0,
-               "gpt_gen_time": m["gpt_gen_time"], "decode_steps": steps, "rtf": m["rtf"],
+               "gpt_gen_time": m["gpt_gen_time"], "s2mel_time": m["s2mel_time"],
+               "decode_steps": steps, "rtf": m["rtf"],
                "step_ms": 1e3 * m["gpt_gen_time"] / max(steps, 1), **host_ms("chain", calls)}
         if profile in VERIFY:
             row.update(spec_rounds=m["spec_rounds"], spec_accepted=m["spec_accepted"],
@@ -122,6 +132,47 @@ def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool) -> l
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return rows
+
+
+def flagship_profile(profile: str):
+    """The flagship configuration of `profile`: the server default
+    (production), or `bench_config()` with spec decode (spec), with bf16
+    s2mel, the K8 trunk and K9 attention (dit: `chip_smoke.py`'s DiT
+    slice), or with `pallas_decode_attention` and the fused vocoder (k5:
+    its K5 slice).  Built here from the engine's public configs, so the
+    script times an older checkout of the package alike."""
+    if profile == "production":
+        return serving_config()
+    cfg = bench_config()
+    if profile == "spec":
+        cfg.engine.spec_decode_k = 4
+    elif profile == "dit":
+        cfg.engine.use_bf16_s2mel = True
+        cfg.s2mel.dit.fused_blocks = cfg.s2mel.dit.fused_attention = True
+    elif profile == "k5":
+        cfg.gpt.pallas_decode_attention = True
+        cfg.engine.use_fused_vocoder = True
+    return cfg
+
+
+def tiny_profile(profile: str):
+    """The tiny engine's configuration for `profile`: the production flags,
+    spec decode, or the bench flags with the dit profile's DiT (widened to
+    D 256, 4 heads: the K8 trunk's 64-wide heads) and flags, or the k5
+    profile's `pallas_decode_attention`."""
+    if profile in ("production", "spec"):
+        return tiny_config(**(TINY_SPEC_FLAGS if profile == "spec" else TINY_FLAGS))
+    if profile == "dit":
+        cfg = tiny_config(use_bf16_s2mel=True, **TINY_BENCH_FLAGS)
+        d = cfg.s2mel.dit
+        d.hidden_dim, d.num_heads = 256, 4
+        d.fused_blocks = d.fused_attention = True
+        cfg.s2mel.wavenet.hidden_dim = d.hidden_dim
+        return cfg
+    cfg = tiny_config(**TINY_BENCH_FLAGS)
+    if profile == "k5":
+        cfg.gpt.pallas_decode_attention = True
+    return cfg
 
 
 def card_line() -> str:
