@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 (`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
-without the slices and without the result line.)
+without the slices and without the result line; `--only vocoder` runs the
+vocoder A/B alone on a flagship BigVGAN with random weights.)
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
@@ -17,8 +18,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    the flagship shapes of the paths, with the tolerance printed, both timed
    with CUDA events, beside its bound (the bytes it must move over 3.35
    TB/s, or its operations over the peak rate, whichever is larger): K5,
-   K10 (below), K2 (every activation of a 448- and a 2656-frame vocode,
-   host loop and device-only), K4 (a layer's four products on the unfused decode
+   K10 (below), K2 (first the snake's sin^2 against torch.sin in f64 over
+   |x| <= 1e4, then rows of 1-13 samples, a tile boundary +- 1 and T % 4
+   != 0, then every activation of a 448- and a 2656-frame vocode, host
+   loop and device-only a shape; two calls bit-equal; its plans and ptxas
+   registers), K4 (a layer's four products on the unfused decode
    step at 1, 3, 8 and 32 rows, each also device-only beside
    `torch._weight_int8pack_mm`, two calls bit-equal, the entry's times that
    set at 1 row; and a grid of 1 / 8 / 32 rows at D 1280),
@@ -98,8 +102,11 @@ K5 (bf16 and f32; B 1, Tmax 512, length 343 and B 3, Tmax 2048, length
 width, beside `F.scaled_dot_product_attention` on the live prefix; then
 lengths 1, 31, 32, 33, a split under the -1e30 bias, length = Tmax, a
 split boundary at B 3 and a fully masked row, two calls bit-equal), and
-K10 (the four fused stages of the flagship BigVGAN at 448 frames, host
-loop and device-only); the tiny-engine phase
+K10 (the four fused stages of the flagship BigVGAN at 448 and 2656
+frames, host loop and device-only, two calls bit-equal, the prologue and
+the MMA loop also timed alone, the bound as three TF32 passes and in f32,
+`plan_fused_stage` checked against the C launch's plan, ptxas registers);
+the tiny-engine phase
 runs K9 and K11 whole requests, K8 on the s2mel stage with bf16 s2mel (D
 256 DiT), `pallas_decode_attention` with one beam and with the production
 flags (f32 GPT), the int8 + bf16 unfused step with K5 and with the einsum
@@ -218,7 +225,7 @@ def max_err(torch, a, b) -> float:
 
 # H100 SXM data sheet: device memory rate and dense peak rates
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 
 
 def bound(n_bytes: float, n_ops: float, op_type: str = "bf16") -> dict:
@@ -473,7 +480,6 @@ def check_k3(torch, dev, results):
     a split wholly under the -1e30 bias (positions 256-511 at pos 700), and
     B 1 / 3 / 8 / 12 through a table with either cache at pos 900; then one
     step of (a) under the profiler."""
-    from voice_tts_tpu_torch.ops import build
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
     pack, ro, g = random_trunk(torch, dev, 4)
@@ -527,18 +533,9 @@ def check_k3(torch, dev, results):
     print("K3 (a) one step profiled: " + json.dumps(
         {k: v for k, v in prof.items() if k != "by_kernel"}) + "; by kernel "
           + json.dumps(prof["by_kernel"]))
-    lib = build.kernels()
-    for family in ("int8_gemv_partial", "int8_gemv_reduce", "dq_gemv_kernel",
-                   "attend_split_kernel", "dq_gemv4_kernel", "verify_split_kernel",
-                   "gemm_wgmma_kernel", "decode_attention_split_kernel"):
-        rows = build.ptxas_entries(lib.path, (family,))
-        if not rows:
-            fail(f"no kernel {family} in the build's ptxas report")
-        spilled = [r[0] for r in rows if r[2]]
-        print(f"ptxas {family}: {len(rows)} instances, {min(r[1] for r in rows)}-"
-              f"{max(r[1] for r in rows)} registers a thread, "
-              f"{sum(r[2] for r in rows)} bytes of spill stores"
-              + (f" (in {spilled})" if spilled else ""))
+    print_ptxas(("int8_gemv_partial", "int8_gemv_reduce", "dq_gemv_kernel",
+                 "attend_split_kernel", "dq_gemv4_kernel", "verify_split_kernel",
+                 "gemm_wgmma_kernel", "decode_attention_split_kernel"))
     results.append({
         "name": "fused_decode_step_batch", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
@@ -1031,71 +1028,145 @@ def vocoder_shapes(frames: int):
     return shapes
 
 
-def k2_vocode(torch, dev, g, aa, frames: int, checks=()):
+def k2_case(torch, dev, g, aa, c: int, t: int):
+    """One K2 shape: inputs from `g`, the kernel against its plain version
+    (K2_TOL) and against itself (two calls bit-equal); returns (inputs,
+    max_abs_err)."""
+    x = torch.randn(1, c, t, generator=g, device=dev)
+    alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
+    br = 1.0 / (torch.exp(0.3 * torch.randn(c, generator=g, device=dev)) + 1e-9)
+    y = aa.aa_snake_activation(x, alpha, br)
+    y2 = aa.aa_snake_activation(x, alpha, br)
+    torch.cuda.synchronize()
+    y_p = aa.aa_snake_plain(x, alpha, br)
+    err = max_err(torch, y, y_p)
+    tol = K2_TOL * max(1.0, float(y_p.abs().max()))
+    print(f"K2 C={c} T={t}: max_abs_err {err:.4g} (tol {tol:.4g})")
+    if not err <= tol:
+        fail(f"K2 aa_snake C={c} T={t} disagrees with the plain version")
+    if not torch.equal(y, y2):
+        fail(f"K2 aa_snake C={c} T={t}: two calls differ")
+    return (x, alpha, br), err
+
+
+# f32 FMA contraction vs separate multiply-add: a few ulp of the output
+# magnitude, times max(1, max|ref|)
+K2_TOL = 1e-5
+# K2's edge shapes (8 rows each): every T of 1-13, a tile boundary +- 1 at
+# 512, 1024 and 2048 samples and two tiles, and rows with T % 4 != 0
+K2_EDGE_T = list(range(1, 14)) + [511, 512, 513, 1023, 1025, 2047, 2048, 2049, 4095,
+                                  4096, 4097, 6146, 10001]
+
+
+def k2_vocode(torch, dev, g, aa, frames: int):
     """K2 at every activation shape of one vocode of `frames` mel frames
     (18 activations a stage of 3 resblocks x 3 dilations x 2, and one more
-    at the last stage's shape: 109), plus `checks` (C, T) shapes held but
-    not counted: each against its plain version, timed in a host loop and
-    device-only; the vocode's sums and bound."""
+    at the last stage's shape: 109): each against its plain version, two
+    calls bit-equal, timed in a host loop and device-only (printed a shape,
+    so the stage that sets the pace shows); the vocode's sums and bound."""
     shapes = vocoder_shapes(frames)
-    per_vocode = [18] * len(shapes) + [1] + [0] * len(checks)
+    per_vocode = [18] * len(shapes) + [1]
     tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
-    worst = 0.0
-    for (c, t), count in zip(shapes + [shapes[-1]] + list(checks), per_vocode):
-        x = torch.randn(1, c, t, generator=g, device=dev)
-        alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
-        br = 1.0 / (torch.exp(0.3 * torch.randn(c, generator=g, device=dev)) + 1e-9)
-        y = aa.aa_snake_activation(x, alpha, br)
-        torch.cuda.synchronize()
-        y_p = aa.aa_snake_plain(x, alpha, br)
-        err = max_err(torch, y, y_p)
-        # f32 FMA contraction vs separate multiply-add: a few ulp of the
-        # output magnitude
-        tol = 1e-5 * max(1.0, float(y_p.abs().max()))
-        print(f"K2 C={c} T={t}: max_abs_err {err:.4g} (tol {tol:.4g})")
-        if not err <= tol:
-            fail(f"K2 aa_snake C={c} T={t} disagrees with the plain version")
+    worst, by_shape = 0.0, []
+    for (c, t), count in zip(shapes + [shapes[-1]], per_vocode):
+        (x, alpha, br), err = k2_case(torch, dev, g, aa, c, t)
         worst = max(worst, err)
-        del y, y_p
-        if not count:
-            continue
         ms = cuda_time_ms(torch, lambda: aa.aa_snake_activation(x, alpha, br), 20)
         dev_ms = device_time_ms(torch, lambda: aa.aa_snake_activation(x, alpha, br), 20)
         plain_ms = cuda_time_ms(torch, lambda: aa.aa_snake_plain(x, alpha, br),
                                 20 if frames <= 448 else 2, warmup=1)
-        print(f"K2 C={c} T={t}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
-              f"{plain_ms:.4f} ms plain")
-        tot["ms"] += count * ms
-        tot["device_ms"] += count * dev_ms
-        tot["plain_ms"] += count * plain_ms
         # x read and y written in f32, alpha and beta read; per sample the
         # 12-tap upsampling (two outputs of 6 taps, 24), the snake of the two
         # (4 operations each) and the 12-tap downsampling (24): 56
-        tot["bytes"] += count * (2 * nbytes(x) + nbytes(alpha, br))
-        tot["ops"] += count * 56 * c * t
+        n_bytes, n_ops = 2 * nbytes(x) + nbytes(alpha, br), 56 * c * t
+        b = bound(n_bytes, n_ops, "f32")
+        print(f"K2 C={c} T={t}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only, "
+              f"x{count} a vocode), {plain_ms:.4f} ms plain, bound {b['bound_ms']:.4f} ms")
+        by_shape.append({"c": c, "t": t, "count": count, "device_ms": dev_ms,
+                         "bound_ms": b["bound_ms"]})
+        tot["ms"] += count * ms
+        tot["device_ms"] += count * dev_ms
+        tot["plain_ms"] += count * plain_ms
+        tot["bytes"] += count * n_bytes
+        tot["ops"] += count * n_ops
     b = bound(tot["bytes"], tot["ops"], "f32")
     print(f"K2 per vocode (109 activations, {frames} frames): {tot['ms']:.4f} ms kernel "
           f"({tot['device_ms']:.4f} device-only), {tot['plain_ms']:.4f} ms plain, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     return worst, {"frames": frames, "ms": tot["ms"], "device_ms": tot["device_ms"],
-                   "plain_ms": tot["plain_ms"], **b}
+                   "plain_ms": tot["plain_ms"], **b, "by_shape": by_shape}
+
+
+def print_ptxas(families) -> None:
+    """The ptxas registers and spills of every kernel whose symbol contains
+    one of `families`, from the build's report; fails where none is there."""
+    from voice_tts_tpu_torch.ops import build
+
+    lib = build.kernels()
+    for family in families:
+        rows = build.ptxas_entries(lib.path, (family,))
+        if not rows:
+            fail(f"no kernel {family} in the build's ptxas report")
+        spilled = [r[0] for r in rows if r[2]]
+        print(f"ptxas {family}: {len(rows)} instances, {min(r[1] for r in rows)}-"
+              f"{max(r[1] for r in rows)} registers a thread, "
+              f"{sum(r[2] for r in rows)} bytes of spill stores"
+              + (f" (in {spilled})" if spilled else ""))
+
+
+# the kernels' sin^2 against sin^2 in f64: a few f32 ulp of 1 (the accurate
+# sinf squared in f32 is within 1e-7)
+SIN2_TOL = 4e-7
+
+
+def check_sin2(torch, dev, g, sin2):
+    """The sine of K2 and K10's snake (`sin_mod_pi` in csrc/aa_math.cuh,
+    squared) against torch.sin in f64 on the same f32 arguments: 4M uniform
+    in |x| <= 1e4, a dense grid on [-8, 8] and the f32 neighbours of k pi / 2
+    for k up to 6000; beside it the error of torch.sin squared in f32."""
+    x = torch.cat([(torch.rand(4_000_000, generator=g, device=dev) * 2 - 1) * 1e4,
+                   torch.linspace(-8, 8, 1_000_001, device=dev)])
+    half_pi = torch.arange(-6000, 6001, device=dev, dtype=torch.float64) * (torch.pi / 2)
+    near = half_pi.float()
+    x = torch.cat([x, near, torch.nextafter(near, near + 1), torch.nextafter(near, near - 1)])
+    ref = torch.sin(x.double()) ** 2
+    err = float((sin2(x).double() - ref).abs().max())
+    lib_err = float((torch.sin(x) ** 2).double().sub(ref).abs().max())
+    print(f"K2 / K10 sin^2 over {x.numel()} arguments, |x| <= 1e4: max_abs_err {err:.3g} "
+          f"(tol {SIN2_TOL:.3g}; torch.sin squared in f32: {lib_err:.3g})")
+    if not err <= SIN2_TOL:
+        fail("the kernels' sin^2 disagrees with torch.sin in f64")
 
 
 def check_k2(torch, dev, results):
-    """K2 at the activations of a 448-frame vocode (~5 s, the bench slice's
-    256-code bucket; the entry's headline) and of a 2656-frame one (the
-    production slice's mel bucket, the server default's size), with (24, 7)
-    for a short signal."""
+    """K2 at its edge shapes (K2_EDGE_T), then at the activations of a
+    448-frame vocode (~5 s, the bench slice's 256-code bucket; the entry's
+    headline) and of a 2656-frame one (the production slice's mel bucket,
+    the server default's size); the kernel's plan a shape where the tree
+    has a planner; its ptxas registers and spills."""
     from voice_tts_tpu_torch.ops import aa_activation as aa
 
     g = torch.Generator(device=dev).manual_seed(3)
-    worst, bench = k2_vocode(torch, dev, g, aa, 448, checks=[(24, 7)])
+    sin2 = getattr(aa, "sin2_cuda", None)   # an older checkout has none
+    if sin2 is not None:
+        check_sin2(torch, dev, g, sin2)
+    worst = 0.0
+    for t in K2_EDGE_T:
+        worst = max(worst, k2_case(torch, dev, g, aa, 8, t)[1])
+    plan = getattr(aa, "plan_aa_snake", None)   # an older checkout has none
+    if plan is not None:
+        print("K2 plans (rows, T): " + json.dumps(
+            {f"{c}x{t}": plan(c, t)._asdict()
+             for c, t in sorted(set(vocoder_shapes(448) + vocoder_shapes(2656)
+                                    + [(8, t) for t in K2_EDGE_T[:4]]))}))
+    worst_b, bench = k2_vocode(torch, dev, g, aa, 448)
     worst_p, prod = k2_vocode(torch, dev, g, aa, 2656)
+    print_ptxas(("aa_snake",))
     results.append({
         "name": "aa_snake_activation", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/aa_snake.cu",
         "replaces": "voice_tts_tpu/ops/aa_activation.py:210",
-        "max_abs_err": max(worst, worst_p), "ms": bench["ms"],
+        "max_abs_err": max(worst, worst_b, worst_p), "ms": bench["ms"],
         "device_ms": bench["device_ms"], "plain_ms": bench["plain_ms"],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"], "library_ms": None,
         "ms_of": "the 109 activations of one 448-frame vocode",
@@ -1575,11 +1646,112 @@ def flagship_vocoder(torch, dev, seed: int):
     return voc
 
 
+def k10_plans(k10, cfg, frames_list) -> dict:
+    """`plan_fused_stage`'s plan of every (stage, k, d) launch of the fused
+    stages at `frames_list`, and at the kernel's largest halo, each checked
+    against the C launch's (`vtt_fused_stage_plan`); printed."""
+    import ctypes
+
+    from voice_tts_tpu_torch.ops import build
+
+    lib, plans = build.kernels().lib, {}
+    shapes = sorted({s for f in frames_list for s in vocoder_shapes(f)[2:]})
+    dils = sorted(set(cfg.resblock_dilation_sizes[0]) | {1})
+    cases = [(c, t, k, d) for c, t in shapes for k in cfg.resblock_kernel_sizes
+             for d in dils]
+    cases += [(c, 4096, k10.MAX_TAPS, k10.MAX_HALO // ((k10.MAX_TAPS - 1) // 2))
+              for c in (24, 192)] + [(c, 4096, 3, k10.MAX_HALO) for c in (24, 192)]
+    for c, t, k, d in cases:
+        plan = k10.plan_fused_stage(c, t, k, d)
+        got = (ctypes.c_int * len(plan))()
+        if lib.vtt_fused_stage_plan(c, t, k, d, got) != 0:
+            fail(f"vtt_fused_stage_plan refused C {c}, T {t}, k {k}, d {d}")
+        if tuple(got) != tuple(plan):
+            fail(f"K10 C {c} T {t} k {k} d {d}: the C launch plans {tuple(got)}, "
+                 f"plan_fused_stage {tuple(plan)}")
+        if plan.smem > 232448:
+            fail(f"K10 C {c} T {t} k {k} d {d}: {plan.smem} bytes of shared memory")
+        plans[f"C{c} T{t} k{k} d{d}"] = plan._asdict()
+    print("K10 plans: " + json.dumps(plans))
+    return plans
+
+
+# K10's measurement arms (`span`), each device-only: the prologue alone, the
+# MMA loop alone, the MMA loop without its weight stream, and the skeleton
+# (weight stream, barriers, epilogue and launches: no prologue, no MMA)
+K10_SPANS = ("prologue", "mma", "mma_no_weights", "skeleton")
+
+
+def k10_stages(torch, dev, g, k10, packs, dil, frames: int, sum_k: int, spans: bool):
+    """K10 at the four fused stages of a `frames`-frame vocode: against the
+    plain version (K10_TOL) and itself (two calls bit-equal), timed in a
+    host loop and device-only, the plain version timed, with both bounds;
+    with `spans`, each of K10_SPANS device-only."""
+    n_iter = len(dil)
+    iters, plain_iters = (5, 3) if frames <= 448 else (2, 1)
+    cases = []
+    for (c, t), (i, pack) in zip(vocoder_shapes(frames)[2:], sorted(packs.items())):
+        x = torch.randn(1, c, t, generator=g, device=dev) * 0.3
+        out = k10.fused_resblock_stage(x, pack, dil)
+        out2 = k10.fused_resblock_stage(x, pack, dil)
+        torch.cuda.synchronize()
+        ref = k10.fused_resblock_stage_plain(x, pack, dil)
+        err, scale = max_err(torch, out, ref), float(ref.abs().max())
+        tag = f"K10 {frames} frames, stage {i} C={c} T={t}"
+        print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol "
+              f"{K10_TOL * scale:.4g})")
+        if not torch.isfinite(out).all() or not err <= K10_TOL * scale:
+            fail(f"{tag} disagrees with the plain version")
+        if not torch.equal(out, out2):
+            fail(f"{tag}: two calls differ")
+        del out, out2, ref
+        run = lambda: k10.fused_resblock_stage(x, pack, dil)  # noqa: E731
+        ms = cuda_time_ms(torch, run, iters, warmup=1)
+        dev_ms = device_time_ms(torch, run, iters, warmup=1)
+        plain_ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage_plain(x, pack, dil),
+                                plain_iters, warmup=1)
+        # x read and the output written once, each block's own taps (2 n_iter
+        # convs of k_j x C x C) with their biases and snake values; 2
+        # operations a multiply-add of 2 C^2 T n_iter sum_j k_j: in f32 on
+        # the CUDA cores, or as three TF32 products on the tensor cores
+        n_bytes = 2 * nbytes(x) + 4 * (2 * n_iter * sum_k * c * c + 3 * pack.b.numel())
+        n_ops = 2 * c * c * t * 2 * n_iter * sum_k
+        b32, btf = bound(n_bytes, n_ops, "f32"), bound(n_bytes, 3 * n_ops, "tf32")
+        case = {"stage": i, "c": c, "t": t, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "max_abs_err": err, **btf,
+                "bound_f32_ms": b32["bound_ms"], "bound_f32_ops": n_ops}
+        if spans:
+            for span in K10_SPANS:
+                case[f"{span}_ms"] = device_time_ms(
+                    torch, lambda: k10.fused_resblock_stage_cuda(x, pack, dil, span=span),
+                    iters, warmup=1)
+        print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only"
+              + ("; alone: " + ", ".join(f"{sp} {case[sp + '_ms']:.4f}" for sp in K10_SPANS)
+                 if spans else "")
+              + f"), {plain_ms:.4f} ms plain, bound {btf['bound_ms']:.4f} ms (3 TF32 "
+              f"passes) / {b32['bound_ms']:.4f} ms (f32)")
+        cases.append(case)
+        del x
+    tf32 = bound(sum(c["bound_bytes"] for c in cases), sum(c["bound_ops"] for c in cases),
+                 "tf32")
+    f32 = bound(sum(c["bound_bytes"] for c in cases),
+                sum(c["bound_f32_ops"] for c in cases), "f32")
+    tot = {k: sum(c[k] for c in cases) for k in ("ms", "device_ms", "plain_ms")}
+    print(f"K10 per vocode ({frames} frames, the four fused stages): {tot['ms']:.4f} ms "
+          f"kernel ({tot['device_ms']:.4f} device-only), {tot['plain_ms']:.4f} ms plain, "
+          f"bound {tf32['bound_ms']:.4f} ms (3 TF32 passes) / {f32['bound_ms']:.4f} ms (f32)")
+    return {"frames": frames, **tot, "bound_ms": tf32["bound_ms"],
+            "bound_by": tf32["bound_by"], "bound_f32_ms": f32["bound_ms"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
+
+
 def check_k10(torch, dev, results):
     """K10 at the four fused stages of the flagship BigVGAN (C 192, 96, 48,
-    24 at 32, 64, 128, 256 samples a frame) for a 448-frame mel, f32, random
-    weights; the entry's times are the four summed (one vocode's fused
-    stages)."""
+    24 at 32, 64, 128, 256 samples a frame), f32, random weights, for a
+    448-frame mel (the entry's headline) and a 2656-frame one (the
+    production mel bucket); the entry's times are the four summed (one
+    vocode's fused stages).  Where the tree has the planner, its plans are
+    checked against C's and the prologue and MMA loop are timed apart."""
     from voice_tts_tpu_torch.ops import fused_vocoder as k10
 
     # the plain reference's convs in full f32, as the engine runs them
@@ -1587,49 +1759,30 @@ def check_k10(torch, dev, results):
     voc = flagship_vocoder(torch, dev, 13)
     cfg = voc.cfg
     packs = k10.pack_fused_stages(voc.state_dict(), cfg)
+    del voc
     dil = tuple(cfg.resblock_dilation_sizes[0])
     sum_k = sum(cfg.resblock_kernel_sizes)
-    n_iter = len(dil)
+    redesigned = hasattr(k10, "plan_fused_stage")   # an older checkout has no plan
+    if redesigned:
+        k10_plans(k10, cfg, (448, 2656))
     g = torch.Generator(device=dev).manual_seed(14)
     print(f"K10 tolerance: {K10_TOL} * max|ref| (f32 sums in another order); "
           f"fused stages {sorted(packs)}")
-    cases = []
-    for (c, t), (i, pack) in zip(vocoder_shapes(448)[2:], sorted(packs.items())):
-        x = torch.randn(1, c, t, generator=g, device=dev) * 0.3
-        out = k10.fused_resblock_stage(x, pack, dil)
-        torch.cuda.synchronize()
-        ref = k10.fused_resblock_stage_plain(x, pack, dil)
-        err, scale = max_err(torch, out, ref), float(ref.abs().max())
-        tag = f"K10 stage {i} C={c} T={t}"
-        print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g})")
-        if not torch.isfinite(out).all() or not err <= K10_TOL * scale:
-            fail(f"{tag} disagrees with the plain version")
-        ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage(x, pack, dil), 5, warmup=1)
-        dev_ms = device_time_ms(torch, lambda: k10.fused_resblock_stage(x, pack, dil), 5,
-                                warmup=1)
-        plain_ms = cuda_time_ms(torch, lambda: k10.fused_resblock_stage_plain(x, pack, dil),
-                                3, warmup=1)
-        # x read and the output written once, each block's own taps (2 n_iter
-        # convs of k_j x C x C) with their biases and snake values; 2
-        # operations a multiply-add of 2 C^2 T n_iter sum_j k_j
-        weights = 4 * (2 * n_iter * sum_k * c * c + 3 * pack.b.numel())
-        bnd = bound(2 * nbytes(x) + weights, 2 * c * c * t * 2 * n_iter * sum_k, "f32")
-        print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), {plain_ms:.4f} ms "
-              f"plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        cases.append({"stage": i, "c": c, "t": t, "ms": ms, "device_ms": dev_ms,
-                      "plain_ms": plain_ms, "max_abs_err": err, **bnd})
-    total = bound(sum(c["bound_bytes"] for c in cases), sum(c["bound_ops"] for c in cases),
-                  "f32")
+    bench = k10_stages(torch, dev, g, k10, packs, dil, 448, sum_k, redesigned)
+    prod = k10_stages(torch, dev, g, k10, packs, dil, 2656, sum_k, redesigned)
+    print_ptxas(("stage_pair",))
     results.append({
         "name": "fused_resblock_stage", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_vocoder.cu",
         "replaces": "voice_tts_tpu/ops/attic/fused_vocoder.py:192",
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": sum(c["ms"] for c in cases), "device_ms": sum(c["device_ms"] for c in cases),
-        "plain_ms": sum(c["plain_ms"] for c in cases),
-        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"], "library_ms": None,
-        "ms_of": "the four fused stages of one 448-frame vocode, summed", "cases": cases})
-    del voc, packs
+        "max_abs_err": max(bench["max_abs_err"], prod["max_abs_err"]),
+        "ms": bench["ms"], "device_ms": bench["device_ms"], "plain_ms": bench["plain_ms"],
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        "bound_f32_ms": bench["bound_f32_ms"], "library_ms": None,
+        "ms_of": "the four fused stages of one 448-frame vocode, summed; bound_ms: "
+                 "three TF32 tensor-core passes, bound_f32_ms: f32 on the CUDA cores",
+        "cases": bench["cases"], "production_vocode": prod})
+    del packs
 
 
 # ---------------------------------------------------------------------------
@@ -2639,9 +2792,10 @@ KERNEL_CHECKS = {"k2": check_k2, "k4": check_k4, "k1": check_k1, "k3": check_k3,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS),
+    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS) + ["vocoder"],
                     help="run only these kernel checks, in this order, and print "
-                         "their JSON (no slice runs, no result line)")
+                         "their JSON (no slice runs, no result line); `vocoder` runs "
+                         "the vocoder A/B on a flagship BigVGAN with random weights")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -2656,7 +2810,10 @@ def main():
     results = []
     if args.only:
         for name in args.only:
-            KERNEL_CHECKS[name](torch, dev, results)
+            if name == "vocoder":
+                vocoder_ab(torch, dev, flagship_vocoder(torch, dev, 13))
+            else:
+                KERNEL_CHECKS[name](torch, dev, results)
         print(card)
         print(json.dumps({"kernels": results}))
         return

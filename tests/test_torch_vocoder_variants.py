@@ -135,19 +135,85 @@ def test_packed_trees_match_jax(vocoders, variant):
 # K10
 # ---------------------------------------------------------------------------
 
-def test_k10_plain_matches_jax_kernel(vocoders):
+@pytest.fixture(scope="module")
+def jax_stage0(vocoders):
+    """The JAX kernel in interpret mode (tt 128, four chunks) at stage 0, C
+    16, T 512: one ~20 s call, shared by the tests held against it."""
+    _, params, _ = vocoders
+    x = signal(3, 16, 512)
+    ref = np.asarray(jfv.fused_resblock_stage(jnp.asarray(x), jfv.pack_stage(params, 0, JCFG),
+                                              DILATIONS, 11, tt=128, interpret=True))
+    return x, ref
+
+
+def test_k10_plain_matches_jax_kernel(vocoders, jax_stage0):
     """The plain K10 against the JAX kernel in interpret mode (tt 128, four
     chunks), C 16, T 512: both zero-pad the signal, so they agree at the
     edges too; f32 both, sums in another order (and over each block's own
     taps here, all 11 there): within 1e-4 of the largest magnitude."""
-    _, params, port = vocoders
-    x = signal(3, 16, 512)
-    ref = np.asarray(jfv.fused_resblock_stage(jnp.asarray(x), jfv.pack_stage(params, 0, JCFG),
-                                              DILATIONS, 11, tt=128, interpret=True))
+    _, _, port = vocoders
+    x, ref = jax_stage0
     out = k10.fused_resblock_stage(t(x), k10.pack_stage(port.state_dict(), 0, CFG), DILATIONS)
     assert out.shape == ref.shape and out.dtype == torch.float32
     err = np.abs(out.numpy() - ref).max()
     assert err <= 1e-4 * np.abs(ref).max(), err
+
+
+# the kernel's tolerance on the card (chip_smoke.py's K10_TOL), times max|ref|
+K10_TOL = 1e-4
+
+
+def assert_split_model(x, pack, dilations, ref):
+    """The kernel's arithmetic (`fused_resblock_stage_split_plain`: both
+    operands of every conv split into TF32 hi and lo, the three products
+    lo.hi + hi.lo + hi.hi in f32, lo.lo dropped) against `ref` (the JAX
+    kernel) and against the plain K10, within K10_TOL of max|ref|: the
+    chosen numerics keep the card's tolerance."""
+    split = k10.fused_resblock_stage_split_plain(t(x), pack, dilations).numpy()
+    plain = k10.fused_resblock_stage_plain(t(x), pack, dilations).numpy()
+    scale = float(np.abs(ref).max())
+    assert split.shape == ref.shape
+    assert np.abs(split - ref).max() <= K10_TOL * scale
+    assert np.abs(split - plain).max() <= K10_TOL * scale
+    # the split is not the plain arithmetic (TF32 rounding moves it) but
+    # stays far inside the tolerance
+    assert 0 < np.abs(split - plain).max() <= 0.1 * K10_TOL * scale
+
+
+def test_k10_split_model_matches_jax_kernel(vocoders, jax_stage0):
+    _, _, port = vocoders
+    x, ref = jax_stage0
+    assert_split_model(x, k10.pack_stage(port.state_dict(), 0, CFG), DILATIONS, ref)
+
+
+@pytest.fixture(scope="module")
+def tiny_vocoders():
+    """The tiny engine's BigVGAN (`TTSConfig.tiny().vocoder`: C 16 and 8 at
+    its two fused stages, one resblock of 3 taps at dilations 1 and 3) in
+    JAX, snake parameters + 0.05, and the port's with the same weights."""
+    from voice_tts_tpu.config import TTSConfig as JTTSConfig
+
+    jcfg, cfg = JTTSConfig.tiny().vocoder, tiny_config().vocoder
+    for f in ("num_mels", "upsample_rates", "upsample_initial_channel",
+              "resblock_kernel_sizes", "resblock_dilation_sizes"):
+        assert getattr(jcfg, f) == getattr(cfg, f), f
+    _, params = _init_model(jcfg)
+    params = jax.tree.map(np.asarray, params)
+    port = load_family(BigVGAN(cfg), convert("vocoder", params)).eval()
+    return jcfg, params, cfg, port
+
+
+@pytest.mark.parametrize("stage,c", [(0, 16), (1, 8)])
+def test_k10_split_model_at_tiny_vocoder_stages(tiny_vocoders, stage, c):
+    """The split model against the JAX kernel in interpret mode at each
+    fused stage of the tiny vocoder (T 384, three 128-sample chunks)."""
+    jcfg, params, cfg, port = tiny_vocoders
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    x = signal(9 + stage, c, 384)
+    ref = np.asarray(jfv.fused_resblock_stage(
+        jnp.asarray(x), jfv.pack_stage(params, stage, jcfg), dil,
+        max(cfg.resblock_kernel_sizes), tt=128, interpret=True))
+    assert_split_model(x, k10.pack_stage(port.state_dict(), stage, cfg), dil, ref)
 
 
 @pytest.mark.parametrize("stage,c", [(0, 16), (1, 8)])

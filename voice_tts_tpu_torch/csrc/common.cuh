@@ -70,6 +70,13 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(addr), "l"(gmem));
 }
+// The 4-byte form, zero-filling the destination where `valid` is false (the
+// source is then not read).
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

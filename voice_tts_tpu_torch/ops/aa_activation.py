@@ -17,13 +17,15 @@ Two implementations of the same function:
 - `aa_snake_plain`: PyTorch ops (CPU tensors, and the reference the kernel
   is checked against on the card);
 - the hand-written CUDA kernel `csrc/aa_snake.cu`, launched by
-  `aa_snake_activation` for every CUDA tensor.
+  `aa_snake_activation` for every CUDA tensor, with the launch parameters
+  of `plan_aa_snake`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -132,29 +134,63 @@ def aa_snake_zero_plain(x: torch.Tensor, alpha: torch.Tensor,
     return mac2(ze, _H_ODD, 1) + mac2(zo, _H_EVEN, 0)
 
 
+class AASnakePlan(NamedTuple):
+    """K2's launch: one block of `threads` a (row, tile of `tile` outputs)."""
+
+    tile: int      # outputs a block: 512, 1024 or 2048
+    threads: int   # tile / 8: two runs of 4 outputs a thread
+    tiles: int     # blocks along T
+    vec: bool      # 16-byte loads and stores (T % 4 == 0); else scalar
+    smem: int      # dynamic shared memory, bytes: x (tile + 16), two phases (tile + 8)
+
+
+def plan_aa_snake(rows: int, t: int) -> AASnakePlan:
+    """The launch for `rows` rows of `t` samples: the smallest tile of 512,
+    1024 or 2048 outputs that holds the row, else 2048 (8 outputs a
+    thread); 16-byte vectors where every row starts on a 16-byte boundary.
+    The C entry refuses any other tile."""
+    if rows < 1 or rows > 65535 or t < 1:
+        raise ValueError(f"aa_snake: unsupported shape (rows {rows}, T {t})")
+    tile = next((n for n in (512, 1024) if t <= n), 2048)
+    return AASnakePlan(tile, tile // 8, -(-t // tile), t % 4 == 0, 4 * (3 * tile + 32))
+
+
 def aa_snake_cuda(x: torch.Tensor, alpha: torch.Tensor,
                   beta_recip: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel (f32, contiguous, all on one CUDA device)."""
     if x.dim() != 3:
         raise ValueError(f"aa_snake: x must be (B, C, T), got {tuple(x.shape)}")
     b, c, t = x.shape
-    for name, tensor, shape in (("x", x, (b, c, t)), ("alpha", alpha, (c,)),
-                                ("beta_recip", beta_recip, (c,))):
-        if tensor.device != x.device or not tensor.is_cuda:
-            raise ValueError(f"aa_snake: {name} must be on {x.device}")
+    args = (("x", x, (b, c, t)), ("alpha", alpha, (c,)), ("beta_recip", beta_recip, (c,)))
+    for name, tensor, shape in args:
         if tensor.dtype != torch.float32:
             raise TypeError(f"aa_snake: {name} must be float32, got {tensor.dtype}")
         if tuple(tensor.shape) != shape or not tensor.is_contiguous():
             raise ValueError(f"aa_snake: {name} must be contiguous {shape}")
-    if t < 1 or b * c > 65535:
-        raise ValueError(f"aa_snake: unsupported shape {(b, c, t)}")
+    for name, tensor, _ in args:
+        if tensor.device != x.device or not tensor.is_cuda:
+            raise ValueError(f"aa_snake: {name} must be on a CUDA device, with x ({x.device})")
+    plan = plan_aa_snake(b * c, t)
     out = torch.empty_like(x)
+    vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = build.kernels()
     LAUNCHES["aa_snake_activation"] += 1
     lib.call("vtt_aa_snake", x.data_ptr(), alpha.data_ptr(),
-             beta_recip.data_ptr(), out.data_ptr(), b * c, c, t,
+             beta_recip.data_ptr(), out.data_ptr(), b * c, c, t, plan.tile, int(vec),
              TAPS_HOST.ctypes.data_as(ctypes.c_void_p),
              build.stream_handle(x.device))
+    return out
+
+
+def sin2_cuda(x: torch.Tensor) -> torch.Tensor:
+    """sin^2 of a CUDA f32 tensor as both kernels compute it (`sin_mod_pi`
+    in csrc/aa_math.cuh, squared): a check of its accuracy, off the
+    kernels' path."""
+    if x.dtype != torch.float32 or not x.is_contiguous() or not x.is_cuda or x.numel() < 1:
+        raise ValueError("sin2_cuda: x must be a non-empty contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    build.kernels().call("vtt_sin2", x.data_ptr(), out.data_ptr(), x.numel(),
+                         build.stream_handle(x.device))
     return out
 
 

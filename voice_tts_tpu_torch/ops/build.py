@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
-    "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "vtt_aa_snake": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "vtt_sin2": [_P, _P, _I, _P],
     "vtt_int8_gemv": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "vtt_dq_gemv": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
     "vtt_dq_gemv4": [_P] * 4 + [_I] * 2 + [_P, _I] + [_P] * 3 + [_I] * 5 + [_P],
@@ -43,7 +44,8 @@ _SIGNATURES = {
     "vtt_dit_block_chain": [_P] * 14 + [_I] * 6 + [_P],
     "vtt_dit_gemm_plan": [_I] * 3 + [_P] * 2,
     "vtt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P, _P, _P],
-    "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _P],
+    "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _I, _P],
+    "vtt_fused_stage_plan": [_I] * 4 + [_P],
     "vtt_micro_tile": [_P] * 4 + [_I] * 4 + [_P],
     "vtt_micro_int4": [_P] * 5 + [_I] * 4 + [_P],
 }
