@@ -53,10 +53,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 6. production slice: the flagship engine (random weights) in the serving
    profile, the server default, behind the HTTP server in a background
    thread: GET /health, GET /debug/worker-info, three POST /tts, then one
-   request under the CUDA profiler; the launch counters must show K3 once
-   per beam decode step, K1 never, K2 109 times per vocode;
+   request under the CUDA profiler; the beam decode and the CFM solve run
+   as replayed CUDA graphs (`engine/device_loop.py`), and the launch
+   counters must show K3 once per beam step its device loop executed
+   (chunks x CHUNK >= decode steps > chunks x CHUNK - decodes x CHUNK: at
+   most CHUNK - 1 steps after a stop), the loops' host reads one before
+   each decode's first chunk and one after each chunk, K1 never, K2 109
+   times per vocode; then one request with the loops op by op
+   (`DeviceLoops(capture=False)`) against the same request replayed, from
+   one generator state and an empty cap memory (the 511-code cap hit, the
+   1499 retry after `set_state`): every decode's codes, lengths, limit
+   flag, steps and chunks, the CFM mel and the WAV bit-equal;
 7. bench slice: the same with `--profile bench` (sampling, one beam): K1
-   once per decode step, K3 never, K2 109 times per vocode;
+   once per executed step, K3 never, K2 109 times per vocode, the replayed
+   request bit-equal to the uncaptured one;
 8. spec slice: the bench configuration with `spec_decode_k = 4` (int4
    drafts, one int8 verify a round), three POST /tts and one profiled: K6
    once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
@@ -66,8 +76,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    (`fused_blocks`) and K9 attention (`fused_attention`): a 2.5 s prompt
    twice (T 704: K8 once per velocity evaluation, 25 a request, no K9) and
    a 5 s prompt (T 896 > 768: K9 in every block, 325, no K8), K1 once per
-   decode step, K2 109 times per vocode, one more request profiled at each
-   T; prints the stage timers beside the bench slice's;
+   executed decode step, K2 109 times per vocode, one more request
+   profiled at each T; prints the stage timers beside the bench slice's;
+   then the CFM graph at T 704 against the uncaptured solve, with K8 and
+   without it (K9 in each block: one request captures, the next replays),
+   bit-equal;
 10. K11 engine: a second engine on the DiT slice's weights with
    `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
    K11 325 times, then one profiled (the profiles of the DiT slice and this
@@ -386,7 +399,9 @@ def compare_step(torch, tag, out, ref):
 
 def check_k1(torch, dev, results):
     """K1 at B = 1: the bf16 cache of the bench slice (pos 300, Tmax 512),
-    and the int8-KV branch at pos 300 / Tmax 512 and pos 1500 / Tmax 1792."""
+    and the int8-KV branch at pos 300 / Tmax 512 and pos 1500 / Tmax 1792;
+    each at a 0-d device position, as the device loop passes it (every
+    split of Tmax launched), timed, and bit-equal to the host int form."""
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
     print(f"decode-step tolerance (K1, K3): {DECODE_TOL} * max|ref|, because f32 "
@@ -405,11 +420,15 @@ def check_k1(torch, dev, results):
         bias[70:82] = -1e30                      # invalid prompt pads
         x = torch.randn(1, D, generator=g, device=dev) * 0.5
 
-        def run(fn):
-            return fn(x, pack, cache, bias, pos, H, ro, scales)
+        dpos = torch.tensor(pos, device=dev)
+
+        def run(fn, p=dpos):
+            return fn(x, pack, cache, bias, p, H, ro, scales)
         out = run(fd.fused_decode_step)
         torch.cuda.synchronize()
         tag = f"K1 {'int8' if int8_kv else 'bf16'}-KV pos={pos} Tmax={t_max}"
+        if not all(torch.equal(u, v) for u, v in zip(out, run(fd.fused_decode_step, pos))):
+            fail(f"{tag}: the device position's step differs from the host int's")
         worst = max(worst, compare_step(torch, tag, out, run(fd.fused_decode_step_plain)))
         ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_step), 20)
         dev_ms = device_time_ms(torch, lambda: run(fd.fused_decode_step), CHAIN_ITERS)
@@ -500,13 +519,23 @@ def check_k3(torch, dev, results):
 
     for name, b, int8_kv, table, pos, pad in plan:
         cache, scales, src, bias, x = k3_inputs(torch, dev, g, b, int8_kv, table, pos, pad)
-        run = step(x, cache, bias, pos, scales, src)
+        if name in ("a", "b"):
+            # the device loop's form: a 0-d position on the card, every
+            # split of Tmax launched; bit-equal to the host int's
+            dpos = torch.tensor(pos, device=dev)
+            host = step(x, cache, bias, pos, scales, src)(fd.fused_decode_step_batch)
+            run = step(x, cache, bias, dpos, scales, src)
+            if not all(torch.equal(u, v) for u, v in
+                       zip(run(fd.fused_decode_step_batch), host)):
+                fail(f"K3 ({name}): the device position's step differs from the host int's")
+        else:
+            run = step(x, cache, bias, pos, scales, src)
         out, again = run(fd.fused_decode_step_batch), run(fd.fused_decode_step_batch)
         torch.cuda.synchronize()
         tag = (f"K3 ({name}) B={b} {'int8' if int8_kv else 'bf16'}-KV "
                f"{'table' if table else 'no table'} pos="
                f"{pos if isinstance(pos, int) else pos.tolist()} Tmax={T_MAX} "
-               f"splits={fd.attend_splits(pos, T_MAX)}")
+               f"splits={fd.attend_splits(dpos if name in ('a', 'b') else pos, T_MAX)}")
         if not all(bool(torch.isfinite(t).all()) for t in out):
             fail(f"{tag}: non-finite output")
         if not all(torch.equal(u, v) for u, v in zip(out, again)):
@@ -2345,7 +2374,8 @@ def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
 
 def profile_request(torch, engine, prompt: bytes, text: str):
     """One more warm request under the CUDA profiler: device busy time
-    (sum of kernel times) against the host wall clock, top kernels, and the
+    (the union of the kernels' spans; their summed time beside it) against
+    the host wall clock, top kernels, and the
     DiT attention kernels' device time (K9 / K11, where the request ran
     them)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2356,11 +2386,16 @@ def profile_request(torch, engine, prompt: bytes, text: str):
         engine.infer(prompt, text)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from voice_tts_tpu_torch.scripts.decode_host_time import busy_seconds
+
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
+    # busy: the union of the kernels' spans (under programmatic dependent
+    # launch neighbours overlap, and the sum of their times overcounts)
+    busy = busy_seconds(prof)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     print("profile: " + json.dumps({
         "wall_s": wall, "device_busy_s": busy,
+        "kernel_sum_s": sum(e.self_device_time_total for e in events) / 1e6,
         "device_idle_share": 1.0 - busy / wall if wall else None,
         "metrics": engine.last_metrics,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
@@ -2436,6 +2471,113 @@ def serve_requests(torch, engine, profile: str, counters, prompts_s=(5.0, 5.0, 5
     return launches, steps, n_act, prompts[0], text, metrics, per_request
 
 
+def check_decode_launches(tag, got, metrics, kernel: str):
+    """The decode kernel `kernel` once a step its device loop executed: each
+    decode runs its chunks of CHUNK steps, at most CHUNK - 1 of them after
+    the stop, so executed = chunks x CHUNK >= decode steps > executed -
+    decodes x CHUNK (summed over the requests of `metrics`)."""
+    from voice_tts_tpu_torch.engine.device_loop import CHUNK
+
+    steps = sum(m["decode_steps"] for m in metrics)
+    chunks = sum(m["decode_chunks"] for m in metrics)
+    runs = sum(m["decode_runs"] for m in metrics)
+    executed = chunks * CHUNK
+    print(f"[{tag}] {kernel}: {got[kernel]} launches = {chunks} chunks x {CHUNK} "
+          f"steps (executed) over {runs} decodes of {steps} steps")
+    if steps == 0 or got[kernel] != executed or not executed >= steps > executed - runs * CHUNK:
+        fail(f"[{tag}] {kernel} was not launched once a step its device loop executed")
+
+
+def check_served_through_graphs(tag, engine, before: dict, metrics):
+    """The served requests' decodes and CFM solves replayed graphs, and the
+    decode read the host once before each decode's first chunk and once
+    after each chunk, nowhere else."""
+    stats = engine.loops.stats
+    chunks = sum(m["decode_chunks"] for m in metrics)
+    runs = sum(m["decode_runs"] for m in metrics)
+    delta = {k: stats[k] - before[k] for k in stats}
+    print(f"[{tag}] device loops over the served requests: {json.dumps(delta)}; "
+          f"{chunks} decode chunks in {runs} decodes; capture time a request "
+          f"{[round(m.get('capture_time', 0.0), 4) for m in metrics]} s; graphs "
+          f"{stats['graphs']}")
+    if delta["replays"] == 0 or delta["host_reads"] != chunks + runs:
+        fail(f"[{tag}] the decode did not run as replayed chunks with one host read "
+             "a chunk")
+
+
+def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs",),
+                            retry=False):
+    """The same request on `engine` with its loops op by op
+    (`DeviceLoops(capture=False)`) and then as its graphs, from the same
+    generator state (and, with `retry`, an empty cap memory, so that a beam
+    decode hits the bucket's cap and retries at the full cap after
+    `set_state`): every decode's codes, lengths, limit flag, steps and
+    chunks, the CFM mel and the WAV bit-equal.  Each name in `runs` is one
+    more graph request; the last must capture nothing (a replay)."""
+    import numpy as np
+    from voice_tts_tpu_torch.engine import engine as eng_mod
+    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
+
+    graphs = engine.loops
+    state, hint = engine.generator.get_state(), dict(engine._cap_hint)
+    names = ("uncaptured",) + tuple(runs)
+    recs = {}
+    for name in names:
+        rec = {"decodes": [], "mels": []}
+        originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode")}
+
+        def wrap(fn):
+            def recorded(*a, **kw):
+                res = fn(*a, **kw)
+                rec["decodes"].append(tuple(res))
+                return res
+            return recorded
+        for f, fn in originals.items():
+            setattr(eng_mod, f, wrap(fn))
+        s2mel = engine._s2mel
+
+        def s2mel_recorded(*a, **kw):
+            mel, target = s2mel(*a, **kw)
+            rec["mels"].append(mel.clone())
+            return mel, target
+        engine._s2mel = s2mel_recorded
+        engine.loops = graphs if name != "uncaptured" else DeviceLoops(dev, capture=False)
+        engine.generator.set_state(state)
+        engine._cap_hint = {} if retry else dict(hint)
+        before = dict(graphs.stats)
+        try:
+            t0 = time.perf_counter()
+            out = engine.infer(prompt, text)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for f, fn in originals.items():
+                setattr(eng_mod, f, fn)
+            del engine._s2mel
+            engine.loops = graphs
+        recs[name] = (rec, out, wall, {k: graphs.stats[k] - before[k] for k in before})
+    ref, ref_out = recs["uncaptured"][:2]
+    for name in runs:
+        rec, out, wall, delta = recs[name]
+        same = (len(rec["decodes"]) == len(ref["decodes"]) and all(
+            all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                for a, b in zip(d, r)) for d, r in zip(rec["decodes"], ref["decodes"]))
+            and len(rec["mels"]) == len(ref["mels"])
+            and all(torch.equal(a, b) for a, b in zip(rec["mels"], ref["mels"]))
+            and np.array_equal(out.wav, ref_out.wav))
+        print(f"[{tag}] {name} against uncaptured: decodes (steps, chunks) "
+              f"{[(d[3], d[4]) for d in rec['decodes']]} vs "
+              f"{[(d[3], d[4]) for d in ref['decodes']]}, {len(rec['mels'])} CFM mel(s), "
+              f"bit-equal {same}; wall {wall:.3f} s vs {recs['uncaptured'][2]:.3f}; "
+              f"loops {json.dumps(delta)}")
+        if not same:
+            fail(f"[{tag}] the graphs' request differs from the uncaptured one")
+    if recs[names[-1]][3]["graphs"] != 0 or recs[names[-1]][3]["replays"] == 0:
+        fail(f"[{tag}] the compared graph request did not replay its graphs")
+    engine._cap_hint = hint
+    return {name: recs[name][2] for name in names}
+
+
 def run_production_slice(torch, dev, counters):
     """The flagship engine in the production profile (the server default):
     beam-3 through K3 with the ancestor table, int8 KV."""
@@ -2448,10 +2590,11 @@ def run_production_slice(torch, dev, counters):
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
-    launches, steps, n_act, prompt, text, _, _ = serve_requests(torch, engine, "serving",
-                                                                counters)
-    if launches["fused_decode_step_batch"] != steps or steps == 0:
-        fail("K3 was not launched once per beam decode step")
+    before = dict(engine.loops.stats)
+    launches, steps, n_act, prompt, text, metrics, _ = serve_requests(
+        torch, engine, "serving", counters)
+    check_decode_launches("serving", launches, metrics, "fused_decode_step_batch")
+    check_served_through_graphs("serving", engine, before, metrics)
     if launches["fused_decode_step"] != 0:
         fail("K1 was launched on the beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
@@ -2459,6 +2602,8 @@ def run_production_slice(torch, dev, counters):
     profile_request(torch, engine, prompt, text)
     print(f"[serving] peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # beam-3 int8 KV with the cap retry (511, then 1499 after set_state)
+    compare_with_uncaptured(torch, dev, engine, "serving", prompt, text, retry=True)
     return launches, engine.vocoder
 
 
@@ -2472,10 +2617,12 @@ def run_bench_slice(torch, dev, counters):
     torch.cuda.synchronize()
     print(f"[bench] engine build: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches, steps, n_act, _, _, metrics, _ = serve_requests(torch, engine, "bench",
-                                                              counters)
-    if launches["fused_decode_step"] != steps or steps == 0:
-        fail("K1 was not launched once per decode step")
+    before = dict(engine.loops.stats)
+    launches, steps, n_act, prompt, text, metrics, _ = serve_requests(
+        torch, engine, "bench", counters)
+    check_decode_launches("bench", launches, metrics, "fused_decode_step")
+    check_served_through_graphs("bench", engine, before, metrics)
+    compare_with_uncaptured(torch, dev, engine, "bench", prompt, text)
     if launches["fused_decode_step_batch"] != 0:
         fail("K3 was launched on the one-beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
@@ -2575,8 +2722,7 @@ def run_dit_slice(torch, dev, counters, bench_metrics):
               f"{got['aa_snake_activation']}")
         if (k8, k9) != want:
             fail(f"[dit] request #{i}: K8 / K9 launches {(k8, k9)}, want {want}")
-        if got["fused_decode_step"] != m["decode_steps"] or m["decode_steps"] == 0:
-            fail(f"[dit] request #{i}: K1 was not launched once per decode step")
+        check_decode_launches(f"dit #{i}", got, [m], "fused_decode_step")
         if got["aa_snake_activation"] != n_act or got["flash_attention"] != 0:
             fail(f"[dit] request #{i}: K2 not once per activation, or K11 launched")
     keys = ("s2mel_time", "gpt_gen_time", "gpt_forward_time", "bigvgan_time", "rtf")
@@ -2588,6 +2734,15 @@ def run_dit_slice(torch, dev, counters, bench_metrics):
     profile_request(torch, engine, prompt, text)
     print("[dit] profiled request at T 896 (K9):")
     profile_request(torch, engine, prompt_t896, text)
+    # the CFM graph at T 704 with K8, then without it (K9 in every block:
+    # its first graph request captures, the second replays)
+    compare_with_uncaptured(torch, dev, engine, "dit K8", prompt, text)
+    dit_pack, engine.dit_pack = engine.dit_pack, None
+    try:
+        compare_with_uncaptured(torch, dev, engine, "dit without K8", prompt, text,
+                                runs=("graphs (capture)", "graphs"))
+    finally:
+        engine.dit_pack = dit_pack
     return launches, engine
 
 

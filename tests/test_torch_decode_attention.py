@@ -17,6 +17,7 @@ import torch
 
 from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.config import TTSConfig as PortTTSConfig
+from voice_tts_tpu_torch.engine.device_loop import CHUNK
 from voice_tts_tpu_torch.engine.engine import TTSEngine
 from voice_tts_tpu_torch.models.gpt import beam as pbeam
 from voice_tts_tpu_torch.models.gpt import decode as pdecode
@@ -223,7 +224,9 @@ def test_gating_counts(tiny_gpt, monkeypatch):
     """The int8 runtime copy with the flag and a fused pack, folded readout
     and int8 KV passed, as the engine passes them: no fused step runs, K5
     runs once per layer and step over a float cache, and each of a layer's
-    four projections is one K4 product a step."""
+    four projections is one K4 product a step; without the flag the fused
+    step runs once a step its device loop executes (CHUNK a chunk, at most
+    CHUNK - 1 of them after the stop)."""
     _, _, int8, state, inputs = tiny_gpt
     layers = TINY.layers
     k5_calls = counting(monkeypatch, k5, "decode_attention_plain")
@@ -241,7 +244,9 @@ def test_gating_counts(tiny_gpt, monkeypatch):
     k5_calls.clear()
     res = port_decode(int8[False], inputs, 12, fused_pack=pack_gpt(state, layers),
                       readout_pack=pack_readout(state))
-    assert len(fused_calls) == res.steps and not k5_calls
+    executed = res.chunks * CHUNK
+    assert len(fused_calls) == executed and not k5_calls
+    assert executed >= res.steps > executed - CHUNK
 
 
 def test_spec_decode_ignores_flag(tiny_gpt, monkeypatch):

@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from voice_tts_tpu_torch.engine import device_loop
 from voice_tts_tpu_torch.engine.engine import tiny_config
 from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
 from voice_tts_tpu_torch.ops import decode_attention, dit_blocks
@@ -24,17 +25,24 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("profile", ["production", "bench"])
 def test_tiny_profile_times_each_chain_call(profile, capsys):
     """A cold and a warm request: each row counts one chain call a decode
-    step (K3 a beam step, K1 a step) with a positive host time, prints as
-    one JSON line, and the decode loop gets its own function back."""
+    step its device loop executes (K3 a beam step, K1 a step; on the CPU
+    every chunk runs its CHUNK steps op by op) with a positive host time,
+    one host read before each decode's first chunk and one after each
+    chunk, prints as one JSON line, and the decode loop gets its own
+    functions back."""
     module, name = script.CHAINS[profile]
-    before = getattr(module, name)
+    before = getattr(module, name), device_loop.read_flag
     rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
                         "--profiles", profile])
-    assert getattr(module, name) is before
+    assert (getattr(module, name), device_loop.read_flag) == before
     assert [(r["request"], r["cold"]) for r in rows] == [(0, True), (1, False)]
     for r in rows:
-        assert r["profile"] == profile
-        assert r["decode_steps"] > 0 and r["chain_calls"] == r["decode_steps"]
+        assert r["profile"] == profile and r["chunk"] == device_loop.CHUNK
+        executed = r["decode_chunks"] * device_loop.CHUNK
+        assert r["decode_steps"] > 0 and r["chain_calls"] == executed
+        assert executed >= r["decode_steps"] > executed - r["decode_runs"] * device_loop.CHUNK
+        assert r["host_reads"] == r["decode_chunks"] + r["decode_runs"]
+        assert r["replay_calls"] == 0
         assert 0 < r["chain_host_ms_median"] and 0 < r["chain_host_ms_mean"]
         assert r["step_ms"] == pytest.approx(1e3 * r["gpt_gen_time"] / r["decode_steps"])
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()

@@ -16,6 +16,14 @@ buckets and padded shapes.  The decode is either
   `spec_decode_k >= 2` the self-speculative decode instead (int4 drafts
   through K1, one int8 verify pass through K6 a round).
 
+On a CUDA device the decode loops of the K1 and K3 arms and the CFM solve
+run as the JAX package runs them, on the device (`engine/device_loop.py`):
+the decode a chunk of CHUNK steps at a time, each chunk a replay of a CUDA
+graph captured once per shape key (one host read a chunk), and the 25 Euler
+steps one graph a request.  The graphs and their static buffers belong to
+the engine (`self.loops`); a key's first request captures them.  The spec
+decode and the unfused arms keep their host loops.
+
 New speakers run the conditioning path (resample, seamless features,
 w2v-bert, RepCodec, kaldi fbank + CAMPPlus, mel, regulator,
 conformer-perceiver), cached by prompt content hash; with
@@ -70,7 +78,7 @@ from voice_tts_tpu_torch.audio import (KaldiFbank, MelSpectrogram, Resampler,
                                        SeamlessFeatures, encode_wav_int16,
                                        load_prompt_audio)
 from voice_tts_tpu_torch.config import GenerationConfig, TTSConfig
-from voice_tts_tpu_torch.engine import post
+from voice_tts_tpu_torch.engine import device_loop, post
 from voice_tts_tpu_torch.logging import logger
 from voice_tts_tpu_torch.models.conditioning.campplus import CAMPPlus
 from voice_tts_tpu_torch.models.conditioning.repcodec import (RepCodec,
@@ -354,6 +362,9 @@ class TTSEngine:
         self._cap_hint: Dict[int, int] = {}
         self._gen_cache: Dict[tuple, object] = {}
         self.generator = torch.Generator(device=dev).manual_seed(e.seed)
+        # the captured device loops (decode chunks, CFM solve) on the card
+        self.loops = device_loop.DeviceLoops(dev) if dev.type == "cuda" else None
+        self._step_tables: Dict[bool, dict] = {}
         self.last_metrics: Dict[str, float] = {}
 
     @staticmethod
@@ -612,9 +623,12 @@ class TTSEngine:
         timers = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0,
                   "s2mel_time": 0.0, "bigvgan_time": 0.0,
                   "prepare_time": time.perf_counter() - start,
-                  "decode_steps": 0}
+                  "decode_steps": 0, "decode_runs": 0, "decode_chunks": 0}
+        captured = self.loops.stats["capture_s"] if self.loops is not None else 0.0
         wavs = [self._synthesize_segment(seg, spk, emovec, timers, gen)
                 for seg in segments]
+        if self.loops is not None:
+            timers["capture_time"] = self.loops.stats["capture_s"] - captured
         full = post.insert_interval_silence(wavs, cfg.engine.sample_rate,
                                             interval_silence)
         total = time.perf_counter() - start
@@ -639,6 +653,14 @@ class TTSEngine:
     def _draw_noise(self, shape) -> torch.Tensor:
         """CFM initial noise (tests replace this to share the JAX noise)."""
         return torch.randn(shape, generator=self.generator, device=self.device)
+
+    @staticmethod
+    def _count_decode(timers: dict, res) -> None:
+        """A decode's steps, and its device loop's chunks (each runs CHUNK
+        steps: at most CHUNK - 1 of them after the stop)."""
+        timers["decode_steps"] += res.steps
+        timers["decode_runs"] += 1
+        timers["decode_chunks"] += getattr(res, "chunks", 0)
 
     def _decode_cap(self, bucket: int, gen) -> int:
         """Decode-length cap for a text bucket on the beam path: the bucket's
@@ -671,8 +693,9 @@ class TTSEngine:
             res = beam_decode(self.gpt_rt, gen, spk["cond_latents"], emovec, text,
                               text_lens, max_new, self.generator,
                               fused_pack=self._beam_fused_pack(),
-                              int8_kv=e.use_int8_kv, readout_pack=self.readout_pack)
-            timers["decode_steps"] += res.steps
+                              int8_kv=e.use_int8_kv, readout_pack=self.readout_pack,
+                              loops=self.loops)
+            self._count_decode(timers, res)
             return res, bool(res.hit_limit[0])
 
         cap = self._decode_cap(bucket, gen)
@@ -726,8 +749,8 @@ class TTSEngine:
                 res = gpt_decode(self.gpt_rt, gen, spk["cond_latents"], emovec,
                                  text, text_lens, max_new, self.generator,
                                  self.fused_pack, self.readout_pack,
-                                 int8_kv=e.use_int8_kv)
-            timers["decode_steps"] += res.steps
+                                 int8_kv=e.use_int8_kv, loops=self.loops)
+            self._count_decode(timers, res)
             if bool(res.hit_limit[0]) and cbucket < full_cbucket:
                 self._observe_code_len(bucket, [cbucket], [True], cbucket, gen)
                 cbucket = full_cbucket
@@ -821,10 +844,26 @@ class TTSEngine:
         return (self.dit_pack is not None and batch == 1
                 and total_max <= FUSED_DIT_MAX_FRAMES)
 
+    def _cfm_tables(self, fused: bool) -> dict:
+        """The DiT's tables of the Euler schedule (`step_tables`, and with
+        the K8 trunk its packed adaRMS rows), made once: they depend on the
+        weights and the step count only."""
+        if fused not in self._step_tables:
+            n_steps = self.cfg.engine.diffusion_steps
+            est = self.s2mel_rt.estimator
+            t_mids = torch.linspace(0.0, 1.0, n_steps + 1, device=self.device)[:n_steps]
+            tables = est.step_tables(t_mids)
+            if fused:
+                tables["fused_wb"] = pack_dit_tables(est, tables)
+            self._step_tables[fused] = tables
+        return self._step_tables[fused]
+
     def _s2mel(self, latent, codes, code_len, prompt_condition, prompt_len,
                ref_mel, style, mel_bucket: int):
         """Length regulator + CFM solve; returns (mel (B, 80, mel_bucket)
-        with frames past target_len zeroed, target_len)."""
+        with frames past target_len zeroed, target_len).  The solve's inputs
+        go into the key's static inputs and its 25 steps replay as one graph
+        on the card (`device_loop.run_once`)."""
         e = self.cfg.engine
         s2 = self.s2mel_rt
         latent2 = s2.gpt_layer(latent)
@@ -837,23 +876,27 @@ class TTSEngine:
                                             target_len, total_max)
         prompt_x = place_prompt_mel(ref_mel, prompt_len, total_max)
         n_steps = e.diffusion_steps
-        est = s2.estimator
-        t_mids = torch.linspace(0.0, 1.0, n_steps + 1, device=self.device)[:n_steps]
-        tables = est.step_tables(t_mids)
-        fused_w = None
-        if self.use_fused_dit(cat.shape[0], total_max):
-            fused_w = self.dit_pack
-            tables["fused_wb"] = pack_dit_tables(est, tables)
+        fused = self.use_fused_dit(cat.shape[0], total_max)
+        fused_w = self.dit_pack if fused else None
+        tables = self._cfm_tables(fused)
         # compute dtype follows the runtime module; the CFM state stays f32
         dt = self._float_dtype(s2)
 
         def velocity(x, p, lens, t, s, mu, tab):
             return s2.velocity(x.to(dt), p.to(dt), lens, t, s.to(dt), mu.to(dt),
                                tables=tab, fused_w=fused_w).float()
-        noise = self._draw_noise((cat.shape[0], prompt_x.shape[1], total_max))
-        mel = cfm_inference(velocity, cat, total_len, prompt_x, prompt_len, style,
-                            n_steps, e.inference_cfg_rate, noise=noise,
-                            tables=lambda i: DiT.table_step(tables, i))
+
+        def solve(a):
+            return cfm_inference(velocity, a["cat"], a["total_len"], a["prompt_x"],
+                                 a["prompt_len"], a["style"], n_steps,
+                                 e.inference_cfg_rate, noise=a["noise"],
+                                 tables=lambda i: DiT.table_step(tables, i))
+        inputs = {"cat": cat, "total_len": total_len, "prompt_x": prompt_x,
+                  "prompt_len": prompt_len, "style": style,
+                  "noise": self._draw_noise((cat.shape[0], prompt_x.shape[1], total_max))}
+        key = ("cfm", fused, n_steps, e.inference_cfg_rate,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        mel = device_loop.run_once(inputs, solve, self.loops, key)
         gen = slice_generated(mel, prompt_len, mel_bucket)
         frame = torch.arange(mel_bucket, device=self.device)
         # frames past target_len still hold CFM noise; zero them so the

@@ -28,13 +28,18 @@ Two arms, chosen as in the JAX package:
 - the K3 arm (a fused pack and K <= 4): each step is one
   `ops.fused_decode.fused_decode_step_batch` over the K beams, which read
   their histories through a (K, Tmax) ancestor table instead of a reordered
-  cache, with an optional int8 KV cache and the folded readout;
+  cache, with an optional int8 KV cache and the folded readout.  It runs as
+  the JAX `while_loop` does, on the device (`engine.device_loop`): the
+  `_BeamState`, the position and the `done` test stay there, the steps run
+  a chunk at a time (one CUDA graph a chunk on the card), and a step after
+  `done` or past `max_new` leaves the state and the cache as they were;
 - the eager arm (no pack, K > 4, or `GPTConfig.pallas_decode_attention`):
   `UnifiedVoice.decode_step` over a cache that is physically reordered
   after every step.  It is the plain reference of the K3 arm
   (`ancestor_table=False` gives the K3 step the same physical reorder, for
   tests).  With `pallas_decode_attention` its cache is float, padded to a
-  multiple of 512, and each layer attends through K5.
+  multiple of 512, and each layer attends through K5.  Both keep a host
+  loop, one host read of `done` a step.
 
 Left out here: typical sampling (raises), and `beam_decode_fused_batch`
 (R requests x K beams), which waits for the batched engine.
@@ -42,13 +47,16 @@ Left out here: typical sampling (raises), and `beam_decode_fused_batch`
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from voice_tts_tpu_torch.config import GenerationConfig
+from voice_tts_tpu_torch.engine import device_loop
+from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
-                                                   apply_repetition_penalty)
+                                                   apply_repetition_penalty,
+                                                   generation_key)
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
@@ -63,6 +71,22 @@ NEG = -1e9
 
 # uniform(shape) -> f32 values in [1e-20, 1) for the Gumbel draw
 Uniform = Callable[[tuple], torch.Tensor]
+
+
+class _BeamState(NamedTuple):
+    """The beam loop's state on the device (JAX `_BeamState`; the cache and
+    its scales are updated in place beside it, and the generator stands for
+    the key)."""
+    step: torch.Tensor             # () int64: beam steps taken
+    tokens: torch.Tensor           # (K, max_new) generated so far (reordered)
+    beam_scores: torch.Tensor      # (K,)
+    src: Optional[torch.Tensor]    # (K, Tmax) int32 ancestor table (K3 arm)
+    presence: torch.Tensor         # (K, V)
+    last_tokens: torch.Tensor      # (K,) fed into the next step
+    pool_scores: torch.Tensor      # (K,)
+    pool_seqs: torch.Tensor        # (K, max_new)
+    pool_lens: torch.Tensor        # (K,)
+    done: torch.Tensor             # () bool
 
 
 def topk_first(x: torch.Tensor, k: int):
@@ -142,18 +166,19 @@ def _candidates(logits, presence, beam_scores, uniform: Optional[Uniform],
     return cand_scores, beams, top_idx[beams, idx % nk]
 
 
-def _scorer_step(step: int, done, pool_scores_in, pool_seqs_in, pool_lens_in,
+def _scorer_step(step, done, pool_scores_in, pool_seqs_in, pool_lens_in,
                  tokens_in, cand_scores, cand_beams, cand_tokens,
                  gen: GenerationConfig, k: int, eos: int):
-    """BeamSearchScorer.process over 2K sorted candidates.  Returns (pool
-    scores, seqs, lens, next scores, beams, tokens, done)."""
+    """BeamSearchScorer.process over 2K sorted candidates; `step` a host int
+    or a 0-d tensor on the device.  Returns (pool scores, seqs, lens, next
+    scores, beams, tokens, done)."""
     dev = cand_scores.device
     is_eos = cand_tokens == eos
     ranks = torch.arange(2 * k, device=dev)
     gen_len = step                       # tokens generated before this one
     add = is_eos & (ranks < k) & ~done
     hyp_scores = _length_penalize(cand_scores, gen_len + 1, gen.length_penalty)
-    cand_pool = torch.where(add, hyp_scores, torch.tensor(4 * NEG, device=dev))
+    cand_pool = torch.where(add, hyp_scores, 4 * NEG)
     top_scores, top_idx = topk_first(torch.cat([pool_scores_in, cand_pool]), k)
     # old pool entries keep their seq / len; new ones take the parent beam's
     # tokens and the current generated length
@@ -162,8 +187,7 @@ def _scorer_step(step: int, done, pool_scores_in, pool_seqs_in, pool_lens_in,
     pool_idx = torch.clamp(top_idx, 0, k - 1)
     pool_seqs = torch.where(from_pool[:, None], pool_seqs_in[pool_idx],
                             tokens_in[cand_beams[cand_sel]])
-    pool_lens = torch.where(from_pool, pool_lens_in[pool_idx],
-                            torch.full_like(pool_lens_in, gen_len))
+    pool_lens = torch.where(from_pool, pool_lens_in[pool_idx], gen_len)
     # next beams: the first K non-stop candidates in order
     sel = torch.argsort(is_eos.long() * (4 * k) + ranks, stable=True)[:k]
     pool_full = torch.all(top_scores > NEG / 2)
@@ -174,8 +198,29 @@ def _scorer_step(step: int, done, pool_scores_in, pool_seqs_in, pool_lens_in,
             cand_beams[sel], cand_tokens[sel], done)
 
 
+def _make_step(s: _BeamState, logits, uniform: Uniform, gen: GenerationConfig,
+               k: int, vocab: int, eos: int, p: int, max_new: int):
+    """JAX `make_step`: the candidates, the scorer, then the next beams'
+    tokens and presence and, with an ancestor table, the table (this step's
+    position is each row's own, then every row inherits its parent's
+    history).  Returns (the next state, the parent of each next beam)."""
+    cand = _candidates(logits, s.presence, s.beam_scores, uniform, gen, k, vocab)
+    (pool_scores, pool_seqs, pool_lens, beam_scores, parents, last_tokens,
+     done) = _scorer_step(s.step, s.done, s.pool_scores, s.pool_seqs, s.pool_lens,
+                          s.tokens, *cand, gen, k, eos)
+    col = s.step.clamp(max=max_new - 1).reshape(1)     # step < max_new while active
+    tokens = s.tokens[parents].index_copy(1, col, last_tokens[:, None])
+    presence = s.presence[parents].scatter(1, last_tokens[:, None], True)
+    src = s.src
+    if src is not None:
+        own = torch.arange(k, dtype=src.dtype, device=src.device)[:, None]
+        src = src.index_copy(1, (p + s.step).reshape(1), own)[parents]
+    return _BeamState(s.step + 1, tokens, beam_scores, src, presence, last_tokens,
+                      pool_scores, pool_seqs, pool_lens, done), parents
+
+
 def _finalize_pool(pool_scores, pool_seqs, pool_lens, beam_scores, tokens,
-                   step: int, done, gen: GenerationConfig, k: int):
+                   step, done, gen: GenerationConfig, k: int):
     """Running beams enter the pool when the length limit ran out."""
     ran_out = ~done
     for c in range(k):
@@ -201,7 +246,9 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
                 int8_kv: bool = False,
                 readout_pack: Optional[ReadoutPack] = None,
                 uniform: Optional[Uniform] = None,
-                ancestor_table: bool = True) -> DecodeResult:
+                ancestor_table: bool = True,
+                loops: Optional[DeviceLoops] = None,
+                chunk: Optional[int] = None) -> DecodeResult:
     """Beam search / sampling for one request (1 x K beams).
 
     Returns the best hypothesis as a (1, max_new) DecodeResult (`lengths`
@@ -209,8 +256,12 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     `steps` the decode steps after the prefill).  With `fused_pack` and
     K <= 4 every step runs K3 over the K beams, reading history through the
     ancestor table (`int8_kv`: an int8 cache with per-(beam, position)
-    scales); otherwise, and always under `cfg.pallas_decode_attention`, the
-    eager step with a physical cache reorder.
+    scales), as a device loop of `chunk` (default CHUNK) steps a chunk: on a
+    CUDA device a replay of a graph of `loops` (the engine's; one of this
+    call's own when None), or op by op with `DeviceLoops(..., capture=False)`.
+    Otherwise, and always under `cfg.pallas_decode_attention`, the eager
+    step with a physical cache reorder in a host loop (`ancestor_table=False`
+    gives the K3 step that reorder and loop too).
     `uniform` replaces the Gumbel draw's uniforms (default: `generator`)."""
     cfg = model.cfg
     k = gen.num_beams
@@ -229,6 +280,7 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     eos = cfg.stop_mel_token
+    injected = uniform is not None
     if uniform is None:
         def uniform(shape):
             return torch.clamp(torch.rand(shape, generator=generator, device=dev),
@@ -245,7 +297,7 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
         cache1 = model.gpt.init_cache(1, t_max, prompt.dtype, dev)
         logits = model.prefill(prompt, valid_p, cache1).expand(k, vocab)
         cache = cache1.expand(-1, -1, k, -1, -1, -1).contiguous()
-        scales = src = None
+        scales = src = attn_bias = None
         if use_fused:
             cache = cache_to_time_major(cache)             # (L, 2, K, Tmax, D)
             attn_bias = torch.where(valid_k, 0.0, -1e30).float()
@@ -256,63 +308,81 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
                 # starts pointing at its own copy
                 src = torch.arange(k, dtype=torch.int32, device=dev)[:, None].repeat(1, t_max)
 
-        own = torch.arange(k, device=dev)
         presence = torch.zeros((k, vocab), dtype=torch.bool, device=dev)
         presence[:, 1] = True
         presence[:, cfg.start_mel_token] = True
         beam_scores = torch.full((k,), NEG, dtype=torch.float32, device=dev)
         beam_scores[0] = 0.0
-        tokens = torch.zeros((k, max_new), dtype=torch.long, device=dev)
-        pool_scores = torch.full((k,), 2 * NEG, dtype=torch.float32, device=dev)
-        pool_seqs = torch.full((k, max_new), eos, dtype=torch.long, device=dev)
-        pool_lens = torch.zeros((k,), dtype=torch.long, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        step = 0
-        while True:
-            cand = _candidates(logits, presence, beam_scores, uniform, gen, k, vocab)
-            (pool_scores, pool_seqs, pool_lens, beam_scores, next_beams,
-             last_tokens, done) = _scorer_step(step, done, pool_scores, pool_seqs,
-                                               pool_lens, tokens, *cand, gen, k, eos)
-            tokens = tokens[next_beams]
-            tokens[:, step] = last_tokens
-            presence = presence[next_beams]
-            presence[own, last_tokens] = True
-            if src is not None:
-                # this step's position is each row's own; then every row
-                # inherits its parent's history (no cache movement)
-                src[:, p + step] = own.to(torch.int32)
-                src = src[next_beams]
-            elif use_fused:
-                cache = cache.index_select(2, next_beams)
-                if int8_kv:
-                    scales = scales.index_select(1, next_beams)
+        s = _BeamState(
+            torch.zeros((), dtype=torch.long, device=dev),
+            torch.zeros((k, max_new), dtype=torch.long, device=dev), beam_scores, src,
+            presence, torch.zeros((k,), dtype=torch.long, device=dev),
+            torch.full((k,), 2 * NEG, dtype=torch.float32, device=dev),
+            torch.full((k, max_new), eos, dtype=torch.long, device=dev),
+            torch.zeros((k,), dtype=torch.long, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+        s, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p, max_new)
+
+        def k3_step(s, pos, cache, scales, active=None):
+            """One K3 step at `pos` over the K beams; writes the new rows."""
+            emb = model.embed_decode_token(s.last_tokens, s.step - 1)
+            hidden, kv_new, logits_pad = fused_decode_step_batch(
+                emb, fused_pack, cache, attn_bias, pos, cfg.heads,
+                kv_scales=scales, beam_src=s.src, readout_pack=readout_pack)
+            if int8_kv:
+                apply_kv_update_q_batch(cache, scales, kv_new, pos, active)
             else:
-                cache = cache.index_select(2, next_beams)
-            step += 1
-            if step >= max_new or bool(done):
-                break
-            if use_fused:
-                emb = model.embed_decode_token(last_tokens, step - 1)
-                hidden, kv_new, logits_pad = fused_decode_step_batch(
-                    emb, fused_pack, cache, attn_bias, p + step, cfg.heads,
-                    kv_scales=scales, beam_src=src, readout_pack=readout_pack)
-                logits = (logits_pad[:, :vocab] if readout_pack is not None
-                          else model.readout(hidden))
-                if int8_kv:
-                    apply_kv_update_q_batch(cache, scales, kv_new, p + step)
+                apply_kv_update_batch(cache, kv_new, pos, active)
+            return (logits_pad[:, :vocab] if readout_pack is not None
+                    else model.readout(hidden))
+
+        chunks = 0
+        if src is None:
+            # the eager arm, or K3 with a physical reorder: a host loop
+            step = 1
+            while True:
+                cache = cache.index_select(2, parents)
+                if scales is not None:
+                    scales = scales.index_select(1, parents)
+                if step >= max_new or bool(s.done):
+                    break
+                if use_fused:
+                    logits = k3_step(s, p + step, cache, scales)
                 else:
-                    apply_kv_update_batch(cache, kv_new, p + step)
-            else:
-                logits = model.decode_step(last_tokens, step - 1, p + step,
-                                           valid_k, cache)
+                    logits = model.decode_step(s.last_tokens, step - 1, p + step,
+                                               valid_k, cache)
+                s, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p,
+                                        max_new)
+                step += 1
+        else:
+            chunk = chunk or device_loop.CHUNK
+            loops = device_loop.loops_for(dev, loops)
+            key = ("beam", id(model), id(fused_pack), id(readout_pack), id(generator),
+                   id(uniform) if injected else None, generation_key(gen), p, t_max,
+                   max_new, int8_kv, chunk)
+            st = device_loop.bind(loops, key, {
+                "cache": cache, "bias": attn_bias,
+                **({"scales": scales} if int8_kv else {}),
+                **s._asdict()})
+            cache, attn_bias, scales = st["cache"], st["bias"], st.get("scales")
+
+            def step_fn(s: _BeamState) -> _BeamState:
+                active = (s.step < max_new) & ~s.done
+                logits = k3_step(s, p + s.step, cache, scales, active)   # pos <= t_max - 1
+                return device_loop.select(active, _make_step(
+                    s, logits, uniform, gen, k, vocab, eos, p, max_new)[0], s)
+
+            s, chunks = device_loop.run_chunks(
+                _BeamState(*(st[f] for f in _BeamState._fields)), step_fn,
+                lambda s: (s.step < max_new) & ~s.done, chunk, loops, key, generator)
 
         pool_scores, pool_seqs, pool_lens = _finalize_pool(
-            pool_scores, pool_seqs, pool_lens, beam_scores, tokens, step, done,
-            gen, k)
+            s.pool_scores, s.pool_seqs, s.pool_lens, s.beam_scores, s.tokens, s.step,
+            s.done, gen, k)
         best = torch.argmax(pool_scores)
         gen_len = pool_lens[best]
-        hit_limit = (~done & (gen_len == step)).reshape(1)
+        hit_limit = (~s.done & (gen_len == s.step)).reshape(1)
         lengths = torch.where(hit_limit, gen_len, gen_len + 1)
         posn = torch.arange(max_new, device=dev)[None, :]
         seq = torch.where(posn < gen_len, pool_seqs[best][None, :], eos)
-    return DecodeResult(seq, lengths, hit_limit, step - 1)
+    return DecodeResult(seq, lengths, hit_limit, int(s.step) - 1, chunks)

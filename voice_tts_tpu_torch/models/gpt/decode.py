@@ -2,7 +2,10 @@
 (`voice_tts_tpu/models/gpt/decode.py:151-553`): `decode` and the
 self-speculative `spec_decode`.
 
-A Python loop over a preallocated KV cache.  Logit processing follows the
+The fused arm runs as the JAX `while_loop` does, on the device
+(`engine.device_loop`: chunks of steps, one CUDA graph a chunk on the
+card); the unfused arms and `spec_decode` run a host loop over a
+preallocated KV cache.  Logit processing follows the
 HF order for the reference defaults: repetition penalty -> temperature ->
 top-k -> top-p -> categorical sample (or argmax when `do_sample` is off),
 with top-p computed inside the descending top-k candidates (no full-vocab
@@ -30,11 +33,14 @@ Left out here: batched decode, typical sampling.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from voice_tts_tpu_torch.config import GenerationConfig
+from voice_tts_tpu_torch.engine import device_loop
+from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
@@ -53,6 +59,18 @@ class DecodeResult(NamedTuple):
     lengths: torch.Tensor    # (B,) codes per row including the stop token
     hit_limit: torch.Tensor  # (B,) True if stopped by max length
     steps: int               # decode steps after the prefill
+    chunks: int = 0          # chunks of the device loop (0: the host loop)
+
+
+class _LoopState(NamedTuple):
+    """The sampling loop's state on the device (JAX `_LoopState`; the cache
+    is updated in place beside it and the generator stands for the key)."""
+    step: torch.Tensor       # () int64: codes so far, the next code's index
+    token: torch.Tensor      # (B,) last sampled token
+    presence: torch.Tensor   # (B, V) repetition-penalty memory
+    codes: torch.Tensor      # (B, max_new)
+    finished: torch.Tensor   # (B,)
+    lengths: torch.Tensor    # (B,)
 
 
 def apply_repetition_penalty(logits, presence, penalty: float):
@@ -85,13 +103,34 @@ def sample_token(logits: torch.Tensor, presence: torch.Tensor,
     return torch.gather(top_idx, 1, choice)[:, 0]
 
 
+def generation_key(gen: GenerationConfig) -> tuple:
+    """The sampling settings as part of a device loop's key (a captured
+    step bakes them in)."""
+    return tuple(sorted(dataclasses.asdict(gen).items()))
+
+
+def _advance(s: _LoopState, logits: torch.Tensor, gen: GenerationConfig,
+             generator: Optional[torch.Generator], stop: int, max_new: int) -> _LoopState:
+    """One sampling step's update from the step's logits (JAX `body_fn`
+    after the trunk): a finished row keeps emitting the stop token."""
+    token = sample_token(logits, s.presence, gen, generator)
+    token = torch.where(s.finished, stop, token)
+    col = s.step.clamp(max=max_new - 1).reshape(1)    # step < max_new while active
+    return _LoopState(s.step + 1, token,
+                      s.presence.scatter(1, token[:, None], True),
+                      s.codes.index_copy(1, col, token[:, None]),
+                      s.finished | (token == stop),
+                      torch.where(s.finished, s.lengths, s.step + 1))
+
+
 def decode(model: UnifiedVoice, gen: GenerationConfig,
            cond_latents: torch.Tensor, emo_vec: torch.Tensor,
            text_tokens: torch.Tensor, text_lengths: torch.Tensor,
            max_new: int, generator: Optional[torch.Generator] = None,
            fused_pack: Optional[Pack] = None,
            readout_pack: Optional[ReadoutPack] = None,
-           int8_kv: bool = False) -> DecodeResult:
+           int8_kv: bool = False, loops: Optional[DeviceLoops] = None,
+           chunk: Optional[int] = None) -> DecodeResult:
     """Greedy / sampling AR decode; text_tokens (B, bucket_len) right-padded.
 
     Compute dtype follows the model's parameters (the int8 / bf16 runtime
@@ -99,7 +138,15 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
     quantizes the fused step's cache after the prefill, or without a fused
     pack decodes over an int8 `QuantKVCache` from the prefill on (the JAX
     `int8_kv_xla` case).  `cfg.pallas_decode_attention` turns the fused path
-    off (K5 reads a float cache, so `int8_kv` drops there)."""
+    off (K5 reads a float cache, so `int8_kv` drops there).
+
+    The fused arm (K1) is the JAX `while_loop` on the device
+    (`engine.device_loop`): state, position and stop test stay there, and
+    the steps run `chunk` (default CHUNK) at a time, one host read a chunk;
+    on a CUDA device each chunk replays a graph of `loops` (the engine's;
+    one of this call's own when None), or runs op by op with
+    `DeviceLoops(..., capture=False)`.  The unfused arms keep a host loop
+    (one host read a step)."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     dev = text_tokens.device
@@ -117,6 +164,7 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
     elif use_fused:
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
+    stop = cfg.stop_mel_token
     param_dtype = model.conditioning_encoder.after_norm.bias.dtype
 
     with torch.no_grad():
@@ -134,46 +182,55 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
         presence = torch.zeros((b, vocab), dtype=torch.bool, device=dev)
         presence[:, 1] = True
         presence[:, cfg.start_mel_token] = True
-        rows = torch.arange(b, device=dev)
         token = sample_token(logits, presence, gen, generator)
-        presence[rows, token] = True
-        codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long,
-                           device=dev)
+        codes = torch.full((b, max_new), stop, dtype=torch.long, device=dev)
         codes[:, 0] = token
-        finished = token == cfg.stop_mel_token
-        lengths = torch.ones((b,), dtype=torch.long, device=dev)
+        s = _LoopState(torch.ones((), dtype=torch.long, device=dev), token,
+                       presence.scatter(1, token[:, None], True), codes,
+                       token == stop, torch.ones((b,), dtype=torch.long, device=dev))
+        if not use_fused:
+            step = 1
+            while step < max_new and not bool(s.finished.all()):
+                s = _advance(s, model.decode_step(s.token, step - 1, p + step, valid, cache),
+                             gen, generator, stop, max_new)
+                step += 1
+            return DecodeResult(s.codes, s.lengths, ~s.finished, step - 1)
 
+        cache = cache_to_time_major(cache)
         scales = None
-        if use_fused:
-            attn_bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
-            cache = cache_to_time_major(cache)
+        if int8_kv:
+            cache, scales = quantize_kv_cache(cache)
+        chunk = chunk or device_loop.CHUNK
+        loops = device_loop.loops_for(dev, loops)
+        key = ("decode", id(model), id(fused_pack), id(readout_pack), id(generator),
+               generation_key(gen), p, t_max, max_new, int8_kv, chunk)
+        st = device_loop.bind(loops, key, {
+            "cache": cache, "bias": torch.where(valid[0, :, None], 0.0, -1e30).float(),
+            **({"scales": scales} if int8_kv else {}), **s._asdict()})
+        cache, bias, scales = st["cache"], st["bias"], st.get("scales")
+
+        def step(s: _LoopState) -> _LoopState:
+            active = (s.step < max_new) & ~s.finished.all()
+            pos = p + s.step                # at most t_max - 1
+            emb = model.embed_decode_token(s.token, s.step - 1)
+            hidden, kv_new, logits_pad = fused_decode_step(
+                emb, fused_pack, cache, bias, pos, cfg.heads,
+                readout_pack=readout_pack, kv_scales=scales)
+            logits = (logits_pad[:, :vocab] if readout_pack is not None
+                      else model.readout(hidden))
             if int8_kv:
-                cache, scales = quantize_kv_cache(cache)
-        step = 1
-        while step < max_new and not bool(finished.all()):
-            if use_fused:
-                emb = model.embed_decode_token(token, step - 1)
-                hidden, kv_new, logits_pad = fused_decode_step(
-                    emb, fused_pack, cache, attn_bias, p + step, cfg.heads,
-                    readout_pack=readout_pack, kv_scales=scales)
-                if readout_pack is not None:
-                    logits = logits_pad[:, :vocab]
-                else:
-                    logits = model.readout(hidden)
-                if int8_kv:
-                    apply_kv_update_q(cache, scales, kv_new, p + step)
-                else:
-                    apply_kv_update(cache, kv_new, p + step)
+                apply_kv_update_q(cache, scales, kv_new, pos, active)
             else:
-                logits = model.decode_step(token, step - 1, p + step, valid, cache)
-            token = sample_token(logits, presence, gen, generator)
-            token = torch.where(finished, cfg.stop_mel_token, token)
-            presence[rows, token] = True
-            codes[:, step] = token
-            lengths = torch.where(finished, lengths, step + 1)
-            finished = finished | (token == cfg.stop_mel_token)
-            step += 1
-    return DecodeResult(codes, lengths, ~finished, step - 1)
+                apply_kv_update(cache, kv_new, pos, active)
+            return device_loop.select(active, _advance(s, logits, gen, generator, stop,
+                                                       max_new), s)
+
+        s, chunks = device_loop.run_chunks(
+            _LoopState(*(st[f] for f in _LoopState._fields)), step,
+            lambda s: (s.step < max_new) & ~s.finished.all(), chunk, loops, key,
+            generator)
+        return DecodeResult(s.codes.clone(), s.lengths.clone(), ~s.finished,
+                            int(s.step) - 1, chunks)
 
 
 # ---------------------------------------------------------------------------

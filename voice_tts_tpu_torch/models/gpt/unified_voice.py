@@ -170,9 +170,13 @@ class UnifiedVoice(nn.Module):
         hidden, _ = self.gpt(embeds.to(dtype), kv_cache, 0, valid_all)
         return self.readout(hidden[:, -1])
 
-    def embed_decode_token(self, token: torch.Tensor, step: int) -> torch.Tensor:
-        """(B,) token -> (B, D) embedding at mel position step + 1."""
-        pos = torch.full((1, 1), step + 1, dtype=torch.long, device=token.device)
+    def embed_decode_token(self, token: torch.Tensor, step) -> torch.Tensor:
+        """(B,) token -> (B, D) embedding at mel position step + 1; `step` a
+        host int or a 0-d integer tensor on the device (a device loop's)."""
+        if isinstance(step, torch.Tensor):
+            pos = (step + 1).reshape(1, 1).long()
+        else:
+            pos = torch.full((1, 1), step + 1, dtype=torch.long, device=token.device)
         return (self.mel_embedding(token[:, None]) + self.mel_pos_embedding(pos))[:, 0]
 
     def readout(self, hidden: torch.Tensor) -> torch.Tensor:

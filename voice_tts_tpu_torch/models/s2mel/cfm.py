@@ -3,7 +3,9 @@
 
 Noise init, prompt region pinned to zero, uniform t_span, per-step CFG on a
 stacked [real; null] batch, `(1 + r) * v - r * v_null`, prompt region
-re-zeroed after every step.  A Python loop replaces the JAX `lax.scan`.
+re-zeroed after every step.  A Python loop replaces the JAX `lax.scan`; it
+reads nothing back to the host, so the engine runs the whole solve as one
+CUDA graph on the card (`engine.device_loop.run_once`).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ and skips those projections (same parameters on the same t values).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -44,6 +45,13 @@ def rope_cache(seq_len: int, head_dim: int, base: float) -> np.ndarray:
     t = np.arange(seq_len)
     angles = np.outer(t, freqs)
     return np.stack([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def rope_freqs(seq_len: int, head_dim: int, base: float, device: str) -> torch.Tensor:
+    """`rope_cache` on `device`, made once a shape: every Euler step asks for
+    it, and a captured step copies nothing from the host."""
+    return torch.from_numpy(rope_cache(seq_len, head_dim, base)).to(device)
 
 
 def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
@@ -234,8 +242,8 @@ class DiT(nn.Module):
                                    x_lens, c.num_heads).to(h.dtype)
         else:
             attn_mask = mask[:, None, :].expand(b, tlen, tlen)
-            freqs = torch.from_numpy(rope_cache(tlen, c.hidden_dim // c.num_heads,
-                                                c.rope_base)).to(x.device)
+            freqs = rope_freqs(tlen, c.hidden_dim // c.num_heads, float(c.rope_base),
+                               str(x.device))
             for i in range(c.depth):
                 h = getattr(self, f"block_{i}")(
                     h, c_emb, freqs, attn_mask, x_lens,

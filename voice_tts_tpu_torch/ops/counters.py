@@ -19,6 +19,13 @@ one per call, that is one per pass of their benchmark: `micro_tile` (K12)
 per C call of its tile pass and fixed-order reduction (two launches, see
 `ops/micro_tile.py`), `micro_int4` (K13) per cooperative launch (see
 `ops/micro_int4.py`).
+
+A wrapper counts in Python, which a replayed CUDA graph does not run: the
+device loops (`engine/device_loop.py`) take back what a capture counted
+(a capture launches nothing) and add it again at each replay, so K1 and K3
+count every decode step a replayed chunk executes, the at most CHUNK - 1
+steps after a stop included, and K8 / K9 / K11 every evaluation of a
+replayed CFM solve.
 """
 
 from __future__ import annotations

@@ -272,20 +272,40 @@ def quantize_kv_cache_batch(tm_cache: torch.Tensor):
     return q, s.permute(0, 2, 3, 1).contiguous()
 
 
-def apply_kv_update(kv_cache: torch.Tensor, kv_new: torch.Tensor,
-                    pos: int) -> torch.Tensor:
-    """Write kv_new (L, 2, D) into the time-major cache at `pos`."""
-    kv_cache[:, :, 0, pos, :] = kv_new.to(kv_cache.dtype)
+def _write_rows(buf: torch.Tensor, dim: int, pos: Pos, rows: torch.Tensor,
+               active: Optional[torch.Tensor]) -> None:
+    """Write `rows` into `buf` at position `pos` of its time axis `dim`: a
+    host int by assignment, a device position (a 0-d integer tensor) by
+    `index_copy_`, with no host read.  With a device position, `active` (a
+    0-d bool tensor) keeps the row `buf` holds there where it is false (a
+    step of a device loop taken after the loop's stop)."""
+    rows = rows.to(buf.dtype)
+    if not isinstance(pos, torch.Tensor):
+        buf.select(dim, pos).copy_(rows)
+        return
+    idx = pos.reshape(1).long()
+    rows = rows.unsqueeze(dim)
+    if active is not None:
+        rows = torch.where(active, rows, buf.index_select(dim, idx))
+    buf.index_copy_(dim, idx, rows)
+
+
+def apply_kv_update(kv_cache: torch.Tensor, kv_new: torch.Tensor, pos: Pos,
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write kv_new (L, 2, D) into the time-major cache at `pos` (a host int,
+    or a 0-d device tensor with `active`, see `_write_rows`)."""
+    _write_rows(kv_cache[:, :, 0], 2, pos, kv_new, active)
     return kv_cache
 
 
 def apply_kv_update_q(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
-                      kv_new: torch.Tensor, pos: int):
+                      kv_new: torch.Tensor, pos: Pos,
+                      active: Optional[torch.Tensor] = None):
     """Quantize kv_new (L, 2, D) f32 and write row + scale at `pos` into the
     int8 cache / (L, Tmax, 2) scale table.  Returns (cache, scales)."""
     q, s = quantize_kv_rows(kv_new)
-    kv_cache[:, :, 0, pos, :] = q
-    kv_scales[:, pos, :] = s
+    _write_rows(kv_cache[:, :, 0], 2, pos, q, active)
+    _write_rows(kv_scales, 1, pos, s, active)
     return kv_cache, kv_scales
 
 
@@ -298,19 +318,20 @@ def apply_kv_update_span(kv_cache: torch.Tensor, kv_new: torch.Tensor,
 
 
 def apply_kv_update_batch(kv_cache: torch.Tensor, kv_new: torch.Tensor,
-                          pos: int) -> torch.Tensor:
+                          pos: Pos, active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write kv_new (L, 2, B, D) into the batched cache at the shared `pos`."""
-    kv_cache[:, :, :, pos, :] = kv_new.to(kv_cache.dtype)
+    _write_rows(kv_cache, 3, pos, kv_new, active)
     return kv_cache
 
 
 def apply_kv_update_q_batch(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
-                            kv_new: torch.Tensor, pos: int):
+                            kv_new: torch.Tensor, pos: Pos,
+                            active: Optional[torch.Tensor] = None):
     """Quantize kv_new (L, 2, B, D) f32 and write rows + scales at the shared
     `pos` into the int8 cache / (L, B, Tmax, 2) scale table."""
     q, s = _quantize_rows(kv_new)                    # s (L, 2, B)
-    kv_cache[:, :, :, pos, :] = q
-    kv_scales[:, :, pos, :] = s.permute(0, 2, 1)
+    _write_rows(kv_cache, 3, pos, q, active)
+    _write_rows(kv_scales, 2, pos, s.permute(0, 2, 1), active)
     return kv_cache, kv_scales
 
 
@@ -438,9 +459,10 @@ def _readout_plain(xs, readout_pack: Optional[ReadoutPack]):
 
 
 def _pos_rows(pos: Pos, b: int, device) -> torch.Tensor:
-    """The per-row live prefix lengths as a (B,) int64 tensor."""
-    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
-        return pos.reshape(b).to(device=device, dtype=torch.int64)
+    """The per-row live prefix lengths as a (B,) int64 tensor, from a host
+    int, a 0-d or one-element tensor shared by the rows, or a (B,) one."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(-1).to(device=device, dtype=torch.int64).expand(b)
     return torch.full((b,), int(pos), dtype=torch.int64, device=device)
 
 
@@ -605,7 +627,7 @@ def fused_decode_verify_split_plain(x, pack: FusedDecodePack, kv_cache, bias,
     return _verify_plain(x, pack, kv_cache, bias, pos, heads, split_t)
 
 
-def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: int,
+def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: Pos,
                             heads: int, readout_pack: Optional[ReadoutPack] = None,
                             kv_scales: Optional[torch.Tensor] = None):
     """Plain PyTorch version; see `fused_decode_step` (K3's at B = 1)."""
@@ -624,10 +646,10 @@ def fused_decode_step_plain(x, pack: Pack, kv_cache, bias, pos: int,
 def attend_splits(pos: Pos, t_max: int) -> int:
     """Splits of the CUDA attention's grid (one block per head, row and
     split of BLOCK_T positions): enough for the longest live prefix, that
-    is ceil(pos / BLOCK_T) for a shared int pos (at least 1), and Tmax /
-    BLOCK_T for per-row positions, which stay on the card; a split past a
-    row's prefix contributes nothing."""
-    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
+    is ceil(pos / BLOCK_T) for a host int pos (at least 1), and Tmax /
+    BLOCK_T for a position on the device (shared or per row), which the
+    host does not read; a split past a row's prefix contributes nothing."""
+    if isinstance(pos, torch.Tensor):
         return t_max // BLOCK_T
     return max(1, -(-min(int(pos), t_max) // BLOCK_T))
 
@@ -717,7 +739,9 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     """Run the CUDA kernel chain over the B rows of x (B, D); `kernel` names
     the counter.  kv_cache (L, 2, B, Tmax, D) bf16 | int8; bias (B, Tmax)
     f32; kv_scales (L, B, Tmax, 2) f32 or None; beam_src (B, Tmax) int32 or
-    None; pos an int or a (B,) int32 tensor on the device.  With `verify`
+    None; pos a host int, or a tensor on the device shared by the rows (0-d
+    or one element) or one a row (B,), which no host code reads: the
+    kernels clamp it to Tmax.  With `verify`
     the B rows are K tokens of one sequence at pos, pos + 1, ...: the cache
     and the bias hold that one sequence, (L, 2, 1, Tmax, D) and (1, Tmax),
     and each layer's attention is the verify kernel.  An int4 pack selects
@@ -762,9 +786,12 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
                torch.float32, (2, v_pad))
         _check(f"{kernel}: readout.lnf", readout_pack.lnf, dev, torch.float32, (2, d))
     pos_rows = None
-    if isinstance(pos, torch.Tensor) and pos.numel() > 1:
-        _check(f"{kernel}: pos", pos, dev, torch.int32, (b,))
-        pos_rows, pos = pos, 0
+    if isinstance(pos, torch.Tensor):
+        if verify or pos.numel() not in (1, b):
+            raise ValueError(f"{kernel}: pos {tuple(pos.shape)}: a host int, or "
+                             f"one or {b} positions")
+        pos_rows = pos.reshape(-1).to(device=dev, dtype=torch.int32).expand(b).contiguous()
+        pos = 0
     elif not 0 <= int(pos) <= t_max - (b if verify else 1):
         raise ValueError(f"{kernel}: pos {int(pos)} with {b if verify else 1} "
                          f"row(s) outside [0, {t_max})")
@@ -863,7 +890,7 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     return xs, kv_new, logits
 
 
-def fused_decode_step_cuda(x, pack: Pack, kv_cache, bias, pos: int,
+def fused_decode_step_cuda(x, pack: Pack, kv_cache, bias, pos: Pos,
                            heads: int, readout_pack: Optional[ReadoutPack] = None,
                            kv_scales: Optional[torch.Tensor] = None):
     """The CUDA kernel chain at B = 1; see `fused_decode_step`."""
@@ -877,12 +904,12 @@ def fused_decode_step_cuda(x, pack: Pack, kv_cache, bias, pos: int,
     scales = None if kv_scales is None else kv_scales.reshape(n_layers, 1, t_max, 2)
     y, kv_new, logits = _decode_chain_cuda(
         "fused_decode_step", x.float().reshape(1, d), pack, kv_cache,
-        bias.reshape(1, t_max), int(pos), heads, scales, None, readout_pack)
+        bias.reshape(1, t_max), pos, heads, scales, None, readout_pack)
     return y, kv_new[:, :, 0], logits
 
 
 def fused_decode_step(x: torch.Tensor, pack: Pack,
-                      kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
+                      kv_cache: torch.Tensor, bias: torch.Tensor, pos: Pos,
                       heads: int, readout_pack: Optional[ReadoutPack] = None,
                       kv_scales: Optional[torch.Tensor] = None):
     """One decode step of the whole trunk plus the folded readout, K1.
@@ -892,7 +919,8 @@ def fused_decode_step(x: torch.Tensor, pack: Pack,
     (`cache_to_time_major`), Tmax % 256 == 0, bf16 or, with `kv_scales`
     (L, Tmax, 2) f32, int8 (`quantize_kv_cache`); bias (Tmax, 1) f32
     additive mask (-1e30 on invalid prompt pads); pos — index of the current
-    token (positions [0, pos) are live history).  Returns (hidden (1, D) f32
+    token (positions [0, pos) are live history), a host int or a 0-d
+    integer tensor on x's device (a device loop's position).  Returns (hidden (1, D) f32
     pre-ln_f, kv_new (L, 2, D) in the cache dtype — f32 with an int8 cache —,
     logits (1, 12 * VT) f32, or None without a readout pack); the caller
     writes kv_new at `pos` (`apply_kv_update`, `apply_kv_update_q`) and
@@ -900,11 +928,11 @@ def fused_decode_step(x: torch.Tensor, pack: Pack,
     CUDA tensors launch the kernels (errors raise, there is no fallback).
     """
     if x.is_cuda:
-        return fused_decode_step_cuda(x, pack, kv_cache, bias, int(pos), heads,
+        return fused_decode_step_cuda(x, pack, kv_cache, bias, pos, heads,
                                       readout_pack, kv_scales)
     if x.device.type != "cpu":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
-    return fused_decode_step_plain(x, pack, kv_cache, bias, int(pos), heads,
+    return fused_decode_step_plain(x, pack, kv_cache, bias, pos, heads,
                                    readout_pack, kv_scales)
 
 
@@ -920,9 +948,10 @@ def fused_decode_step_batch(x: torch.Tensor, pack: Pack,
     int8 (`pack_gpt`) or int4 (`pack_gpt_int4`, K7);
     kv_cache TIME-MAJOR (L, 2, B, Tmax, D), bf16 or, with `kv_scales`
     (L, B, Tmax, 2) f32, int8 (`quantize_kv_cache_batch`); bias (B, Tmax)
-    f32 additive per-row prompt-pad mask; pos an int shared by all rows or
-    a (B,) int tensor of per-row live prefix lengths (0 marks an idle slot:
-    its outputs are finite and meaningless); beam_src (B, Tmax) int32
+    f32 additive per-row prompt-pad mask; pos an int shared by all rows, a
+    0-d integer tensor on the device shared by all rows, or a (B,) int
+    tensor of per-row live prefix lengths (0 marks an idle slot: its
+    outputs are finite and meaningless); beam_src (B, Tmax) int32
     ancestor table or None: row b reads position t from cache row
     `beam_src[b, t]` (dequantized with that row's scale).  Returns (hidden
     (B, D) f32, kv_new (L, 2, B, D) in the cache dtype — f32 with an int8
@@ -935,8 +964,6 @@ def fused_decode_step_batch(x: torch.Tensor, pack: Pack,
     if not 1 <= b <= cap:
         raise ValueError(f"fused_decode_step_batch: 1 <= B <= {cap}, got {b}")
     if x.is_cuda:
-        if isinstance(pos, torch.Tensor) and pos.numel() > 1:
-            pos = pos.to(device=x.device, dtype=torch.int32).contiguous()
         src = None if beam_src is None else beam_src.to(torch.int32).contiguous()
         return _decode_chain_cuda("fused_decode_step_batch", x.float().contiguous(),
                                   pack, kv_cache, bias, pos, heads, kv_scales,

@@ -11,8 +11,22 @@ launches.  The rest of a step's wall time is the beam, sampling or
 acceptance logic, the other launches, syncs and the device's tail.  One
 JSON line a request; the first request of a profile is the cold one.
 
+Where the package runs its loops on the device (`engine/device_loop.py`:
+the K1 / K3 decode a chunk of steps at a time, the CFM solve once), a
+wrapper runs its Python only when a graph is captured, and a row also has
+the host time of each graph replay (`replay_*`: a decode chunk, or a
+solve), the host reads of the loops' flags (`host_reads`), the decode's
+chunks and runs, the capture time of the request and the graphs captured
+so far.  On the CPU a chunk runs op by op, one chain call a step it
+executes.  `--chunk 4 8 16` sweeps the steps a chunk (a fresh set of
+graphs each, its first request capturing them); `--profile` adds one warm
+request a profile under the CUDA profiler: the device's busy time (the
+union of the kernels' spans) and the kernels' summed time against the
+request's wall, and the idle share.
+
     python -m voice_tts_tpu_torch.scripts.decode_host_time [--profiles
-        production bench spec dit k5] [--requests 3] [--device cuda]
+        production bench spec dit k5] [--requests 3] [--chunk N ...]
+        [--profile] [--device cuda]
 
 It times the `voice_tts_tpu_torch` that comes first on the path, so one copy
 of the script times another checkout of the package alike: run it by file
@@ -39,6 +53,11 @@ from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config, serving_
                                                tiny_config)
 from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
 from voice_tts_tpu_torch.ops import dit_blocks
+
+try:
+    from voice_tts_tpu_torch.engine import device_loop
+except ImportError:     # a checkout from before the device loops
+    device_loop = None
 
 TEXT = "欢迎大家来体验这个语音合成系统谢谢大家."
 # the kernel wrapper each profile times, as its caller names it (the spec
@@ -95,9 +114,12 @@ def host_ms(prefix: str, calls: list) -> dict:
             f"{prefix}_host_ms_median": 1e3 * statistics.median(calls) if calls else None}
 
 
-def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool) -> list:
+def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool,
+                chunks=(None,), profiled: bool = False) -> list:
     """A cold request and `requests` warm ones on a fresh random engine
-    (seed 0, as `chip_smoke.py` builds its slices)."""
+    (seed 0, as `chip_smoke.py` builds its slices), for each steps-a-chunk
+    in `chunks` (None: the package's own) on a fresh set of graphs; then,
+    with `profiled`, one more warm request under the profiler."""
     if tiny:
         engine = TTSEngine.random(tiny_profile(profile), device=str(dev), seed=0)
         prompt = tone_prompt(1.0, 16000)
@@ -107,31 +129,96 @@ def run_profile(profile: str, requests: int, dev: torch.device, tiny: bool) -> l
         prompt, kwargs = tone_prompt(PROMPT_S.get(profile, 5.0), 22050), {}
     module, name = CHAINS[profile]
     rows = []
-    for i in range(requests + 1):
-        calls, verify_calls = [], []
-        restore = [timed(module, name, calls)]
-        if profile in VERIFY:
-            restore.append(timed(*VERIFY[profile], verify_calls))
-        try:
-            engine.infer(prompt, TEXT, **kwargs)
-        finally:
-            for put_back in reversed(restore):
-                put_back()
-        m = engine.last_metrics
-        steps = m["decode_steps"]
-        row = {"profile": profile, "request": i, "cold": i == 0,
-               "gpt_gen_time": m["gpt_gen_time"], "s2mel_time": m["s2mel_time"],
-               "decode_steps": steps, "rtf": m["rtf"],
-               "step_ms": 1e3 * m["gpt_gen_time"] / max(steps, 1), **host_ms("chain", calls)}
-        if profile in VERIFY:
-            row.update(spec_rounds=m["spec_rounds"], spec_accepted=m["spec_accepted"],
-                       **host_ms("verify", verify_calls))
-        rows.append(row)
-        print(json.dumps(rows[-1]), flush=True)
+    for chunk in chunks:
+        if chunk is not None:
+            device_loop.CHUNK = chunk
+            if getattr(engine, "loops", None) is not None:
+                engine.loops = device_loop.DeviceLoops(dev)
+        for i in range(requests + 1):
+            rows.append(timed_request(engine, profile, prompt, kwargs, module, name))
+            rows[-1].update(request=i, cold=i == 0)
+            if device_loop is not None:
+                rows[-1]["chunk"] = device_loop.CHUNK
+            print(json.dumps(rows[-1]), flush=True)
+    if profiled and dev.type == "cuda":
+        print(json.dumps(profile_request(engine, profile, prompt, kwargs)), flush=True)
     del engine
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return rows
+
+
+def timed_request(engine, profile: str, prompt: bytes, kwargs: dict, module,
+                  name: str) -> dict:
+    """One request with its chain wrapper (and the verify's, and the
+    graph replays) timed; the row of `run_profile`."""
+    calls, verify_calls, replays, reads = [], [], [], []
+    restore = [timed(module, name, calls)]
+    if profile in VERIFY:
+        restore.append(timed(*VERIFY[profile], verify_calls))
+    if device_loop is not None:
+        restore.append(timed(device_loop.DeviceLoops, "_replay", replays))
+        restore.append(timed(device_loop, "read_flag", reads))
+    loops = getattr(engine, "loops", None)
+    graphs_before = loops.stats["graphs"] if loops is not None else 0
+    try:
+        t0 = time.perf_counter()
+        engine.infer(prompt, TEXT, **kwargs)
+        wall = time.perf_counter() - t0
+    finally:
+        for put_back in reversed(restore):
+            put_back()
+    m = engine.last_metrics
+    steps = m["decode_steps"]
+    row = {"profile": profile, "gpt_gen_time": m["gpt_gen_time"],
+           "s2mel_time": m["s2mel_time"], "wall_s": wall, "decode_steps": steps,
+           "rtf": m["rtf"], "step_ms": 1e3 * m["gpt_gen_time"] / max(steps, 1),
+           **host_ms("chain", calls)}
+    if profile in VERIFY:
+        row.update(spec_rounds=m["spec_rounds"], spec_accepted=m["spec_accepted"],
+                   **host_ms("verify", verify_calls))
+    if device_loop is not None:
+        row.update(decode_runs=m["decode_runs"], decode_chunks=m["decode_chunks"],
+                   host_reads=len(reads), **host_ms("replay", replays))
+        if loops is not None:
+            row.update(capture_s=m["capture_time"], graphs=loops.stats["graphs"],
+                       graphs_captured=loops.stats["graphs"] - graphs_before)
+    return row
+
+
+def busy_seconds(prof) -> float:
+    """Seconds in which at least one kernel or copy ran on the device: the
+    union of their spans (under programmatic dependent launch neighbouring
+    kernels overlap, so the sum of their times overcounts)."""
+    from torch.autograd import DeviceType
+
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e6
+
+
+def profile_request(engine, profile: str, prompt: bytes, kwargs: dict) -> dict:
+    """One warm request under the CUDA profiler: the device's busy time (the
+    union of the kernels' spans) and the kernels' summed time against the
+    request's wall, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.infer(prompt, TEXT, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof)
+    m = engine.last_metrics
+    return {"profile": profile, "profiled": True, "wall_s": wall, "device_busy_s": busy,
+            "kernel_sum_s": sum(e.self_device_time_total for e in prof.key_averages()) / 1e6,
+            "device_idle_share": 1.0 - busy / wall, "gpt_gen_time": m["gpt_gen_time"],
+            "s2mel_time": m["s2mel_time"], "decode_steps": m["decode_steps"]}
 
 
 def flagship_profile(profile: str):
@@ -194,7 +281,13 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; the default) or cpu (the plain versions)")
     ap.add_argument("--tiny", action="store_true", help="the tiny engine")
+    ap.add_argument("--chunk", nargs="+", type=int, default=[None],
+                    help="decode steps a chunk to sweep (the device loops)")
+    ap.add_argument("--profile", action="store_true",
+                    help="one more warm request a profile under the CUDA profiler")
     args = ap.parse_args(argv)
+    if args.chunk != [None] and device_loop is None:
+        raise SystemExit("--chunk: this checkout has no device loops")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script times the GPU decode "
@@ -203,7 +296,8 @@ def main(argv=None) -> list:
           + (card_line() if dev.type == "cuda" else "cpu, plain versions"), flush=True)
     rows = []
     for profile in args.profiles:
-        rows += run_profile(profile, args.requests, dev, args.tiny)
+        rows += run_profile(profile, args.requests, dev, args.tiny, args.chunk,
+                            args.profile)
     return rows
 
 
