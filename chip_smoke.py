@@ -34,7 +34,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    256 / 257, a split wholly under the -1e30 bias and B 1 / 3 / 8 / 12
    through a table with either cache; one step of the first case under the
    profiler, its GEMV and attention spans; the ptxas registers and spills of
-   the redesigned kernels), K7 (the int4 loader alone at the
+   the redesigned kernels; then the batched paths' row counts, `k3rows`:
+   6 and 12 rows through a table that keeps each row in its request's
+   three against those three alone, and 4 rows at one shared position
+   against each row through K1, bit-equal or else within the step
+   tolerance, and K3 device-only at 3, 4, 6 and 12 rows), K7 (the int4
+   loader alone at the
    four GEMVs of a layer, beside `torch._weight_int4pack_mm`; the int4 K1
    chain at g128 and g640, pos 300; the int4 K3 chain at beam-3 through a
    table), K6 (the verify of K = 4 tokens at pos 300 and 1500);
@@ -64,15 +69,33 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    one generator state and an empty cap memory (the 511-code cap hit, the
    1499 retry after `set_state`): every decode's codes, lengths, limit
    flag, steps and chunks, the CFM mel and the WAV bit-equal;
-7. bench slice: the same with `--profile bench` (sampling, one beam): K1
+7. batched phase (`run_batched_slice`, the codes cut to a 512 cap; `--only
+   batched` runs it alone on a production engine of its own): on the
+   production engine `infer_batch` of four requests over two speakers in
+   one text bucket (beam-3 sampling: one 12-row K3 decode through replayed
+   graphs, K3 once a step it executed, K1 never) against the same requests
+   one a decode (`beam_batch_rows = 3`, each on its own stream: codes and
+   WAVs bit-equal) and against its loops op by op with the cap retry on
+   reseeded streams; a 3-segment `infer` with `batch_segments` on and off
+   (greedy: the same codes a segment); `infer(stream_return=True)` against
+   `infer`'s WAV; four cold speakers conditioned in one group against
+   each alone, on the production (bf16) and a fresh bench (f32) engine
+   (each tensor's move, bounded by the bf16 rounding, and whether one
+   request's codes from either entry agree); then the bench engine with
+   `use_fused_batch_decode` (greedy): `infer_batch` of the four requests,
+   K3 at 4 rows at one
+   shared position, against each request alone through K1 (the same
+   codes); each part's wall and `gpt_gen_time`, batched against
+   sequential, and the peak device memory;
+8. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per executed step, K3 never, K2 109 times per vocode, the replayed
    request bit-equal to the uncaptured one;
-8. spec slice: the bench configuration with `spec_decode_k = 4` (int4
+9. spec slice: the bench configuration with `spec_decode_k = 4` (int4
    drafts, one int8 verify a round), three POST /tts and one profiled: K6
    once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
    K2 109 times per vocode; prints the acceptance rate, the codes per round
    and the stage times beside the bench slice's.
-9. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
+10. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
    (`fused_blocks`) and K9 attention (`fused_attention`): a 2.5 s prompt
    twice (T 704: K8 once per velocity evaluation, 25 a request, no K9) and
    a 5 s prompt (T 896 > 768: K9 in every block, 325, no K8), K1 once per
@@ -81,21 +104,21 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    then the CFM graph at T 704 against the uncaptured solve, with K8 and
    without it (K9 in each block: one request captures, the next replays),
    bit-equal;
-10. K11 engine: a second engine on the DiT slice's weights with
+11. K11 engine: a second engine on the DiT slice's weights with
    `flash_attention` instead (K8 and K9 off): one request at the 5 s prompt,
    K11 325 times, then one profiled (the profiles of the DiT slice and this
    engine print the DiT attention kernels' device time a request).
-11. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
+12. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
     (the unfused decode step: K5 attention, K4 projections) and
     `use_fused_vocoder` (stages 2-5 through K10), three POST /tts and one
     profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
     never, K10 4 and K2 37 times a vocode; prints the stage timers beside
     the bench slice's;
-12. K5 beam request: a second engine on the K5 slice's models in the
+13. K5 beam request: a second engine on the K5 slice's models in the
     production profile with `pallas_decode_attention` and a 512-code cap,
     one request (beam-3 through the eager arm, 511 steps): K5 24 and K4 96
     times a beam step, K3 and K1 never;
-13. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
+14. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
     fused variants, each timed, with its difference from the module path.
 
@@ -132,7 +155,8 @@ its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
 from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice,
 K12 and K13 from the micro-benchmark path; `launches_by_path` has all
-eight), its largest error against the plain version, both times, its bound
+nine paths, "batched" the batched phase's two warm `infer_batch` runs),
+its largest error against the plain version, both times, its bound
 and `library_ms` (null where no one PyTorch call computes the function: K1,
 K2, K3, K6, K8, K10, K12, K13; the K12 and K13 entries time one mode a
 pass, `dot1` and `cur`, with every mode under `modes`; K4's is
@@ -577,6 +601,77 @@ def check_k3(torch, dev, results):
         "ms_of": "one beam-3 step through the table, int8 KV, pos 1500, Tmax 1792",
         "profile": {k: v for k, v in prof.items() if k != "by_kernel"},
         "cases": cases, "edge_cases": edges})
+
+
+def check_k3_rows(torch, dev, results):
+    """K3 at the row counts of the batched paths, int8 KV and bf16 at pos
+    1500, Tmax 1792, the folded readout, a 0-d device position: R = 2 and 4
+    requests of beam-3 (6 and 12 rows) through a table in global row ids
+    that keeps each row in its request's three, against the same three
+    rows alone (K3 at 3 rows); and 4 rows at one shared position without
+    a table (the batched sampling decode), against each row alone through
+    K1.  A row's outputs bit-equal across the row counts means its sums
+    keep their order (the GEMVs' accumulator count and columns a warp
+    follow the rows, the attention does not); otherwise each row is held
+    within the decode-step tolerance and the tie-aware argmax.  Then K3
+    device-only at 3, 4, 6 and 12 rows beside its bound."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack, ro, g = random_trunk(torch, dev, 6)
+    H, T_MAX, POS = 20, 1792, 1500
+    dpos = torch.tensor(POS, device=dev)
+    rows_cases, bit_equal = [], True
+
+    def k3(x, cache, scales, src, bias):
+        return fd.fused_decode_step_batch(x, pack, cache, bias, dpos, H, scales, src, ro)
+
+    for r, int8_kv in ((2, True), (4, True), (4, False)):
+        b = 3 * r
+        cache, scales, _, bias, x = k3_inputs(torch, dev, g, b, int8_kv, False, POS)
+        group = torch.arange(b, device=dev, dtype=torch.int32)[:, None] // 3 * 3
+        src = group + torch.randint(0, 3, (b, T_MAX), generator=g, device=dev,
+                                    dtype=torch.int32)
+        out = k3(x, cache, scales, src, bias)
+        for i in range(r):
+            sl = slice(3 * i, 3 * i + 3)
+            one = k3(x[sl], cache[:, :, sl].contiguous(),
+                     None if scales is None else scales[:, sl].contiguous(),
+                     (src[sl] - 3 * i).contiguous(), bias[sl].contiguous())
+            part = (out[0][sl], out[1][:, :, sl], out[2][sl])
+            same = all(torch.equal(u, v) for u, v in zip(part, one))
+            bit_equal &= same
+            tag = (f"K3 rows: request {i} of {r} ({b} rows, {'int8' if int8_kv else 'bf16'}"
+                   f"-KV, table) against its 3 rows alone")
+            print(f"{tag}: bit-equal {same}")
+            if not same:
+                compare_step(torch, tag, part, one)
+    cache, _, _, bias, x = k3_inputs(torch, dev, g, 4, False, False, POS)
+    out = k3(x, cache, None, None, bias)
+    for i in range(4):
+        one = fd.fused_decode_step(x[i:i + 1], pack, cache[:, :, i:i + 1].contiguous(),
+                                   bias[i][:, None].contiguous(), dpos, H, ro)
+        part = (out[0][i:i + 1], out[1][:, :, i], out[2][i:i + 1])
+        same = all(torch.equal(u, v) for u, v in zip(part, one))
+        bit_equal &= same
+        tag = "K3 rows: row {} of 4 (bf16-KV, shared position) against K1 alone".format(i)
+        print(f"{tag}: bit-equal {same}")
+        if not same:
+            compare_step(torch, tag, (part[0], part[1], part[2]), one)
+    for b, int8_kv, table in ((3, True, True), (4, False, False), (6, True, True),
+                              (12, True, True)):
+        cache, scales, src, bias, x = k3_inputs(torch, dev, g, b, int8_kv, table, POS)
+        dev_ms = device_time_ms(torch, lambda: k3(x, cache, scales, src, bias), CHAIN_ITERS)
+        bnd = decode_step_bound(torch, pack, ro, cache, scales, bias, POS, src=src)
+        print(f"K3 at {b} rows ({'int8' if int8_kv else 'bf16'}-KV, "
+              f"{'table' if table else 'shared position, no table'}) pos {POS} Tmax "
+              f"{T_MAX}: {dev_ms:.4f} ms device-only, {dev_ms / b:.4f} ms a row, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows_cases.append({"rows": b, "kv": "int8" if int8_kv else "bf16", "table": table,
+                           "device_ms": dev_ms, **bnd})
+    print(f"K3 rows: every row bit-equal across 1 / 3 / 4 / 6 / 12 rows: {bit_equal}")
+    for r in results:
+        if r["name"] == "fused_decode_step_batch":
+            r["rows_cases"], r["rows_bit_equal"] = rows_cases, bit_equal
 
 
 def random_trunk_int4(torch, dev, seed: int, group: int):
@@ -2506,25 +2601,29 @@ def check_served_through_graphs(tag, engine, before: dict, metrics):
 
 
 def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs",),
-                            retry=False):
+                            retry=False, call=None):
     """The same request on `engine` with its loops op by op
     (`DeviceLoops(capture=False)`) and then as its graphs, from the same
     generator state (and, with `retry`, an empty cap memory, so that a beam
     decode hits the bucket's cap and retries at the full cap after
-    `set_state`): every decode's codes, lengths, limit flag, steps and
-    chunks, the CFM mel and the WAV bit-equal.  Each name in `runs` is one
-    more graph request; the last must capture nothing (a replay)."""
+    `set_state`, or on the jobs' own streams): every decode's codes,
+    lengths, limit flag, steps and chunks, the CFM mel and the WAV
+    bit-equal.  `call` replaces `engine.infer(prompt, text)` (an
+    `infer_batch`: every result's WAV).  Each name in `runs` is one more
+    graph request; the last must capture nothing (a replay)."""
     import numpy as np
     from voice_tts_tpu_torch.engine import engine as eng_mod
     from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 
     graphs = engine.loops
+    call = call or (lambda: engine.infer(prompt, text))
     state, hint = engine.generator.get_state(), dict(engine._cap_hint)
     names = ("uncaptured",) + tuple(runs)
     recs = {}
     for name in names:
         rec = {"decodes": [], "mels": []}
-        originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode")}
+        originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode",
+                                                      "beam_decode_fused_batch")}
 
         def wrap(fn):
             def recorded(*a, **kw):
@@ -2547,7 +2646,7 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
         before = dict(graphs.stats)
         try:
             t0 = time.perf_counter()
-            out = engine.infer(prompt, text)
+            out = call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -2564,7 +2663,8 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
                 for a, b in zip(d, r)) for d, r in zip(rec["decodes"], ref["decodes"]))
             and len(rec["mels"]) == len(ref["mels"])
             and all(torch.equal(a, b) for a, b in zip(rec["mels"], ref["mels"]))
-            and np.array_equal(out.wav, ref_out.wav))
+            and all(np.array_equal(a.wav, b.wav) for a, b in
+                    zip(*(o if isinstance(o, list) else [o] for o in (out, ref_out)))))
         print(f"[{tag}] {name} against uncaptured: decodes (steps, chunks) "
               f"{[(d[3], d[4]) for d in rec['decodes']]} vs "
               f"{[(d[3], d[4]) for d in ref['decodes']]}, {len(rec['mels'])} CFM mel(s), "
@@ -2604,7 +2704,295 @@ def run_production_slice(torch, dev, counters):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # beam-3 int8 KV with the cap retry (511, then 1499 after set_state)
     compare_with_uncaptured(torch, dev, engine, "serving", prompt, text, retry=True)
-    return launches, engine.vocoder
+    return launches, engine
+
+
+# the batched phase's code cap: random weights never stop, so every decode
+# runs to it (the production slice's 1500 would take a minute a part)
+BATCH_CAP = 512
+# four requests of one text bucket (32 in production, 48 in bench), texts of
+# 20, 8, 11 and 13 tokens, over two speakers
+BATCH_TEXTS = ("欢迎大家来体验这个语音合成系统谢谢大家.", "欢迎大家来体验.",
+               "语音合成系统谢谢大家.", "这个语音合成系统欢迎大家.")
+# three and two segments at 12 tokens a segment
+SEGMENT_TEXT = "欢迎大家来体验. 这个语音合成系统. 谢谢大家."
+STREAM_TEXT = "欢迎大家来体验. 这个语音合成系统."
+
+
+def _batch_requests():
+    prompts = (tone_prompt(5.0, 22050), tone_prompt(4.0, 22050))
+    return [{"spk_audio_prompt": prompts[i % 2], "text": t}
+            for i, t in enumerate(BATCH_TEXTS)], prompts
+
+
+def _job_codes(engine):
+    """Record the codes each segment was synthesized from, in segment order:
+    the jobs of `_run_segment_jobs` (batched) and each decode of
+    `_synthesize_segment` (one segment at a time); returns the list and the
+    function that puts the engine back."""
+    seen = []
+    jobs_fn, beam, sampled = (engine._run_segment_jobs, engine._decode_beam,
+                              engine._decode_sampled)
+
+    def rec_jobs(jobs, *a, **kw):
+        jobs_fn(jobs, *a, **kw)
+        seen.extend(j["codes"][:j["code_len"]].tolist() for j in jobs)
+
+    def rec_decode(fn):
+        def run(*a, **kw):
+            codes, code_len, cbucket = fn(*a, **kw)
+            seen.append(codes[0, :int(code_len[0])].tolist())
+            return codes, code_len, cbucket
+        return run
+    engine._run_segment_jobs = rec_jobs
+    engine._decode_beam, engine._decode_sampled = rec_decode(beam), rec_decode(sampled)
+
+    def restore():
+        del engine._run_segment_jobs, engine._decode_beam, engine._decode_sampled
+    return seen, restore
+
+
+def _timed(torch, engine, call):
+    """(result, wall s, the engine's last_metrics, the codes of its jobs)."""
+    seen, restore = _job_codes(engine)
+    try:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    return out, wall, dict(engine.last_metrics), seen
+
+
+def _same_codes(tag, a, b):
+    """Fail unless two runs synthesized the same codes, job by job."""
+    lens = ([len(c) for c in a], [len(c) for c in b])
+    same = a == b
+    print(f"{tag}: codes a job {lens[0]} vs {lens[1]}, equal {same}")
+    if not same:
+        first = [next((t for t, (u, v) in enumerate(zip(x, y)) if u != v), min(len(x), len(y)))
+                 for x, y in zip(a, b)]
+        fail(f"{tag}: the codes differ (first differing code a job {first})")
+
+
+# four speakers no earlier phase conditioned: prompt seconds of a cold group
+COLD_PROMPT_S = (3.0, 3.5, 4.5, 6.0)
+
+
+def _cold_entries(engine, prompts):
+    """Each cold prompt's conditioning entry from one group forward
+    (`_speaker_conditioning_batch`, 4 rows) and alone (`_speaker_
+    conditioning`, 1 row); the engine's cache is left without them."""
+    keys = [engine._content_key(p) for p in prompts]
+    if any(k in engine._spk_cache for k in keys):
+        fail("[batched] a cold-conditioning prompt was already cached")
+    engine._speaker_conditioning_batch(prompts)
+    grouped = [engine._spk_cache.pop(k) for k in keys]
+    alone = []
+    for p, k in zip(prompts, keys):
+        engine._speaker_conditioning(p)
+        alone.append(engine._spk_cache.pop(k))
+    for g, a in zip(grouped, alone):
+        if g["mel_frames"] != a["mel_frames"]:
+            fail(f"[batched] cold conditioning: mel frames {g['mel_frames']} != "
+                 f"{a['mel_frames']}")
+    return keys, grouped, alone
+
+
+def _entry_errs(entries, refs):
+    """Each cached tensor's largest |entry - ref| / max(1, max|ref|) over
+    the prompts."""
+    errs = {}
+    for e, r in zip(entries, refs):
+        for name, ref in r.items():
+            if name != "mel_frames":
+                err = float((e[name].float() - ref.float()).abs().max())
+                scale = max(1.0, float(ref.float().abs().max()))
+                errs[name] = max(errs.get(name, 0.0), err / scale)
+    return errs
+
+
+def check_cold_conditioning(torch, engine, f32_engine, card):
+    """Four cold speakers conditioned in one group against each alone, on
+    the production engine (bf16 conditioning) and on `f32_engine` (f32
+    conditioning, the same seed's weights): each cached tensor's largest
+    difference, and whether one greedy request of the first speaker decodes
+    the same codes from either production entry (random weights: any
+    rounding can flip a near-tie, so that is reported, not required).  A
+    group changes a row's rounding (cuBLAS and cuFFT pick their kernels by
+    the row count; the log of a near-silent mel bin of a pure-tone prompt
+    magnifies an FFT's rounding), so the check fails only where a mixed-up
+    row would show: an f32 tensor moved by more than COND_TOL, or a bf16
+    one moved by more than twice what bf16 rounding (its alone entry
+    against the f32 one) or the f32 group moves it, or 1e-4."""
+    prompts = [tone_prompt(sec, 22050) for sec in COLD_PROMPT_S]
+    keys, grouped, alone = _cold_entries(engine, prompts)
+    _, grouped32, alone32 = _cold_entries(f32_engine, prompts)
+    group_bf16 = _entry_errs(grouped, alone)
+    group_f32 = _entry_errs(grouped32, alone32)
+    bf16_rounding = _entry_errs(alone, alone32)
+    codes = []
+    for entry in (grouped[0], alone[0]):
+        engine._spk_cache[keys[0]] = entry
+        codes.append(_timed(torch, engine, lambda: engine.infer(
+            prompts[0], BATCH_TEXTS[0], do_sample=False))[3])
+    del engine._spk_cache[keys[0]]
+    print(f"[batched] cold speakers conditioned in a group of 4 against alone ({card}); "
+          f"largest |difference| / max(1, max|alone|) a tensor: bf16 group "
+          f"{json.dumps(group_bf16)}; f32 group {json.dumps(group_f32)}; bf16 alone "
+          f"against f32 alone {json.dumps(bf16_rounding)}; greedy codes of one request "
+          f"from the group's entry and the lone one equal {codes[0] == codes[1]} "
+          f"(lengths {[len(c[0]) for c in codes]})")
+    for name, r in bf16_rounding.items():
+        bound = max(2 * max(r, group_f32[name]), 1e-4)
+        if group_f32[name] > COND_TOL or group_bf16[name] > bound:
+            fail(f"[batched] cold conditioning: a group of 4 moves {name} by "
+                 f"{group_bf16[name]:.3e} in bf16 (bound {bound:.3e}) and "
+                 f"{group_f32[name]:.3e} in f32 (bound {COND_TOL})")
+
+
+def run_batched_slice(torch, dev, counters, engine, card):
+    """The batched and long-form paths at the flagship widths, the codes cut
+    to BATCH_CAP: (1) on the production engine `infer_batch` of 4 requests
+    (two speakers, one text bucket), beam-3 sampling: one 12-row K3 decode
+    through replayed graphs, K3 once a step it executed, K1 never, against
+    the same requests at `beam_batch_rows = 3` (one request a decode, each
+    on its own stream) and against its loops op by op (the cap retry after
+    reseeding every stream); (2) a 3-segment
+    `infer` with `batch_segments` on and off (greedy: the same codes a
+    segment); (3) `infer(stream_return=True)` against `infer`'s WAV from the same generator state; (4) a bench
+    engine with `use_fused_batch_decode`: `infer_batch` of the 4 requests,
+    greedy, K3 at 4 rows and one shared position, K1 never, against each
+    request alone through K1, after four cold speakers conditioned in one
+    group against each alone on both engines (`check_cold_conditioning`).
+    Returns the launches of (1) and (4) together."""
+    import dataclasses
+
+    import numpy as np
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
+
+    e, gen0 = engine.cfg.engine, engine.cfg.generation
+    engine.cfg.generation = dataclasses.replace(gen0, max_mel_tokens=BATCH_CAP)
+    reqs, prompts = _batch_requests()
+    torch.cuda.reset_peak_memory_stats()
+    launches, timing = {}, {}
+
+    # (1) batched beam against one request a decode
+    state = engine.generator.get_state()
+    runs = {}
+    for name, rows in (("batched cold", 12), ("batched", 12), ("sequential cold", 3),
+                       ("sequential", 3)):
+        e.beam_batch_rows = rows
+        engine.generator.set_state(state)
+        counters.reset()
+        runs[name] = _timed(torch, engine, lambda: engine.infer_batch(reqs))
+        if name == "batched":
+            launches = counters.snapshot()
+    e.beam_batch_rows = 12
+    out_b, wall_b, m_b, codes_b = runs["batched"]
+    out_s, wall_s, m_s, codes_s = runs["sequential"]
+    print(f"[batched] production infer_batch of 4 requests, beam-3, cap {BATCH_CAP} "
+          f"({card}): batched (one 12-row K3 decode) wall {wall_b:.4f} s, gpt_gen_time "
+          f"{m_b['gpt_gen_time']:.4f} s, synthesis {m_b['synthesis_time']:.4f} s; "
+          f"sequential (beam_batch_rows 3, 4 decodes) wall {wall_s:.4f} s, gpt_gen_time "
+          f"{m_s['gpt_gen_time']:.4f} s; cold walls {runs['batched cold'][1]:.4f} / "
+          f"{runs['sequential cold'][1]:.4f} s; decodes {m_b['decode_runs']} / "
+          f"{m_s['decode_runs']}, steps {m_b['decode_steps']} / {m_s['decode_steps']}")
+    timing["production"] = {"batched_wall_s": wall_b, "batched_gpt_gen_s": m_b["gpt_gen_time"],
+                            "sequential_wall_s": wall_s,
+                            "sequential_gpt_gen_s": m_s["gpt_gen_time"]}
+    _same_codes("[batched] replayed batched run against the capturing one",
+                runs["batched cold"][3], codes_b)
+    _same_codes("[batched] 12-row batched beam against one request a decode", codes_b,
+                codes_s)
+    if not all(np.array_equal(a.wav, b.wav) for a, b in zip(out_b, out_s)):
+        fail("[batched] the batched and sequential WAVs differ with the same codes")
+    check_decode_launches("batched", launches, [m_b], "fused_decode_step_batch")
+    if launches["fused_decode_step"] != 0 or m_b["decode_runs"] != 1:
+        fail("[batched] the 4 requests did not decode as one K3 run")
+    cptt = e.codes_per_text_token
+    e.codes_per_text_token = 4.0        # a 256-code first cap: every row retries
+    # the first graph run captures the 256-code key, the second replays
+    compare_with_uncaptured(torch, dev, engine, "batched", None, None,
+                            runs=("capture", "replay"), retry=True,
+                            call=lambda: engine.infer_batch(reqs))
+    e.codes_per_text_token = cptt
+    print(f"[batched] peak device memory (production engine, 12-row decode): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (2) multi-segment, greedy, batch_segments on and off
+    seg = {}
+    for on in (True, False):
+        e.batch_segments = on
+        engine.generator.set_state(state)
+        seg[on] = _timed(torch, engine, lambda: engine.infer(
+            prompts[0], SEGMENT_TEXT, max_text_tokens_per_segment=12, do_sample=False))
+    e.batch_segments = True
+    print(f"[batched] 3-segment infer, greedy beam-3 ({card}): batch_segments on wall "
+          f"{seg[True][1]:.4f} s, gpt_gen_time {seg[True][2]['gpt_gen_time']:.4f} s; "
+          f"off wall {seg[False][1]:.4f} s, gpt_gen_time "
+          f"{seg[False][2]['gpt_gen_time']:.4f} s")
+    timing["segments"] = {"batched_wall_s": seg[True][1],
+                          "batched_gpt_gen_s": seg[True][2]["gpt_gen_time"],
+                          "sequential_wall_s": seg[False][1],
+                          "sequential_gpt_gen_s": seg[False][2]["gpt_gen_time"]}
+    if len(seg[True][3]) != 3:
+        fail(f"[batched] the segment text made {len(seg[True][3])} segments, not 3")
+    _same_codes("[batched] segments batched against one after another", seg[True][3],
+                seg[False][3])
+
+    # (3) streaming against infer's WAV, from one generator state
+    e.batch_segments = False
+    engine.generator.set_state(state)
+    hint = dict(engine._cap_hint)
+    whole = engine.infer(prompts[0], STREAM_TEXT, max_text_tokens_per_segment=12,
+                         do_sample=False)
+    engine.generator.set_state(state)
+    engine._cap_hint = hint
+    t0 = time.perf_counter()
+    chunks = list(engine.infer(prompts[0], STREAM_TEXT, max_text_tokens_per_segment=12,
+                               do_sample=False, stream_return=True))
+    wall_stream = time.perf_counter() - t0
+    e.batch_segments = True
+    joined = np.concatenate(chunks)
+    print(f"[batched] streaming: {len(chunks)} chunks {[len(c) for c in chunks]} in "
+          f"{wall_stream:.4f} s; joined equal to infer's WAV "
+          f"{np.array_equal(joined, whole.wav)}")
+    if len(chunks) != 3 or chunks[1].any() or not np.array_equal(joined, whole.wav):
+        fail("[batched] the streamed chunks are not infer's segments and silence")
+    # (4) the bench engine's batched sampling decode (greedy) against K1
+    cfg = bench_config()
+    cfg.engine.use_fused_batch_decode = True
+    cfg.generation.do_sample = False
+    bench = TTSEngine.random(cfg, device=dev, seed=0)
+    check_cold_conditioning(torch, engine, bench, card)
+    engine.cfg.generation = gen0
+    bench.infer_batch(reqs)                        # captures the 4-row key
+    counters.reset()
+    out_b, wall_b, m_b, codes_b = _timed(torch, bench, lambda: bench.infer_batch(reqs))
+    got = counters.snapshot()
+    check_decode_launches("batched bench", got, [m_b], "fused_decode_step_batch")
+    if got["fused_decode_step"] != 0 or m_b["decode_runs"] != 1:
+        fail("[batched bench] the 4 requests did not decode as one K3 run")
+    for r in reqs:                                 # captures the K1 key
+        bench.infer(r["spk_audio_prompt"], r["text"])
+    seq, wall_s, gen_s = [], 0.0, 0.0
+    for r in reqs:
+        _, wall, m, codes = _timed(torch, bench, lambda: bench.infer(
+            r["spk_audio_prompt"], r["text"]))
+        seq += codes
+        wall_s, gen_s = wall_s + wall, gen_s + m["gpt_gen_time"]
+    print(f"[batched] bench infer_batch of 4 requests, greedy, cap 256 ({card}): batched "
+          f"(K3 at 4 rows) wall {wall_b:.4f} s, gpt_gen_time {m_b['gpt_gen_time']:.4f} s; "
+          f"one at a time (K1) wall {wall_s:.4f} s, gpt_gen_time {gen_s:.4f} s")
+    timing["bench"] = {"batched_wall_s": wall_b, "batched_gpt_gen_s": m_b["gpt_gen_time"],
+                       "sequential_wall_s": wall_s, "sequential_gpt_gen_s": gen_s}
+    _same_codes("[batched bench] K3 at 4 rows against each request through K1", codes_b,
+                seq)
+    print("[batched] timing: " + json.dumps(timing))
+    del bench
+    return {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
 
 
 def run_bench_slice(torch, dev, counters):
@@ -2941,16 +3329,17 @@ def vocoder_ab(torch, dev, vocoder):
 # ---------------------------------------------------------------------------
 
 KERNEL_CHECKS = {"k2": check_k2, "k4": check_k4, "k1": check_k1, "k3": check_k3,
-                 "k7": check_k7, "k6": check_k6, "attention": check_attention,
+                 "k3rows": check_k3_rows, "k7": check_k7, "k6": check_k6, "attention": check_attention,
                  "k8": check_k8, "k5": check_k5, "k10": check_k10}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS) + ["vocoder"],
+    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS) + ["vocoder", "batched"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
-                         "the vocoder A/B on a flagship BigVGAN with random weights")
+                         "the vocoder A/B on a flagship BigVGAN with random weights, "
+                         "`batched` the batched phase on a production engine of its own")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -2967,6 +3356,10 @@ def main():
         for name in args.only:
             if name == "vocoder":
                 vocoder_ab(torch, dev, flagship_vocoder(torch, dev, 13))
+            elif name == "batched":
+                from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+                run_batched_slice(torch, dev, counters, TTSEngine.random(
+                    serving_config(), device=dev, seed=0), card)
             else:
                 KERNEL_CHECKS[name](torch, dev, results)
         print(card)
@@ -2984,7 +3377,10 @@ def main():
     check_tiny_engine_k5(torch, dev, counters)
     check_tiny_engine_k5_int8(torch, dev, counters)
     check_tiny_engine_vocoders(torch, dev, counters)
-    by_path["serving"], vocoder = run_production_slice(torch, dev, counters)
+    by_path["serving"], engine = run_production_slice(torch, dev, counters)
+    by_path["batched"] = run_batched_slice(torch, dev, counters, engine, card)
+    vocoder = engine.vocoder
+    del engine
     torch.cuda.empty_cache()
     by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
     torch.cuda.empty_cache()

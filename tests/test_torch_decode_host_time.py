@@ -3,6 +3,8 @@ on the CPU: the tiny engine through each profile's decode loop, one timed
 chain call a decode step (the spec profile: three draft chains and one
 verify a round; the dit profile one K8 call an Euler step; the k5 profile
 one K5 call a layer and step) and the timed functions put back afterwards;
+the rates profile (the three decode step times, K1 and K3 each at their
+row count) and the memory profile (`infer_batch` groups of 6 and 12 rows);
 and without a card the default `--device cuda` exits at once."""
 
 import json
@@ -117,6 +119,45 @@ def test_tiny_k5_profile_times_each_k5_call(capsys):
         assert r["profile"] == "k5" and r["decode_steps"] > 0
         assert r["chain_calls"] == layers * r["decode_steps"]
         assert 0 < r["chain_host_ms_median"] and r["gpt_gen_time"] > 0
+
+
+def test_tiny_rates_profile_times_each_decode_arm(monkeypatch, capsys):
+    """The rates profile: one line a step time of `DECODE_STEP_MS`, each a
+    positive ms a step over `--requests` timed runs; "k1" steps K1 at one
+    row, "k3_batch" K3 at 4 rows, "eager" neither."""
+    calls = {"fused_decode_step": [], "fused_decode_step_batch": []}
+    for name, seen in calls.items():
+        fn = getattr(decode, name)
+        monkeypatch.setattr(decode, name, lambda x, *a, _fn=fn, _seen=seen, **kw:
+                            _seen.append(x.shape[0]) or _fn(x, *a, **kw))
+    rows = script.main(["--tiny", "--device", "cpu", "--requests", "2",
+                        "--profiles", "rates"])
+    assert [(r["rate"], r["rows"]) for r in rows] == [("k1", 1), ("k3_batch", 4),
+                                                      ("eager", 4)]
+    for r in rows:
+        assert r["profile"] == "rates" and len(r["steps"]) == 2 and min(r["steps"]) > 0
+        assert 0 < r["step_ms_min"] <= r["step_ms"] <= r["step_ms_max"]
+    # three decodes (warm-up and two timed) a fused arm, each a step a call
+    assert set(calls["fused_decode_step"]) == {1}
+    assert set(calls["fused_decode_step_batch"]) == {4}
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert out == rows
+
+
+def test_tiny_memory_profile_serves_each_group(capsys):
+    """The memory profile: `infer_batch` of 2 and 4 requests (beam-3: 6 and
+    12 K3 rows) in each of its two texts, one decode or more a group, one
+    line a group; off the card the memory reads are None."""
+    rows = script.main(["--tiny", "--device", "cpu", "--profiles", "memory"])
+    assert [(r["requests"], r["rows"]) for r in rows] == [(2, 6), (4, 12)] * 2
+    for r in rows:
+        assert r["profile"] == "memory" and r["decode_runs"] >= 1
+        assert r["decode_steps"] > 0 and r["gpt_gen_time"] > 0
+        assert r["max_allocated_gib"] is None and r["allocated_gib"] is None
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert out == rows
 
 
 def test_refuses_without_cuda():

@@ -4,6 +4,7 @@ bf16 GPT, greedy decoding; the port's engine holds the same weights
 (converted) and runs on the CPU (the kernels' plain versions)."""
 
 import asyncio
+import inspect
 import json
 
 import jax
@@ -164,17 +165,34 @@ def test_infer_passes_more_segment_before(engines, monkeypatch):
     assert seen == jseg
 
 
+def test_stream_return_returns_the_generator(engines, monkeypatch):
+    """`stream_return=True` returns `infer_generator`'s generator (JAX
+    `infer`'s contract): the segments' waveforms as they are made, here
+    with each segment's synthesis stubbed out, and the silence between."""
+    jeng, peng = engines
+    wav = prompt_wav()
+    monkeypatch.setattr(peng, "_synthesize_segment",
+                        lambda seg, *_: np.ones(len(seg), np.int16))
+    out = peng.infer(wav, SEGMENT_TEXT, max_text_tokens_per_segment=24,
+                     stream_return=True)
+    assert inspect.isgenerator(out)
+    _, _, jseg = jeng._prepare(wav, None, 1.0, None, False, None, False,
+                               SEGMENT_TEXT, 24, 0)
+    chunks = list(out)
+    assert [len(c) for c in chunks[::2]] == [len(s) for s in jseg]
+    assert len(chunks) == 2 * len(jseg) - 1 and not any(c.any() for c in chunks[1::2])
+
+
 @pytest.mark.parametrize("kwargs,error", [
-    ({"stream_return": True}, NotImplementedError),
     ({"use_emo_text": True}, NotImplementedError),
     ({"use_emo_text": True, "emo_text": "happy"}, NotImplementedError),
     ({"no_such_keyword": 1}, TypeError),
     ({"do_sample": False, "top_q": 0.5}, TypeError),
 ])
 def test_infer_keyword_raises(engines, kwargs, error):
-    """The unported keywords (`stream_return`: the segment generator;
-    `use_emo_text`: the Qwen emotion model) and any keyword that is not a
-    GenerationConfig field raise before any work, instead of being dropped."""
+    """The unported keyword (`use_emo_text`: the Qwen emotion model) and any
+    keyword that is not a GenerationConfig field raise before any work,
+    instead of being dropped."""
     _, peng = engines
     with pytest.raises(error):
         peng.infer(prompt_wav(), TEXT, **kwargs)

@@ -21,9 +21,10 @@ replay.  A key's first chunk (or solve) runs op by op on the cache's side
 stream, the warm-up in which each kernel's first launch sets its
 attributes; then the graph is captured on that stream into one memory pool
 that all keys share.  No tensor of the pool outlives a replay: results go
-to the static tensors.  The generator of the draws is registered with the
-graph, so a replayed draw advances it as the op-by-op draw does, and a
-caller that restores its state (`set_state`) replays the same stream.  A
+to the static tensors.  The generators of the draws (one, or one a request
+of a batched beam) are registered with the graph, so a replayed draw
+advances each as the op-by-op draw does, and a caller that restores their
+states (`set_state`, `manual_seed`) replays the same streams.  A
 capture or replay error propagates: nothing here falls back to the op-by-op
 run.
 
@@ -36,7 +37,7 @@ including the at most CHUNK - 1 steps after the stop.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -44,6 +45,9 @@ from voice_tts_tpu_torch.ops import counters
 
 # decode steps a chunk: one host read a chunk (chosen on the card, PERF §6)
 CHUNK = 16
+
+# the generators a loop draws from: none, one, or one a request
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 
 
 def read_flag(flag: torch.Tensor) -> bool:
@@ -114,15 +118,17 @@ class DeviceLoops:
         return self._stream
 
     def _capture(self, entry: _Key, fn: Callable[[], None],
-                 generator: Optional[torch.Generator]) -> None:
+                 generator: Generators) -> None:
         """Capture `fn` (which writes its results into static tensors) on the
         side stream into the shared pool; its launch counts move from the
         counters to the key's launches a replay."""
         t0 = time.perf_counter()
         side = self._side()
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
+        if isinstance(generator, torch.Generator):
+            generator = (generator,)
+        for g in generator or ():
+            graph.register_generator_state(g)
         before = counters.snapshot()
         with torch.cuda.graph(graph, pool=self._pool, stream=side):
             fn()
@@ -150,7 +156,7 @@ class DeviceLoops:
         main.wait_stream(side)
 
     def chunks(self, key: tuple, state: NamedTuple, chunk: Callable, active: Callable,
-               generator: Optional[torch.Generator]) -> Tuple[NamedTuple, int]:
+               generator: Generators) -> Tuple[NamedTuple, int]:
         """`run_chunks` on the key's graph; `state` holds static tensors of
         `bind` and is updated in place.  The caller has read the flag before
         the first chunk."""
@@ -178,7 +184,7 @@ class DeviceLoops:
 
     def once(self, key: tuple, inputs: Dict[str, torch.Tensor],
              fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Generators) -> torch.Tensor:
         """`run_once` on the key's graph."""
         static = self.bind(key, inputs)
         entry = self._keys[key]
@@ -204,7 +210,7 @@ def bind(loops: Optional[DeviceLoops], key: tuple,
 def run_chunks(state: NamedTuple, step: Callable[[NamedTuple], NamedTuple],
                active: Callable[[NamedTuple], torch.Tensor], chunk: int,
                loops: Optional[DeviceLoops], key: tuple,
-               generator: Optional[torch.Generator] = None) -> Tuple[NamedTuple, int]:
+               generator: Generators = None) -> Tuple[NamedTuple, int]:
     """Run the predicated `step` `chunk` steps at a time while `active(state)`
     (a 0-d bool tensor) holds: the JAX `while_loop`, tested on the host once
     before the first chunk and once after each.  Returns (the final state,
@@ -232,7 +238,7 @@ def run_chunks(state: NamedTuple, step: Callable[[NamedTuple], NamedTuple],
 def run_once(inputs: Dict[str, torch.Tensor],
              fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
              loops: Optional[DeviceLoops], key: tuple,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Generators = None) -> torch.Tensor:
     """fn(inputs) -> one tensor, as a graph of the key replayed with `inputs`
     copied into its static inputs when `loops` captures (a copy of the
     result is returned), else op by op."""

@@ -1,5 +1,6 @@
-"""TTSEngine: the single-request inference path, PyTorch + CUDA
-(`voice_tts_tpu/engine/engine.py`: `infer`, `_prepare`, `_decode_cap`,
+"""TTSEngine: the inference engine, PyTorch + CUDA
+(`voice_tts_tpu/engine/engine.py`: `infer`, `infer_generator`,
+`infer_batch` and its job machinery, `to_device`, `_prepare`, `_decode_cap`,
 `_observe_code_len` and both arms of `_synthesize_segment`).
 
 One segment runs eagerly: AR decode -> silence trim -> teacher-forced GPT
@@ -51,14 +52,23 @@ package.  The vocoder follows the JAX engine's variant flags:
 activations) or `use_fused_vocoder` (the late stages through K10), each
 built once here from the BigVGAN module's weights.
 
+Several requests, and the segments of a long text, decode together
+(`infer_batch`; `infer` with `batch_segments` when `_should_batch_segments`
+weighs the card's step times `DECODE_STEP_MS` in favour): grouped by text
+bucket in sub-batches of `server.max_batch_size`, padded to a power of 2,
+at the bucket's learned cap with one full-cap retry of the rows that hit
+it.  Beam search packs `beam_batch_rows // K` requests into one K3 step of
+up to 12 rows (`beam_decode_fused_batch`, each request on a stream of its
+own); sampling with `use_fused_batch_decode` runs K3 over the rows at one
+shared position.  The s2mel and the vocoder then run at the batch of a
+code bucket.  `infer_generator` (and `infer(stream_return=True)`) yields
+each segment's waveform as it is made; `to_device` moves a replica.
+
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
-setting of the Mosaic kernels, which the CUDA chain does not have),
-`use_fused_batch_decode` (the batched sampling decode: the server takes one
-request at a time), and `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` /
-`batch_segments` (graph and dispatch settings of the JAX engine; segments
-run one after another).  Left out: `infer_batch`, streaming
-(`infer_generator`; `infer(stream_return=True)` raises), the Qwen text
-emotion model (`infer(use_emo_text=True)` raises), and `tensor_parallel > 1`
+setting of the Mosaic kernels, which the CUDA chain does not have), and
+`fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` (graph and dispatch
+settings of the JAX engine).  Left out: the Qwen text emotion model
+(`infer(use_emo_text=True)` raises), and `tensor_parallel > 1`
 (constructing with it raises).
 """
 
@@ -84,7 +94,8 @@ from voice_tts_tpu_torch.models.conditioning.campplus import CAMPPlus
 from voice_tts_tpu_torch.models.conditioning.repcodec import (RepCodec,
                                                               repcodec_vq2emb)
 from voice_tts_tpu_torch.models.conditioning.w2v_bert import Wav2Vec2Bert
-from voice_tts_tpu_torch.models.gpt.beam import beam_decode
+from voice_tts_tpu_torch.models.gpt.beam import (beam_decode, beam_decode_batch,
+                                                 beam_decode_fused_batch)
 from voice_tts_tpu_torch.models.gpt.decode import decode as gpt_decode
 from voice_tts_tpu_torch.models.gpt.decode import spec_decode
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
@@ -112,6 +123,24 @@ from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
 # the K8 trunk's frame limit (prompt bucket + mel bucket), as the JAX engine
 FUSED_DIT_MAX_FRAMES = 768
+
+# ms a decode step of the flagship bench configuration on one card, the
+# rates `_should_batch_segments` weighs: "k1" the one-row K1 device loop,
+# "k3_batch" the batched sampling decode's K3 device loop at 4 rows, "eager"
+# the unfused step's host loop at 4 rows (medians of 3 runs of 254 and 31
+# steps, each decode's wall over its steps: the prefill included, one a row
+# in the batched decode).  Measured on NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit by `python -m voice_tts_tpu_torch.scripts.decode_host_time
+# --profiles rates`.
+DECODE_STEP_MS = {"k1": 1.1121, "k3_batch": 1.8966, "eager": 41.5748}
+
+# the keys an `infer_batch` request dict may hold: `infer`'s keywords that a
+# request of a group can carry (every request decodes with the engine's
+# GenerationConfig, so a per-request generation field is refused too)
+BATCH_REQUEST_KEYS = frozenset({
+    "spk_audio_prompt", "text", "emo_audio_prompt", "emo_alpha", "emo_vector",
+    "use_emo_text", "emo_text", "use_random", "interval_silence", "verbose",
+    "max_text_tokens_per_segment", "more_segment_before", "quick_streaming_tokens"})
 
 
 @dataclasses.dataclass
@@ -362,6 +391,8 @@ class TTSEngine:
         self._cap_hint: Dict[int, int] = {}
         self._gen_cache: Dict[tuple, object] = {}
         self.generator = torch.Generator(device=dev).manual_seed(e.seed)
+        # row slots of the request-batched decodes, one stream a job
+        self._job_streams: List[torch.Generator] = []
         # the captured device loops (decode chunks, CFM solve) on the card
         self.loops = device_loop.DeviceLoops(dev) if dev.type == "cuda" else None
         self._step_tables: Dict[bool, dict] = {}
@@ -379,6 +410,57 @@ class TTSEngine:
         quantized runtime state is int8 + bf16; the module is built f32)."""
         for name, t in list(module.named_parameters()) + list(module.named_buffers()):
             t.data = t.data.to(state[name].dtype)
+
+    def to_device(self, device) -> "TTSEngine":
+        """Move the engine to `device` (one replica per GPU, JAX
+        `to_device`): every module and runtime copy, the decode, readout,
+        DiT and vocoder packs, the frontends' and resamplers' buffers, the
+        w2v-bert statistics; the generator continues on the new device from
+        a seed drawn from the old one, the device loops become the new
+        device's (none on the CPU), and the speaker and emotion caches are
+        cleared.  A CUDA engine refuses to move to the CPU."""
+        dev = resolve_device(device)
+        if self.device.type == "cuda" and dev.type != "cuda":
+            raise ValueError(f"to_device: a CUDA engine does not move to {dev}")
+        moved: Dict[int, object] = {}
+
+        def put(x):
+            if isinstance(x, torch.nn.Module):
+                return x.to(dev)
+            if isinstance(x, torch.Tensor):
+                if id(x) not in moved:      # aliased tensors stay aliased
+                    moved[id(x)] = x.to(dev)
+                return moved[id(x)]
+            if isinstance(x, tuple):
+                items = [put(v) for v in x]
+                return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+            if isinstance(x, list):
+                return [put(v) for v in x]
+            if isinstance(x, dict):
+                return {k: put(v) for k, v in x.items()}
+            return x
+
+        for name in ("models", "gpt_rt", "w2v_rt", "repcodec_rt", "campplus_rt",
+                     "cond_gpt", "s2mel_rt", "fused_pack", "readout_pack",
+                     "spec_draft_pack", "dit_pack", "voc_pack", "w2v_mean", "w2v_std"):
+            setattr(self, name, put(getattr(self, name)))
+        for name in ("gpt", "s2mel", "vocoder", "campplus", "repcodec", "w2v"):
+            setattr(self, name, self.models[name])
+        for obj in (self.mel_fn, self.seamless, self.seamless.fbank, self.fbank,
+                    *self._resamplers.values()):
+            for attr, val in list(vars(obj).items()):
+                if isinstance(val, torch.Tensor):
+                    setattr(obj, attr, put(val))
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                 device=self.device))
+        self.device = dev
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self._job_streams = []
+        self.loops = device_loop.DeviceLoops(dev) if dev.type == "cuda" else None
+        self._step_tables.clear()
+        self._spk_cache.clear()
+        self._emo_cache.clear()
+        return self
 
     # ------------------------------------------------------------------
     # factories
@@ -463,21 +545,19 @@ class TTSEngine:
         emb = self.w2v_rt(feats.to(self._float_dtype(self.w2v_rt)), mask)
         return (emb.float() - self.w2v_mean) / self.w2v_std, mask.sum(dim=1)
 
-    @torch.no_grad()
-    def _speaker_conditioning(self, spk_audio_prompt) -> dict:
-        key = self._content_key(spk_audio_prompt)
-        if key in self._spk_cache:
-            self._spk_cache[key] = self._spk_cache.pop(key)   # LRU touch
-            return self._spk_cache[key]
-        audio, sr = load_prompt_audio(spk_audio_prompt,
-                                      self.cfg.engine.max_prompt_seconds)
-        buf16, n16, pre22, mel_frames = self._prepare_prompt_buffers(audio, sr)
+    def _conditioning_forward(self, rows: List[tuple]) -> Dict[str, torch.Tensor]:
+        """The new-speaker conditioning of the prompt buffers `rows` (each
+        `_prepare_prompt_buffers`'s (buf16, n16, pre22, mel_frames)) in one
+        forward over their batch: (B, ...) tensors under the cache entry's
+        names (`mel_frames` excepted)."""
         dev = self.device
-        audio16 = torch.from_numpy(buf16).to(dev)
-        n16_t = torch.tensor([n16], device=dev)
+        audio16 = torch.from_numpy(np.concatenate([r[0] for r in rows])).to(dev)
+        n16_t = torch.tensor([r[1] for r in rows], device=dev)
+        pre22 = torch.from_numpy(np.concatenate([r[2] for r in rows])).to(dev)
+        mel_frames = torch.tensor([r[3] for r in rows], device=dev)
         emb, w2v_len = self._w2v_features(audio16, n16_t)
         _, s_ref = self.repcodec_rt(emb.to(self._float_dtype(self.repcodec_rt)))
-        ref_mel = self.mel_fn.on_prepadded(torch.from_numpy(pre22).to(dev))
+        ref_mel = self.mel_fn.on_prepadded(pre22)
         fb = self.fbank(audio16)
         fb_frames = torch.clamp(torch.div(n16_t - 400, 160, rounding_mode="floor") + 1,
                                 min=0)
@@ -488,19 +568,60 @@ class TTSEngine:
         style = self.campplus_rt(fb.to(self._float_dtype(self.campplus_rt)),
                                  fb_frames).float()
         prompt_condition = self.s2mel.regulate(
-            s_ref.to(self._float_dtype(self.s2mel)), w2v_len,
-            torch.tensor([mel_frames], device=dev), self.prompt_mel_frames)
+            s_ref.to(self._float_dtype(self.s2mel)), w2v_len, mel_frames,
+            self.prompt_mel_frames)
         cond_emb = emb.to(self._float_dtype(self.cond_gpt))
-        entry = {
+        return {
             "emb": emb, "w2v_len": w2v_len, "ref_mel": ref_mel, "style": style,
-            "prompt_condition": prompt_condition, "mel_frames": mel_frames,
+            "prompt_condition": prompt_condition,
             "cond_latents": self.cond_gpt.get_conditioning(cond_emb, w2v_len),
             "spk_emovec": self.cond_gpt.get_emovec(cond_emb, w2v_len),
         }
+
+    def _spk_cache_put(self, key: str, entry: dict) -> None:
         while len(self._spk_cache) >= self._SPK_CACHE_CAP:      # LRU eviction
             self._spk_cache.pop(next(iter(self._spk_cache)))
         self._spk_cache[key] = entry
+
+    @torch.no_grad()
+    def _speaker_conditioning(self, spk_audio_prompt) -> dict:
+        key = self._content_key(spk_audio_prompt)
+        if key in self._spk_cache:
+            self._spk_cache[key] = self._spk_cache.pop(key)   # LRU touch
+            return self._spk_cache[key]
+        audio, sr = load_prompt_audio(spk_audio_prompt,
+                                      self.cfg.engine.max_prompt_seconds)
+        row = self._prepare_prompt_buffers(audio, sr)
+        entry = {**self._conditioning_forward([row]), "mel_frames": row[3]}
+        self._spk_cache_put(key, entry)
         return entry
+
+    @torch.no_grad()
+    def _speaker_conditioning_batch(self, prompts: List) -> None:
+        """Warm the conditioning cache for a group of prompts in one batched
+        forward over the new speakers (JAX `_speaker_conditioning_batch`):
+        rows padded to a power of 2 by repeating row 0, each new speaker's
+        row cached under its content hash as `_speaker_conditioning` would
+        cache it.  A row's entry is a rounding away from the speaker's
+        entry alone (the GEMMs and FFTs pick their kernels by the row
+        count), so a cold speaker's codes may differ between a group and a
+        lone request; a cached speaker's do not."""
+        missing: Dict[str, tuple] = {}
+        for p in prompts:
+            key = self._content_key(p)
+            if key in self._spk_cache:
+                self._spk_cache[key] = self._spk_cache.pop(key)   # LRU touch
+            elif key not in missing:
+                audio, sr = load_prompt_audio(p, self.cfg.engine.max_prompt_seconds)
+                missing[key] = self._prepare_prompt_buffers(audio, sr)
+        if not missing:
+            return
+        rows = list(missing.values())
+        rows += [rows[0]] * (self._batch_bucket(len(rows)) - len(rows))
+        out = self._conditioning_forward(rows)
+        for i, (key, row) in enumerate(missing.items()):
+            self._spk_cache_put(key, {**{k: v[i:i + 1] for k, v in out.items()},
+                                      "mel_frames": row[3]})
 
     @torch.no_grad()
     def _emotion_conditioning(self, emo_audio_prompt) -> torch.Tensor:
@@ -592,6 +713,44 @@ class TTSEngine:
             quick_streaming_tokens=quick_streaming_tokens)
         return spk, emovec, segments
 
+    @staticmethod
+    def _new_timers(**extra) -> Dict[str, float]:
+        """A request's stage timers and decode counts, at 0."""
+        return {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0, "s2mel_time": 0.0,
+                "bigvgan_time": 0.0, "decode_steps": 0, "decode_runs": 0,
+                "decode_chunks": 0, **extra}
+
+    def infer_generator(self, spk_audio_prompt, text: str,
+                        emo_audio_prompt=None, emo_alpha: float = 1.0,
+                        emo_vector: Optional[List[float]] = None,
+                        use_emo_text: bool = False, emo_text: Optional[str] = None,
+                        use_random: bool = False, interval_silence: int = 200,
+                        verbose: bool = False, max_text_tokens_per_segment: int = 120,
+                        quick_streaming_tokens: int = 0, **generation_kwargs):
+        """Streaming synthesis (JAX `infer_generator`): a generator of each
+        segment's int16 waveform, each followed by the silence gap but the
+        last.  `quick_streaming_tokens` keeps the first ~N tokens in smaller
+        unmerged segments (sooner first audio).  The keywords are checked
+        here (`use_emo_text=True` and unknown keywords raise); the
+        conditioning and the segments run as the generator is read."""
+        if use_emo_text:
+            raise NotImplementedError(
+                "use_emo_text=True needs the Qwen emotion model, which is not ported")
+        gen = self._generation_config(generation_kwargs)
+
+        def segments():
+            spk, emovec, segs = self._prepare(
+                spk_audio_prompt, emo_audio_prompt, emo_alpha, emo_vector, use_random,
+                text, max_text_tokens_per_segment, quick_streaming_tokens)
+            timers = self._new_timers()
+            sil = np.zeros(int(self.cfg.engine.sample_rate * interval_silence / 1000.0),
+                           dtype=np.int16)
+            for i, seg in enumerate(segs):
+                yield self._synthesize_segment(seg, spk, emovec, timers, gen)
+                if i < len(segs) - 1 and interval_silence > 0:
+                    yield sil
+        return segments()
+
     def infer(self, spk_audio_prompt, text: str, output_path: Optional[str] = None,
               emo_audio_prompt=None, emo_alpha: float = 1.0,
               emo_vector: Optional[List[float]] = None,
@@ -599,18 +758,24 @@ class TTSEngine:
               use_random: bool = False, interval_silence: int = 200,
               verbose: bool = False, max_text_tokens_per_segment: int = 120,
               stream_return: bool = False, more_segment_before: int = 0,
-              **generation_kwargs) -> InferenceResult:
+              **generation_kwargs):
         """Synthesize `text` in the voice of `spk_audio_prompt`.
 
-        The JAX `infer`'s signature.  `more_segment_before` keeps the first
-        ~N tokens in smaller unmerged segments; `emo_text` is read only with
-        `use_emo_text`, and `verbose` is accepted.  `stream_return=True`
-        (the segment generator) and `use_emo_text=True` (the Qwen emotion
-        model) are not ported and raise; so does a keyword that is neither
-        one of these nor a GenerationConfig field."""
+        The JAX `infer`'s signature: an InferenceResult, or with
+        `stream_return=True` the segment generator (`infer_generator`, with
+        `more_segment_before` as its `quick_streaming_tokens`).
+        `more_segment_before` keeps the first ~N tokens in smaller unmerged
+        segments; `emo_text` is read only with `use_emo_text`, and `verbose`
+        is accepted.  A multi-segment text decodes its segments together
+        through the batched job path when `_should_batch_segments` says so.
+        `use_emo_text=True` (the Qwen emotion model) is not ported and
+        raises; so does a keyword that is neither one of these nor a
+        GenerationConfig field."""
         if stream_return:
-            raise NotImplementedError(
-                "stream_return=True needs infer_generator, which is not ported")
+            return self.infer_generator(
+                spk_audio_prompt, text, emo_audio_prompt, emo_alpha, emo_vector,
+                use_emo_text, emo_text, use_random, interval_silence, verbose,
+                max_text_tokens_per_segment, more_segment_before, **generation_kwargs)
         if use_emo_text:
             raise NotImplementedError(
                 "use_emo_text=True needs the Qwen emotion model, which is not ported")
@@ -620,13 +785,16 @@ class TTSEngine:
         spk, emovec, segments = self._prepare(
             spk_audio_prompt, emo_audio_prompt, emo_alpha, emo_vector,
             use_random, text, max_text_tokens_per_segment, more_segment_before)
-        timers = {"gpt_gen_time": 0.0, "gpt_forward_time": 0.0,
-                  "s2mel_time": 0.0, "bigvgan_time": 0.0,
-                  "prepare_time": time.perf_counter() - start,
-                  "decode_steps": 0, "decode_runs": 0, "decode_chunks": 0}
+        timers = self._new_timers(prepare_time=time.perf_counter() - start)
         captured = self.loops.stats["capture_s"] if self.loops is not None else 0.0
-        wavs = [self._synthesize_segment(seg, spk, emovec, timers, gen)
-                for seg in segments]
+        if self._should_batch_segments(segments, gen):
+            # the segments decode together (wall ~ the longest segment)
+            jobs = [{"tokens": seg, "spk": spk, "emovec": emovec} for seg in segments]
+            self._run_segment_jobs(jobs, gen, timers)
+            wavs = [j["wav"] for j in jobs]
+        else:
+            wavs = [self._synthesize_segment(seg, spk, emovec, timers, gen)
+                    for seg in segments]
         if self.loops is not None:
             timers["capture_time"] = self.loops.stats["capture_s"] - captured
         full = post.insert_interval_silence(wavs, cfg.engine.sample_rate,
@@ -645,6 +813,296 @@ class TTSEngine:
             with open(output_path, "wb") as f:
                 f.write(encode_wav_int16(wav_i16, cfg.engine.sample_rate))
         return InferenceResult(wav_i16, cfg.engine.sample_rate, metrics)
+
+    # ------------------------------------------------------------------
+    # batched inference (JAX `infer_batch` and its job machinery)
+    # ------------------------------------------------------------------
+
+    def infer_batch(self, requests: List[dict]) -> List[InferenceResult]:
+        """Synthesize several requests together: the decode and the
+        s2mel / vocoder stages batched across their segments (JAX
+        `infer_batch`).  Each request dict takes `infer`'s keywords
+        (spk_audio_prompt, text, emo_audio_prompt, emo_alpha, emo_vector,
+        use_random, interval_silence, max_text_tokens_per_segment,
+        more_segment_before or quick_streaming_tokens); every request decodes
+        with the engine's GenerationConfig.  Results in request order, with
+        `inference_time`, `audio_length` and `rtf`; the group's stage timers
+        and decode counts go to `last_metrics`.  A key outside
+        `BATCH_REQUEST_KEYS` raises TypeError (it is not dropped in
+        silence)."""
+        cfg = self.cfg
+        start = time.perf_counter()
+        for i, req in enumerate(requests):
+            unknown = sorted(set(req) - BATCH_REQUEST_KEYS)
+            if unknown:
+                raise TypeError(f"infer_batch() request {i} has unexpected key(s) "
+                                f"{unknown}: requests decode with the engine's "
+                                "GenerationConfig")
+        if any(req.get("use_emo_text", False) for req in requests):
+            raise NotImplementedError(
+                "use_emo_text=True needs the Qwen emotion model, which is not ported")
+        # one batched conditioning forward for the group's new speakers
+        self._speaker_conditioning_batch([req["spk_audio_prompt"] for req in requests])
+        prepared, jobs = [], []
+        t_prep = time.perf_counter()
+        for ri, req in enumerate(requests):
+            spk, emovec, segments = self._prepare(
+                req["spk_audio_prompt"], req.get("emo_audio_prompt"),
+                req.get("emo_alpha", 1.0), req.get("emo_vector"),
+                req.get("use_random", False), req["text"],
+                req.get("max_text_tokens_per_segment", 120),
+                req.get("more_segment_before", req.get("quick_streaming_tokens", 0)))
+            prepared.append(req)
+            jobs += [{"req": ri, "seg": si, "tokens": seg, "spk": spk, "emovec": emovec}
+                     for si, seg in enumerate(segments)]
+        timers = self._new_timers(prepare_time=time.perf_counter() - t_prep)
+        captured = self.loops.stats["capture_s"] if self.loops is not None else 0.0
+        self._run_segment_jobs(jobs, cfg.generation, timers)
+        if self.loops is not None:
+            timers["capture_time"] = self.loops.stats["capture_s"] - captured
+        logger.info("infer_batch: %d req / %d jobs - prepare %.2f s, decode %.2f s, "
+                    "synthesis %.2f s", len(requests), len(jobs), timers["prepare_time"],
+                    timers["gpt_gen_time"], timers["synthesis_time"])
+        results: List[InferenceResult] = []
+        total = time.perf_counter() - start
+        for ri, req in enumerate(prepared):
+            wavs = [j["wav"] for j in sorted((j for j in jobs if j["req"] == ri),
+                                             key=lambda j: j["seg"])]
+            full = post.insert_interval_silence(wavs, cfg.engine.sample_rate,
+                                                req.get("interval_silence", 200))
+            wav_len = len(full) / cfg.engine.sample_rate
+            results.append(InferenceResult(full.astype(np.int16), cfg.engine.sample_rate, {
+                "inference_time": total, "audio_length": wav_len,
+                "rtf": total / wav_len if wav_len > 0 else 0.0}))
+        self.last_metrics = {**timers, "inference_time": total}
+        return results
+
+    def _should_batch_segments(self, segments: List[List[str]], gen) -> bool:
+        """Route a multi-segment `infer` to the batched job path only when
+        its decode is estimated faster than the segments one after another
+        (JAX `_should_batch_segments`): the batched decode pays its step
+        time on the longest segment, the sequential one its own on the sum
+        (codes scale with the text).  Beam search is the same K3 step
+        either way, so it always batches.  The step times are the card's,
+        `DECODE_STEP_MS`."""
+        if not self.cfg.engine.batch_segments or len(segments) <= 1:
+            return False
+        if gen.num_beams > 1:
+            return True
+        lens = [len(s) for s in segments]
+        fused_single = self.fused_pack is not None
+        fused_batch = fused_single and self.cfg.engine.use_fused_batch_decode
+        r_seq = DECODE_STEP_MS["k1"] if fused_single else DECODE_STEP_MS["eager"]
+        r_bat = DECODE_STEP_MS["k3_batch"] if fused_batch else DECODE_STEP_MS["eager"]
+        return r_bat * max(lens) < r_seq * sum(lens)
+
+    def _run_segment_jobs(self, jobs: List[dict], gen, timers: dict) -> None:
+        """Decode and synthesize segment jobs in sub-batches of at most
+        `server.max_batch_size` (JAX `_run_segment_jobs`): the decode
+        grouped by text bucket, the s2mel / vocoder by code bucket.  Each
+        job holds {"tokens", "spk", "emovec"} and gains {"ids", "bucket",
+        "codes", "code_len", "cbucket", "text_row", "text_len", "wav"}."""
+        cfg = self.cfg
+        batch_cap = max(1, cfg.server.max_batch_size)
+        t0 = time.perf_counter()
+        by_bucket: Dict[int, List[dict]] = {}
+        for job in jobs:
+            job["ids"] = self.tokenizer.convert_tokens_to_ids(job["tokens"])
+            job["bucket"] = post.pick_bucket(len(job["ids"]), cfg.engine.text_buckets)
+            by_bucket.setdefault(job["bucket"], []).append(job)
+        for bucket, group in by_bucket.items():
+            for ofs in range(0, len(group), batch_cap):
+                self._decode_jobs(group[ofs:ofs + batch_cap], bucket, gen, timers=timers)
+        self._sync()
+        timers["gpt_gen_time"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_cbucket: Dict[int, List[dict]] = {}
+        for job in jobs:
+            by_cbucket.setdefault(job["cbucket"], []).append(job)
+        for cbucket, group in by_cbucket.items():
+            for ofs in range(0, len(group), batch_cap):
+                self._mel_jobs(group[ofs:ofs + batch_cap], cbucket)
+        timers["synthesis_time"] = (timers.get("synthesis_time", 0.0)
+                                    + time.perf_counter() - t0)
+
+    @staticmethod
+    def _batch_bucket(n: int) -> int:
+        """The power of 2 at or above n: a group's padded batch."""
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _job_stream(self, slot: int, seed: int) -> torch.Generator:
+        """The generator of row slot `slot` of a request-batched decode,
+        seeded with a job's seed: one object a slot, kept by the engine (a
+        replayed graph holds it), restarted for each group."""
+        while len(self._job_streams) <= slot:
+            self._job_streams.append(torch.Generator(device=self.device))
+        return self._job_streams[slot].manual_seed(seed)
+
+    def _beam_jobs_fused(self, jobs: List[dict], gen, cond, emo, text, lens,
+                         max_new: int) -> tuple:
+        """Beam-K jobs through K3, request-batched (JAX `_beam_jobs_fused`):
+        chunks of `engine.beam_batch_rows // K` requests, clamped to a power
+        of 2, each padded to a power of 2 by repeating its first row, one
+        `beam_decode_fused_batch` a chunk; a chunk of one request takes
+        `beam_decode`.  A single job keeps the engine's own stream; in a
+        group, job i draws from its own (`job["seed"]`).  Returns the jobs'
+        (codes, lengths, hit_limit) and each decode's result."""
+        e = self.cfg.engine
+        pack = self._beam_fused_pack()
+        k, n = gen.num_beams, len(jobs)
+        r_cap = max(1, e.beam_batch_rows // k) if (pack is not None and k <= 4) else 1
+        while r_cap & (r_cap - 1):       # a power of 2: a padded chunk fits K3
+            r_cap &= r_cap - 1
+
+        def run_single(i, generator):
+            return beam_decode(self.gpt_rt, gen, cond[i:i + 1], emo[i:i + 1],
+                               text[i:i + 1], lens[i:i + 1], max_new, generator,
+                               fused_pack=pack, int8_kv=e.use_int8_kv,
+                               readout_pack=self.readout_pack, loops=self.loops)
+
+        if n == 1 and "seed" not in jobs[0]:
+            res = run_single(0, self.generator)
+            return res.codes, res.lengths, res.hit_limit, [res]
+        results, i = [], 0
+        while i < n:
+            rn = min(r_cap, n - i)
+            if rn == 1:
+                results.append((1, run_single(i, self._job_stream(0, jobs[i]["seed"]))))
+                i += 1
+                continue
+            rows = list(range(i, i + rn)) + [i] * (self._batch_bucket(rn) - rn)
+            streams = [self._job_stream(j, jobs[r]["seed"]) for j, r in enumerate(rows)]
+            results.append((rn, beam_decode_fused_batch(
+                self.gpt_rt, gen, cond[rows], emo[rows], text[rows], lens[rows],
+                max_new, streams, pack, int8_kv=e.use_int8_kv,
+                readout_pack=self.readout_pack, loops=self.loops)))
+            i += rn
+        return (torch.cat([r.codes[:m] for m, r in results]),
+                torch.cat([r.lengths[:m] for m, r in results]),
+                torch.cat([r.hit_limit[:m] for m, r in results]),
+                [r for _, r in results])
+
+    def _decode_jobs(self, jobs: List[dict], bucket: int, gen, force_full_cap: bool = False,
+                     gen_state: Optional[torch.Tensor] = None,
+                     timers: Optional[dict] = None) -> None:
+        """Decode one sub-batch of jobs of a text bucket (JAX `_decode_jobs`):
+        padded to a power-of-2 batch (repeating the first job's
+        conditioning), at the bucket's learned cap (`_decode_cap`), through
+        the batched sampling decode (`decode(fused_batch=...)`: K3 with
+        `use_fused_batch_decode`), the request-batched beam
+        (`_beam_jobs_fused`) or the plain one (`beam_decode_batch`); the
+        real rows teach the cap (`_observe_code_len`), rows that hit a
+        reduced cap decode once more at the full cap on the same streams
+        (`gen_state` the engine's, the jobs' seeds their own), then each
+        row is stop-trimmed and silence-trimmed.  Sets "codes",
+        "code_len", "cbucket", "text_row", "text_len" of each job."""
+        cfg, e, dev = self.cfg, self.cfg.engine, self.device
+        n = len(jobs)
+        max_new = gen.max_mel_tokens if force_full_cap else self._decode_cap(bucket, gen)
+        if gen_state is None:
+            if gen.num_beams > 1 and n > 1:
+                # one stream a job (JAX: fold_in of the group's key)
+                base = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                         device=dev))
+                for i, job in enumerate(jobs):
+                    job["seed"] = base + i
+            gen_state = self.generator.get_state()
+        else:
+            self.generator.set_state(gen_state)
+        b = self._batch_bucket(n)
+        text = torch.zeros((b, bucket), dtype=torch.long)
+        lens = torch.ones((b,), dtype=torch.long)
+        for i, job in enumerate(jobs):
+            ids = job["ids"][:bucket]
+            text[i, :len(ids)] = torch.tensor(ids)
+            lens[i] = len(ids)
+        text, lens = text.to(dev), lens.to(dev)
+        cond = torch.cat([j["spk"]["cond_latents"] for j in jobs]
+                         + [jobs[0]["spk"]["cond_latents"]] * (b - n))
+        emo = torch.cat([j["emovec"] for j in jobs] + [jobs[0]["emovec"]] * (b - n))
+        if gen.num_beams <= 1:
+            res = gpt_decode(self.gpt_rt, gen, cond, emo, text, lens, max_new,
+                             self.generator, self.fused_pack, self.readout_pack,
+                             int8_kv=e.use_int8_kv, loops=self.loops,
+                             fused_batch=e.use_fused_batch_decode)
+            codes, lengths, hit, runs = res.codes, res.lengths, res.hit_limit, [res]
+        elif n == 1 or self._beam_fused_pack() is not None:
+            codes, lengths, hit, runs = self._beam_jobs_fused(jobs, gen, cond, emo, text,
+                                                              lens, max_new)
+        else:
+            streams = [self._job_stream(i, job["seed"]) for i, job in enumerate(jobs)]
+            res = beam_decode_batch(self.gpt_rt, gen, cond[:n], emo[:n], text[:n],
+                                    lens[:n], max_new, streams, loops=self.loops)
+            codes, lengths, hit, runs = res.codes, res.lengths, res.hit_limit, [res]
+        if timers is not None:
+            for res in runs:
+                self._count_decode(timers, res)
+        codes_np = codes.cpu().numpy()
+        lengths_np = lengths.cpu().numpy()[:n]
+        hit_np = hit.cpu().numpy()[:n]
+        # the padded rows' outputs are dropped and teach nothing
+        self._observe_code_len(bucket, lengths_np, hit_np, max_new, gen)
+        retry = [i for i in range(n) if hit_np[i] and max_new < gen.max_mel_tokens]
+        if retry:
+            self._decode_jobs([jobs[i] for i in retry], bucket, gen, True, gen_state,
+                              timers)
+        for i, job in enumerate(jobs):
+            if i in retry:
+                continue
+            code_len = max(int(lengths_np[i]) - (0 if hit_np[i] else 1), 1)
+            row, row_len = post.remove_long_silence(
+                codes_np[i:i + 1, :code_len], np.asarray([code_len]),
+                cfg.gpt.stop_mel_token, e.silent_token)
+            job["codes"] = row[0]
+            job["code_len"] = int(row_len[0])
+            job["cbucket"] = post.pick_bucket(job["code_len"], tuple(e.code_buckets))
+            job["text_row"] = text[i].cpu()
+            job["text_len"] = int(lens[i])
+
+    @torch.no_grad()
+    def _mel_jobs(self, jobs: List[dict], cbucket: int) -> None:
+        """The teacher-forced latent, s2mel and vocoder of decoded jobs of one
+        code bucket at one padded batch (JAX `_mel_jobs`); each job's "wav"
+        is its row, int16, cut to its `target_len * hop` samples."""
+        cfg, e, dev = self.cfg, self.cfg.engine, self.device
+        n = len(jobs)
+        b = self._batch_bucket(n)
+        tbucket = post.pick_bucket(max(j["bucket"] for j in jobs), e.text_buckets)
+        text = torch.zeros((b, tbucket), dtype=torch.long)
+        tlens = torch.ones((b,), dtype=torch.long)
+        codes = torch.zeros((b, cbucket), dtype=torch.long)
+        clens = torch.ones((b,), dtype=torch.long)
+        for i, job in enumerate(jobs):
+            row = job["text_row"][:tbucket]
+            text[i, :len(row)] = row
+            tlens[i] = job["text_len"]
+            codes[i, :job["code_len"]] = torch.from_numpy(
+                np.asarray(job["codes"][:job["code_len"]], np.int64))
+            clens[i] = job["code_len"]
+        text, tlens, codes, clens = (t.to(dev) for t in (text, tlens, codes, clens))
+
+        def padded(rows):
+            return torch.cat(rows + [rows[0]] * (b - n))
+        spks = [j["spk"] for j in jobs]
+        pbuckets = tuple(x for x in e.prompt_frame_buckets
+                         if x < self.prompt_mel_frames) + (self.prompt_mel_frames,)
+        pbucket = post.pick_bucket(max(s["mel_frames"] for s in spks), pbuckets)
+        mel_frames = torch.tensor([s["mel_frames"] for s in spks]
+                                  + [spks[0]["mel_frames"]] * (b - n), device=dev)
+        latent = self.gpt_rt(padded([s["cond_latents"] for s in spks]),
+                             padded([j["emovec"] for j in jobs]), text, tlens, codes, clens)
+        mel, target_len = self._s2mel(
+            latent, codes, clens, padded([s["prompt_condition"][:, :pbucket] for s in spks]),
+            mel_frames, padded([s["ref_mel"][:, :, :pbucket] for s in spks]),
+            padded([s["style"] for s in spks]), self._mel_bucket_for(cbucket))
+        wav = torch.clamp(self.vocode(mel) * 32767.0, -32767.0, 32767.0)
+        wav = wav.to(torch.int16).reshape(b, -1).cpu().numpy()
+        hop = cfg.mel.hop_size
+        for i, job in enumerate(jobs):
+            job["wav"] = wav[i][: int(target_len[i]) * hop]
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -41,13 +41,24 @@ Two arms, chosen as in the JAX package:
   multiple of 512, and each layer attends through K5.  Both keep a host
   loop, one host read of `done` a step.
 
-Left out here: typical sampling (raises), and `beam_decode_fused_batch`
-(R requests x K beams), which waits for the batched engine.
+Request-batched beam (`beam_decode_fused_batch`, the engine's `infer_batch`
+and multi-segment path): R requests x K beams = R * K <= 12 rows of one K3
+step, each row reading its own request's history through a (R * K, Tmax)
+ancestor table in global row ids; each request runs `beam_decode`'s search
+(`_make_step` a request, its pool frozen once it is done while its rows
+keep computing) and draws from a generator of its own; each request's
+prefill runs alone (`prefill_rows`) and K3's per-row sums do not depend on
+the row count, so a request gives the same search alone or in a batch.
+It runs as the one-request arm does, a device loop keyed by (R, K, the
+cap).  `beam_decode_batch` is its plain arm (no pack, or K > 4): one eager
+`beam_decode` a request over the same streams.
+
+Left out here: typical sampling (raises).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -56,11 +67,11 @@ from voice_tts_tpu_torch.engine import device_loop
 from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
                                                    apply_repetition_penalty,
-                                                   generation_key)
+                                                   generation_key, prefill_rows)
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
-from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
-                                                  ReadoutPack,
+from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, MAX_ROWS_TABLE,
+                                                  FusedDecodePack, ReadoutPack,
                                                   apply_kv_update_batch,
                                                   apply_kv_update_q_batch,
                                                   cache_to_time_major,
@@ -87,6 +98,21 @@ class _BeamState(NamedTuple):
     pool_seqs: torch.Tensor        # (K, max_new)
     pool_lens: torch.Tensor        # (K,)
     done: torch.Tensor             # () bool
+
+
+class _BeamStateB(NamedTuple):
+    """The request-batched beam loop's state (JAX `_BeamStateB`): R requests
+    x K beams, request i's rows [i * K, (i + 1) * K)."""
+    step: torch.Tensor             # () int64, shared by the requests
+    tokens: torch.Tensor           # (R, K, max_new)
+    beam_scores: torch.Tensor      # (R, K)
+    src: torch.Tensor              # (R * K, Tmax) int32 table in global row ids
+    presence: torch.Tensor         # (R, K, V)
+    last_tokens: torch.Tensor      # (R * K,)
+    pool_scores: torch.Tensor      # (R, K)
+    pool_seqs: torch.Tensor        # (R, K, max_new)
+    pool_lens: torch.Tensor        # (R, K)
+    done: torch.Tensor             # (R,) bool
 
 
 def topk_first(x: torch.Tensor, k: int):
@@ -238,6 +264,46 @@ def _finalize_pool(pool_scores, pool_seqs, pool_lens, beam_scores, tokens,
     return pool_scores, pool_seqs, pool_lens
 
 
+def _uniform_of(generator: Optional[torch.Generator], dev) -> Uniform:
+    """The Gumbel draw's uniforms from `generator`, in [1e-20, 1)."""
+    def uniform(shape):
+        return torch.clamp(torch.rand(shape, generator=generator, device=dev), min=1e-20)
+    return uniform
+
+
+def _k3_logits(model: UnifiedVoice, fused_pack, readout_pack, cache, scales, bias,
+               s, pos, active=None) -> torch.Tensor:
+    """One K3 step at `pos` over the rows of `s.last_tokens`, each reading
+    its history through the table `s.src` (or its own row when None);
+    writes the rows' new KV at `pos` (kept where the 0-d `active` is false)
+    and returns their (rows, V) logits."""
+    emb = model.embed_decode_token(s.last_tokens, s.step - 1)
+    hidden, kv_new, logits_pad = fused_decode_step_batch(
+        emb, fused_pack, cache, bias, pos, model.cfg.heads,
+        kv_scales=scales, beam_src=s.src, readout_pack=readout_pack)
+    if scales is not None:
+        apply_kv_update_q_batch(cache, scales, kv_new, pos, active)
+    else:
+        apply_kv_update_batch(cache, kv_new, pos, active)
+    return (logits_pad[:, :model.cfg.number_mel_codes] if readout_pack is not None
+            else model.readout(hidden))
+
+
+def _best(s: _BeamState, gen: GenerationConfig, k: int, max_new: int, eos: int):
+    """The search's result from its final state: running beams enter the
+    pool when the length limit ran out, then the pool's best hypothesis as
+    (seq (1, max_new) stop-padded, lengths (1,), hit_limit (1,))."""
+    pool_scores, pool_seqs, pool_lens = _finalize_pool(
+        s.pool_scores, s.pool_seqs, s.pool_lens, s.beam_scores, s.tokens, s.step,
+        s.done, gen, k)
+    best = torch.argmax(pool_scores)
+    gen_len = pool_lens[best]
+    hit_limit = (~s.done & (gen_len == s.step)).reshape(1)
+    lengths = torch.where(hit_limit, gen_len, gen_len + 1)
+    posn = torch.arange(max_new, device=gen_len.device)[None, :]
+    return torch.where(posn < gen_len, pool_seqs[best][None, :], eos), lengths, hit_limit
+
+
 def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
                 cond_latents: torch.Tensor, emo_vec: torch.Tensor,
                 text_tokens: torch.Tensor, text_lengths: torch.Tensor,
@@ -282,9 +348,7 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     eos = cfg.stop_mel_token
     injected = uniform is not None
     if uniform is None:
-        def uniform(shape):
-            return torch.clamp(torch.rand(shape, generator=generator, device=dev),
-                               min=1e-20)
+        uniform = _uniform_of(generator, dev)
     param_dtype = model.conditioning_encoder.after_norm.bias.dtype
 
     with torch.no_grad():
@@ -323,19 +387,6 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
             torch.zeros((), dtype=torch.bool, device=dev))
         s, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p, max_new)
 
-        def k3_step(s, pos, cache, scales, active=None):
-            """One K3 step at `pos` over the K beams; writes the new rows."""
-            emb = model.embed_decode_token(s.last_tokens, s.step - 1)
-            hidden, kv_new, logits_pad = fused_decode_step_batch(
-                emb, fused_pack, cache, attn_bias, pos, cfg.heads,
-                kv_scales=scales, beam_src=s.src, readout_pack=readout_pack)
-            if int8_kv:
-                apply_kv_update_q_batch(cache, scales, kv_new, pos, active)
-            else:
-                apply_kv_update_batch(cache, kv_new, pos, active)
-            return (logits_pad[:, :vocab] if readout_pack is not None
-                    else model.readout(hidden))
-
         chunks = 0
         if src is None:
             # the eager arm, or K3 with a physical reorder: a host loop
@@ -347,7 +398,8 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
                 if step >= max_new or bool(s.done):
                     break
                 if use_fused:
-                    logits = k3_step(s, p + step, cache, scales)
+                    logits = _k3_logits(model, fused_pack, readout_pack, cache, scales,
+                                        attn_bias, s, p + step)
                 else:
                     logits = model.decode_step(s.last_tokens, step - 1, p + step,
                                                valid_k, cache)
@@ -368,7 +420,8 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
 
             def step_fn(s: _BeamState) -> _BeamState:
                 active = (s.step < max_new) & ~s.done
-                logits = k3_step(s, p + s.step, cache, scales, active)   # pos <= t_max - 1
+                logits = _k3_logits(model, fused_pack, readout_pack, cache, scales,
+                                    attn_bias, s, p + s.step, active)  # pos <= t_max - 1
                 return device_loop.select(active, _make_step(
                     s, logits, uniform, gen, k, vocab, eos, p, max_new)[0], s)
 
@@ -376,13 +429,157 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
                 _BeamState(*(st[f] for f in _BeamState._fields)), step_fn,
                 lambda s: (s.step < max_new) & ~s.done, chunk, loops, key, generator)
 
-        pool_scores, pool_seqs, pool_lens = _finalize_pool(
-            s.pool_scores, s.pool_seqs, s.pool_lens, s.beam_scores, s.tokens, s.step,
-            s.done, gen, k)
-        best = torch.argmax(pool_scores)
-        gen_len = pool_lens[best]
-        hit_limit = (~s.done & (gen_len == s.step)).reshape(1)
-        lengths = torch.where(hit_limit, gen_len, gen_len + 1)
-        posn = torch.arange(max_new, device=dev)[None, :]
-        seq = torch.where(posn < gen_len, pool_seqs[best][None, :], eos)
+        seq, lengths, hit_limit = _best(s, gen, k, max_new, eos)
     return DecodeResult(seq, lengths, hit_limit, int(s.step) - 1, chunks)
+
+
+def _request(s: _BeamStateB, i: int, k: int) -> _BeamState:
+    """Request i's part of the batched state, as a one-request state without
+    a table."""
+    return _BeamState(s.step, s.tokens[i], s.beam_scores[i], None, s.presence[i],
+                      s.last_tokens[i * k:(i + 1) * k], s.pool_scores[i],
+                      s.pool_seqs[i], s.pool_lens[i], s.done[i])
+
+
+def _make_step_batch(s: _BeamStateB, logits, uniforms: Sequence[Uniform],
+                     gen: GenerationConfig, k: int, vocab: int, eos: int, p: int,
+                     max_new: int) -> _BeamStateB:
+    """JAX `beam_decode_fused_batch`'s `make_step`: `_make_step` for each
+    request on its (K, V) logits and its own draws, then the table in global
+    row ids (this position is each row's own, then every row inherits its
+    in-request parent's history)."""
+    r = logits.shape[0]
+    new, parents = zip(*(_make_step(_request(s, i, k), logits[i], uniforms[i], gen,
+                                    k, vocab, eos, p, max_new) for i in range(r)))
+    dev = s.src.device
+    own = torch.arange(r * k, dtype=s.src.dtype, device=dev)[:, None]
+    g_next = (torch.arange(r, device=dev)[:, None] * k + torch.stack(parents)).reshape(-1)
+    src = s.src.index_copy(1, (p + s.step).reshape(1), own)[g_next]
+
+    def stack(field):
+        return torch.stack([getattr(n, field) for n in new])
+    return _BeamStateB(s.step + 1, stack("tokens"), stack("beam_scores"), src,
+                       stack("presence"), torch.cat([n.last_tokens for n in new]),
+                       stack("pool_scores"), stack("pool_seqs"), stack("pool_lens"),
+                       stack("done"))
+
+
+def beam_decode_fused_batch(model: UnifiedVoice, gen: GenerationConfig,
+                            cond_latents: torch.Tensor, emo_vec: torch.Tensor,
+                            text_tokens: torch.Tensor, text_lengths: torch.Tensor,
+                            max_new: int, generators: Sequence[torch.Generator],
+                            fused_pack: FusedDecodePack, int8_kv: bool = False,
+                            readout_pack: Optional[ReadoutPack] = None,
+                            loops: Optional[DeviceLoops] = None,
+                            chunk: Optional[int] = None) -> DecodeResult:
+    """Request-batched beam search on K3: R requests x K beams = R * K rows
+    of one step (JAX `beam_decode_fused_batch`).
+
+    text_tokens (R, bucket) share the text bucket, so the prompt length and
+    the position are shared; `generators` holds request i's stream at i.
+    Each request runs `beam_decode`'s search; a finished request's pool
+    freezes while its rows keep computing, until every request is done or
+    `max_new` ran out.  The loop runs as `beam_decode`'s K3 arm (a device
+    loop of `chunk` steps a chunk, one replayed graph a chunk on the card,
+    every generator registered with it).  Returns an (R, max_new)
+    DecodeResult; `steps` the shared steps after the prefill.  Needs a pack,
+    K <= 4, R * K <= 12 and no `pallas_decode_attention` (raises otherwise:
+    `beam_decode_batch` is the plain arm)."""
+    cfg = model.cfg
+    k = gen.num_beams
+    r, bl = text_tokens.shape
+    nrows = r * k
+    if fused_pack is None or k > 4 or nrows > MAX_ROWS_TABLE or cfg.pallas_decode_attention:
+        raise ValueError(f"beam_decode_fused_batch: needs a fused pack, K <= 4 and R * K "
+                         f"<= {MAX_ROWS_TABLE} without pallas_decode_attention "
+                         f"(R {r}, K {k})")
+    if len(generators) != r:
+        raise ValueError(f"beam_decode_fused_batch: {len(generators)} generators for "
+                         f"{r} requests")
+    dev = text_tokens.device
+    p = n_cond_latents(cfg) + 2 + bl + 2
+    t_max = p + 1 + max_new
+    t_max += (-t_max) % BLOCK_T
+    vocab = cfg.number_mel_codes
+    eos = cfg.stop_mel_token
+    uniforms = [_uniform_of(g, dev) for g in generators]
+    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+
+    with torch.no_grad():
+        prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),
+                                             emo_vec.to(param_dtype),
+                                             text_tokens, text_lengths)
+        valid = torch.cat([valid_p, torch.ones((r, t_max - p), dtype=torch.bool,
+                                               device=dev)], dim=1)
+        logits, cache_r = prefill_rows(model, prompt, valid_p, t_max)   # (R, V)
+        # rows [iK, (i + 1)K) are request i's; the int8 scales are per row
+        # and position, so quantizing the R rows before the repeat is exact
+        cache = cache_to_time_major(cache_r)
+        scales = None
+        if int8_kv:
+            cache, scales = quantize_kv_cache_batch(cache)
+            scales = scales.repeat_interleave(k, dim=1)
+        cache = cache.repeat_interleave(k, dim=2)
+        attn_bias = torch.where(valid.repeat_interleave(k, dim=0), 0.0, -1e30).float()
+        src = torch.arange(nrows, dtype=torch.int32, device=dev)[:, None].repeat(1, t_max)
+        presence = torch.zeros((r, k, vocab), dtype=torch.bool, device=dev)
+        presence[:, :, 1] = True
+        presence[:, :, cfg.start_mel_token] = True
+        beam_scores = torch.full((r, k), NEG, dtype=torch.float32, device=dev)
+        beam_scores[:, 0] = 0.0
+        s = _BeamStateB(
+            torch.zeros((), dtype=torch.long, device=dev),
+            torch.zeros((r, k, max_new), dtype=torch.long, device=dev), beam_scores, src,
+            presence, torch.zeros((nrows,), dtype=torch.long, device=dev),
+            torch.full((r, k), 2 * NEG, dtype=torch.float32, device=dev),
+            torch.full((r, k, max_new), eos, dtype=torch.long, device=dev),
+            torch.zeros((r, k), dtype=torch.long, device=dev),
+            torch.zeros((r,), dtype=torch.bool, device=dev))
+        s = _make_step_batch(s, logits[:, None].expand(r, k, vocab), uniforms, gen, k,
+                             vocab, eos, p, max_new)
+
+        chunk = chunk or device_loop.CHUNK
+        loops = device_loop.loops_for(dev, loops)
+        key = ("beam_batch", id(model), id(fused_pack), id(readout_pack),
+               tuple(id(g) for g in generators), generation_key(gen), r, k, p, t_max,
+               max_new, int8_kv, chunk)
+        st = device_loop.bind(loops, key, {
+            "cache": cache, "bias": attn_bias,
+            **({"scales": scales} if int8_kv else {}), **s._asdict()})
+        cache, attn_bias, scales = st["cache"], st["bias"], st.get("scales")
+
+        def step_fn(s: _BeamStateB) -> _BeamStateB:
+            active = (s.step < max_new) & ~s.done.all()
+            logits = _k3_logits(model, fused_pack, readout_pack, cache, scales,
+                                attn_bias, s, p + s.step, active)
+            return device_loop.select(active, _make_step_batch(
+                s, logits.reshape(r, k, vocab), uniforms, gen, k, vocab, eos, p,
+                max_new), s)
+
+        s, chunks = device_loop.run_chunks(
+            _BeamStateB(*(st[f] for f in _BeamStateB._fields)), step_fn,
+            lambda s: (s.step < max_new) & ~s.done.all(), chunk, loops, key, generators)
+        best = [_best(_request(s, i, k), gen, k, max_new, eos) for i in range(r)]
+    return DecodeResult(*(torch.cat(parts) for parts in zip(*best)), int(s.step) - 1,
+                        chunks)
+
+
+def beam_decode_batch(model: UnifiedVoice, gen: GenerationConfig,
+                      cond_latents: torch.Tensor, emo_vec: torch.Tensor,
+                      text_tokens: torch.Tensor, text_lengths: torch.Tensor,
+                      max_new: int, generators: Sequence[torch.Generator],
+                      loops: Optional[DeviceLoops] = None) -> DecodeResult:
+    """Beam search for a batch of independent requests without a pack (JAX
+    `beam_decode_batch`, the plain arm of `beam_decode_fused_batch`): one
+    eager `beam_decode` a request, request i drawing from `generators[i]`.
+    Returns a (B, max_new) DecodeResult; `steps` and `chunks` summed over
+    the requests."""
+    res: List[DecodeResult] = [
+        beam_decode(model, gen, cond_latents[i:i + 1], emo_vec[i:i + 1],
+                    text_tokens[i:i + 1], text_lengths[i:i + 1], max_new,
+                    generators[i], loops=loops)
+        for i in range(text_tokens.shape[0])]
+    return DecodeResult(torch.cat([x.codes for x in res]),
+                        torch.cat([x.lengths for x in res]),
+                        torch.cat([x.hit_limit for x in res]),
+                        sum(x.steps for x in res), sum(x.chunks for x in res))

@@ -14,6 +14,13 @@ sort).  The repetition-penalty presence mask starts with {1, start_mel}
 (batch 1) every step is one `ops.fused_decode.fused_decode_step` — the K1
 kernel chain on a CUDA tensor — with the folded int8 readout and, with
 `int8_kv`, an int8 cache with one scale per (layer, position, k|v) row.
+With `fused_batch` and a pack, a batch of 2-8 rows (the engine's
+`infer_batch` and batched segments under `use_fused_batch_decode`) runs
+every step as one `fused_decode_step_batch` (K3) over the rows at one shared
+position, with a (B, Tmax) per-row prompt-pad bias and, with `int8_kv`, an
+int8 cache with one scale per (layer, row, position, k|v), as the same
+device loop; each row's prefill runs alone (`prefill_rows`), so a row
+decodes as it would alone through K1.
 With `GPTConfig.pallas_decode_attention` the pack is not used, as in the JAX
 package: every step is `UnifiedVoice.decode_step` over a float cache padded
 to a multiple of 512, each layer's attention one K5 launch
@@ -28,7 +35,7 @@ loader), verifies all K in one int8 pass (`fused_decode_verify`, K6) and
 keeps the target's distribution by rejection sampling over the warped
 distributions (`speculative_accept`).
 
-Left out here: batched decode, typical sampling.
+Left out here: typical sampling.
 """
 
 from __future__ import annotations
@@ -48,10 +55,14 @@ from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
                                                   apply_kv_update,
                                                   apply_kv_update_q,
                                                   apply_kv_update_span,
+                                                  MAX_ROWS, apply_kv_update_batch,
+                                                  apply_kv_update_q_batch,
                                                   cache_to_time_major,
                                                   fused_decode_step,
+                                                  fused_decode_step_batch,
                                                   fused_decode_verify,
-                                                  quantize_kv_cache)
+                                                  quantize_kv_cache,
+                                                  quantize_kv_cache_batch)
 
 
 class DecodeResult(NamedTuple):
@@ -103,6 +114,24 @@ def sample_token(logits: torch.Tensor, presence: torch.Tensor,
     return torch.gather(top_idx, 1, choice)[:, 0]
 
 
+def prefill_rows(model: UnifiedVoice, prompt: torch.Tensor, valid_p: torch.Tensor,
+                 t_max: int):
+    """`model.prefill` of each row alone into a (L, 2, B, H, hd, t_max) cache
+    of the prompt's dtype: a row's logits and cache then do not depend on
+    the rows beside it (a GEMM over more rows may sum in another order:
+    cuBLAS picks its kernel by the row count), so a request decodes alike
+    alone and in a batched K3 decode, whose step is row-independent.
+    Returns ((B, V) logits, the cache)."""
+    b = prompt.shape[0]
+    cache = model.gpt.init_cache(b, t_max, prompt.dtype, prompt.device)
+    logits = []
+    for i in range(b):
+        row = model.gpt.init_cache(1, t_max, prompt.dtype, prompt.device)
+        logits.append(model.prefill(prompt[i:i + 1], valid_p[i:i + 1], row))
+        cache[:, :, i:i + 1] = row
+    return torch.cat(logits), cache
+
+
 def generation_key(gen: GenerationConfig) -> tuple:
     """The sampling settings as part of a device loop's key (a captured
     step bakes them in)."""
@@ -130,7 +159,7 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
            fused_pack: Optional[Pack] = None,
            readout_pack: Optional[ReadoutPack] = None,
            int8_kv: bool = False, loops: Optional[DeviceLoops] = None,
-           chunk: Optional[int] = None) -> DecodeResult:
+           chunk: Optional[int] = None, fused_batch: bool = False) -> DecodeResult:
     """Greedy / sampling AR decode; text_tokens (B, bucket_len) right-padded.
 
     Compute dtype follows the model's parameters (the int8 / bf16 runtime
@@ -138,7 +167,9 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
     quantizes the fused step's cache after the prefill, or without a fused
     pack decodes over an int8 `QuantKVCache` from the prefill on (the JAX
     `int8_kv_xla` case).  `cfg.pallas_decode_attention` turns the fused path
-    off (K5 reads a float cache, so `int8_kv` drops there).
+    off (K5 reads a float cache, so `int8_kv` drops there).  With
+    `fused_batch`, a pack and 1 < B <= 8 the step is K3 over the B rows at
+    one shared position (the JAX `use_fused_b` arm), a device loop too.
 
     The fused arm (K1) is the JAX `while_loop` on the device
     (`engine.device_loop`): state, position and stop test stay there, and
@@ -152,16 +183,18 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
     dev = text_tokens.device
     use_fused = (fused_pack is not None and b == 1
                  and not cfg.pallas_decode_attention)
-    # int8 KV without the fused step needs the plain attention branch (K5
+    use_fused_b = (fused_pack is not None and fused_batch and 1 < b <= MAX_ROWS
+                   and not cfg.pallas_decode_attention)
+    # int8 KV without the fused steps needs the plain attention branch (K5
     # reads a float cache)
-    int8_kv_eager = (int8_kv and not use_fused
+    int8_kv_eager = (int8_kv and not use_fused and not use_fused_b
                      and not cfg.pallas_decode_attention)
-    int8_kv = int8_kv and use_fused
+    int8_kv = int8_kv and (use_fused or use_fused_b)
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new
     if cfg.pallas_decode_attention:
         t_max += (-t_max) % ATTN_BLOCK_T
-    elif use_fused:
+    elif use_fused or use_fused_b:
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     stop = cfg.stop_mel_token
@@ -173,11 +206,14 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
                                              text_tokens, text_lengths)
         valid = torch.cat([valid_p, torch.ones((b, t_max - p), dtype=torch.bool,
                                                device=dev)], dim=1)
-        if int8_kv_eager:
-            cache = model.gpt.init_quant_cache(b, t_max, dev)
+        if use_fused_b:
+            logits, cache = prefill_rows(model, prompt, valid_p, t_max)
         else:
-            cache = model.gpt.init_cache(b, t_max, prompt.dtype, dev)
-        logits = model.prefill(prompt, valid_p, cache)
+            if int8_kv_eager:
+                cache = model.gpt.init_quant_cache(b, t_max, dev)
+            else:
+                cache = model.gpt.init_cache(b, t_max, prompt.dtype, dev)
+            logits = model.prefill(prompt, valid_p, cache)
 
         presence = torch.zeros((b, vocab), dtype=torch.bool, device=dev)
         presence[:, 1] = True
@@ -188,7 +224,7 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
         s = _LoopState(torch.ones((), dtype=torch.long, device=dev), token,
                        presence.scatter(1, token[:, None], True), codes,
                        token == stop, torch.ones((b,), dtype=torch.long, device=dev))
-        if not use_fused:
+        if not (use_fused or use_fused_b):
             step = 1
             while step < max_new and not bool(s.finished.all()):
                 s = _advance(s, model.decode_step(s.token, step - 1, p + step, valid, cache),
@@ -198,14 +234,21 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
 
         cache = cache_to_time_major(cache)
         scales = None
-        if int8_kv:
-            cache, scales = quantize_kv_cache(cache)
+        if use_fused_b:
+            # (B, Tmax) per-row additive mask over the cache positions
+            bias = torch.where(valid, 0.0, -1e30).float()
+            if int8_kv:
+                cache, scales = quantize_kv_cache_batch(cache)
+        else:
+            bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
+            if int8_kv:
+                cache, scales = quantize_kv_cache(cache)
         chunk = chunk or device_loop.CHUNK
         loops = device_loop.loops_for(dev, loops)
         key = ("decode", id(model), id(fused_pack), id(readout_pack), id(generator),
-               generation_key(gen), p, t_max, max_new, int8_kv, chunk)
+               generation_key(gen), b, p, t_max, max_new, int8_kv, chunk)
         st = device_loop.bind(loops, key, {
-            "cache": cache, "bias": torch.where(valid[0, :, None], 0.0, -1e30).float(),
+            "cache": cache, "bias": bias,
             **({"scales": scales} if int8_kv else {}), **s._asdict()})
         cache, bias, scales = st["cache"], st["bias"], st.get("scales")
 
@@ -213,15 +256,24 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
             active = (s.step < max_new) & ~s.finished.all()
             pos = p + s.step                # at most t_max - 1
             emb = model.embed_decode_token(s.token, s.step - 1)
-            hidden, kv_new, logits_pad = fused_decode_step(
-                emb, fused_pack, cache, bias, pos, cfg.heads,
-                readout_pack=readout_pack, kv_scales=scales)
+            if use_fused_b:
+                hidden, kv_new, logits_pad = fused_decode_step_batch(
+                    emb, fused_pack, cache, bias, pos, cfg.heads, kv_scales=scales,
+                    readout_pack=readout_pack)
+                if int8_kv:
+                    apply_kv_update_q_batch(cache, scales, kv_new, pos, active)
+                else:
+                    apply_kv_update_batch(cache, kv_new, pos, active)
+            else:
+                hidden, kv_new, logits_pad = fused_decode_step(
+                    emb, fused_pack, cache, bias, pos, cfg.heads,
+                    readout_pack=readout_pack, kv_scales=scales)
+                if int8_kv:
+                    apply_kv_update_q(cache, scales, kv_new, pos, active)
+                else:
+                    apply_kv_update(cache, kv_new, pos, active)
             logits = (logits_pad[:, :vocab] if readout_pack is not None
                       else model.readout(hidden))
-            if int8_kv:
-                apply_kv_update_q(cache, scales, kv_new, pos, active)
-            else:
-                apply_kv_update(cache, kv_new, pos, active)
             return device_loop.select(active, _advance(s, logits, gen, generator, stop,
                                                        max_new), s)
 

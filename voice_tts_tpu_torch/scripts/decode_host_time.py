@@ -24,9 +24,22 @@ request a profile under the CUDA profiler: the device's busy time (the
 union of the kernels' spans) and the kernels' summed time against the
 request's wall, and the idle share.
 
+Two profiles time no request.  `rates` times the decode steps that
+`TTSEngine._should_batch_segments` weighs (`engine.DECODE_STEP_MS`) on
+the bench configuration: "k1" the one-row K1 device loop, "k3_batch" the
+batched sampling decode of 4 rows through K3 at one shared position
+(`decode(fused_batch=True)`), "eager" the unfused step of 4 rows in its
+host loop; a warm-up run, then `--requests` timed runs, one line a rate
+(ms a step: the median, min and max of wall / steps).  `memory` serves
+the production configuration's `infer_batch` of 2 and of 4 requests
+(beam-3: 6 and 12 K3 rows) in two text buckets from a fresh engine at
+the full code cap, each group's reduced-cap decode retried at the cap as
+random weights never stop; one line a group with the device memory
+allocated, peak and reserved after it and the graphs held.
+
     python -m voice_tts_tpu_torch.scripts.decode_host_time [--profiles
-        production bench spec dit k5] [--requests 3] [--chunk N ...]
-        [--profile] [--device cuda]
+        production bench spec dit k5 rates memory] [--requests 3]
+        [--chunk N ...] [--profile] [--device cuda]
 
 It times the `voice_tts_tpu_torch` that comes first on the path, so one copy
 of the script times another checkout of the package alike: run it by file
@@ -49,6 +62,7 @@ import torch
 
 import voice_tts_tpu_torch
 from voice_tts_tpu_torch.audio import encode_wav_int16
+from voice_tts_tpu_torch.engine import post
 from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config, serving_config,
                                                tiny_config)
 from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
@@ -83,6 +97,13 @@ TINY_BENCH_FLAGS = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=Tr
 # prompt seconds of each flagship profile: 2.5 s puts the DiT slice at T 704,
 # the K8 trunk (prompt bucket 256 + mel bucket 448)
 PROMPT_S = {"dit": 2.5}
+# the rates profile: the rows of the batched rates, and the decode steps of
+# the K1 / K3 runs and of the eager run (its host loop is ~35x slower)
+RATE_ROWS, RATE_STEPS, EAGER_STEPS = 4, 255, 32
+# the memory profile: a text of each of two text buckets (32 and 64 tokens
+# on the flagship), and the group sizes (beam-3: 6 and 12 K3 rows)
+MEMORY_TEXTS = (TEXT, TEXT + TEXT)
+MEMORY_GROUPS = (2, 4)
 
 
 def tone_prompt(seconds: float, sr: int) -> bytes:
@@ -221,6 +242,93 @@ def profile_request(engine, profile: str, prompt: bytes, kwargs: dict) -> dict:
             "s2mel_time": m["s2mel_time"], "decode_steps": m["decode_steps"]}
 
 
+def decode_inputs(engine: TTSEngine, rows: int):
+    """The two-tone prompt's conditioning and TEXT, repeated over `rows`
+    rows: the arguments of `decode` after the model and config."""
+    spk, emovec, segments = engine._prepare(tone_prompt(5.0, 22050), None, 1.0, None,
+                                            False, TEXT, 120)
+    ids = engine.tokenizer.convert_tokens_to_ids(segments[0])
+    bucket = post.pick_bucket(len(ids), engine.cfg.engine.text_buckets)
+    ids = ids[:bucket]
+    text = torch.zeros((rows, bucket), dtype=torch.long)
+    text[:, :len(ids)] = torch.tensor(ids)
+    lens = torch.full((rows,), len(ids), dtype=torch.long)
+    return (spk["cond_latents"].expand(rows, -1, -1).contiguous(),
+            emovec.expand(rows, -1).contiguous(), text.to(engine.device),
+            lens.to(engine.device))
+
+
+def step_rate(engine: TTSEngine, name: str, rows: int, steps: int, repeats: int,
+              **decode_kwargs) -> dict:
+    """ms a step of `decode` over `rows` rows for at most `steps` steps: a
+    warm-up run (it captures the graphs), then `repeats` timed runs."""
+    args = decode_inputs(engine, rows)
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    per_step, runs = [], []
+    for i in range(repeats + 1):
+        sync()
+        t0 = time.perf_counter()
+        res = decode.decode(engine.gpt_rt, engine.cfg.generation, *args, steps,
+                            engine.generator, loops=engine.loops, **decode_kwargs)
+        sync()
+        wall = time.perf_counter() - t0
+        if i:
+            per_step.append(1e3 * wall / max(res.steps, 1))
+            runs.append(res.steps)
+    return {"profile": "rates", "rate": name, "rows": rows,
+            "step_ms": statistics.median(per_step), "step_ms_min": min(per_step),
+            "step_ms_max": max(per_step), "steps": runs}
+
+
+def run_rates(dev: torch.device, tiny: bool, repeats: int) -> list:
+    """The three decode step times of `engine.DECODE_STEP_MS` on a fresh
+    engine of the bench configuration (the tiny engine's bench flags)."""
+    cfg = tiny_config(**TINY_BENCH_FLAGS) if tiny else bench_config()
+    engine = TTSEngine.random(cfg, device=str(dev), seed=0)
+    packs = dict(fused_pack=engine.fused_pack, readout_pack=engine.readout_pack)
+    steps = min(RATE_STEPS, cfg.generation.max_mel_tokens)     # the tiny GPT's 64
+    rows = [step_rate(engine, "k1", 1, steps, repeats, **packs),
+            step_rate(engine, "k3_batch", RATE_ROWS, steps, repeats, fused_batch=True,
+                      **packs),
+            step_rate(engine, "eager", RATE_ROWS, min(EAGER_STEPS, steps), repeats)]
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    return rows
+
+
+def run_memory(dev: torch.device, tiny: bool) -> list:
+    """`infer_batch` of each group size of MEMORY_GROUPS in each text of
+    MEMORY_TEXTS on a fresh production engine (the tiny engine's production
+    flags), greedy beam-3, at the full code cap; one row a group with the
+    device memory after it in GiB (None off the card)."""
+    cfg = tiny_config(**TINY_FLAGS) if tiny else serving_config()
+    cfg.generation.do_sample = False
+    cfg.generation.num_beams = 3
+    engine = TTSEngine.random(cfg, device=str(dev), seed=0)
+    prompt = tone_prompt(1.0, 16000) if tiny else tone_prompt(5.0, 22050)
+    card = dev.type == "cuda"
+    rows = []
+    for text in MEMORY_TEXTS:
+        for n in MEMORY_GROUPS:
+            t0 = time.perf_counter()
+            engine.infer_batch([{"spk_audio_prompt": prompt, "text": text}] * n)
+            m = engine.last_metrics
+            tokens = len(engine.tokenizer.tokenize(text))
+            row = {"profile": "memory", "requests": n, "rows": 3 * n,
+                   "text_bucket": post.pick_bucket(tokens, cfg.engine.text_buckets),
+                   "wall_s": time.perf_counter() - t0,
+                   "gpt_gen_time": m["gpt_gen_time"], "decode_runs": m["decode_runs"],
+                   "decode_steps": m["decode_steps"],
+                   "graphs": engine.loops.stats["graphs"] if engine.loops else 0}
+            for name, fn in (("allocated_gib", "memory_allocated"),
+                             ("max_allocated_gib", "max_memory_allocated"),
+                             ("reserved_gib", "memory_reserved")):
+                row[name] = getattr(torch.cuda, fn)() / 2**30 if card else None
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
 def flagship_profile(profile: str):
     """The flagship configuration of `profile`: the server default
     (production), or `bench_config()` with spec decode (spec), with bf16
@@ -275,7 +383,7 @@ def card_line() -> str:
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profiles", nargs="+", default=["production", "bench"],
-                    choices=list(CHAINS))
+                    choices=list(CHAINS) + ["rates", "memory"])
     ap.add_argument("--requests", type=int, default=3,
                     help="warm requests after the cold one, per profile")
     ap.add_argument("--device", default="cuda",
@@ -296,8 +404,13 @@ def main(argv=None) -> list:
           + (card_line() if dev.type == "cuda" else "cpu, plain versions"), flush=True)
     rows = []
     for profile in args.profiles:
-        rows += run_profile(profile, args.requests, dev, args.tiny, args.chunk,
-                            args.profile)
+        if profile == "rates":
+            rows += run_rates(dev, args.tiny, args.requests)
+        elif profile == "memory":
+            rows += run_memory(dev, args.tiny)
+        else:
+            rows += run_profile(profile, args.requests, dev, args.tiny, args.chunk,
+                                args.profile)
     return rows
 
 
