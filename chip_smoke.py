@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 (`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
 without the slices and without the result line; `--only vocoder` runs the
-vocoder A/B alone on a flagship BigVGAN with random weights.)
+vocoder A/B alone on a flagship BigVGAN with random weights, `--only
+batched` and `--only serving` those phases on engines of their own.)
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
@@ -87,9 +88,32 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    shared position, against each request alone through K1 (the same
    codes); each part's wall and `gpt_gen_time`, batched against
    sequential, and the peak device memory;
+   Then the serving phase's grouped part (`run_grouped_serving`; `--only
+   serving` runs both parts alone on engines of their own): the queued
+   service (`TTSService` in a `BackgroundServer`) on the production engine
+   at greedy beam-3, cap 512, after its `workload` warm-up: 8 concurrent
+   POST /tts over two conditioned speakers in text buckets 32 and 64, all
+   200 with a 22.05 kHz WAV, fewer than 8 batches in /metrics, no graph
+   captured, each request's codes bit-equal to it served alone; p50 / p95
+   latency, audio seconds per wall second, the group sizes;
 8. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per executed step, K3 never, K2 109 times per vocode, the replayed
-   request bit-equal to the uncaptured one;
+   request bit-equal to the uncaptured one; then the serving phase's
+   continuous part (`run_continuous_serving`, 8 slots, 16 steps a chunk):
+   a greedy `ContinuousBatcher` over 8 requests, one submitted a chunk,
+   each request's codes, steps and limit flag bit-equal to `decode()`
+   alone (K1, no readout pack), K3 chunks x 16 times and K1 never; a chunk
+   key's first capture while a synthesis thread runs (every synthesis
+   bit-equal to it alone); six sampled chunks replayed against the same
+   chunks op by op, bit-equal; K3 at 8 slots, at the slots' per-row
+   positions with no readout pack, against its plain version on the float
+   cache and the same cache in int8, then device-only, and a replayed
+   chunk timed; 8 requests one at a time through `infer`; then the
+   service with `--continuous-batching`: its workload warm-up through the
+   replica's batcher must capture the worker's chunk graph, then 16 POST
+   /tts with Poisson arrivals at a quarter of a warm request's wall, all
+   200, under the profiler: latency, throughput, occupied slots, host
+   reads a request, idle share, graphs the traffic captured;
 9. spec slice: the bench configuration with `spec_decode_k = 4` (int4
    drafts, one int8 verify a round), three POST /tts and one profiled: K6
    once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
@@ -155,7 +179,9 @@ its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
 from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice,
 K12 and K13 from the micro-benchmark path; `launches_by_path` has all
-nine paths, "batched" the batched phase's two warm `infer_batch` runs),
+eleven paths, "batched" the batched phase's two warm `infer_batch` runs,
+"grouped" the serving burst, "continuous" the greedy batcher's and the
+Poisson run's chunks),
 its largest error against the plain version, both times, its bound
 and `library_ms` (null where no one PyTorch call computes the function: K1,
 K2, K3, K6, K8, K10, K12, K13; the K12 and K13 entries time one mode a
@@ -2613,7 +2639,7 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
     graph request; the last must capture nothing (a replay)."""
     import numpy as np
     from voice_tts_tpu_torch.engine import engine as eng_mod
-    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
+    from voice_tts_tpu_torch.engine.device_loop import GATE, DeviceLoops
 
     graphs = engine.loops
     call = call or (lambda: engine.infer(prompt, text))
@@ -2995,6 +3021,646 @@ def run_batched_slice(torch, dev, counters, engine, card):
     return {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
 
 
+# ---------------------------------------------------------------------------
+# serving phase: the queued service, grouped and continuous
+# ---------------------------------------------------------------------------
+
+# the grouped part's code cap (random weights: every decode runs to it)
+SERVE_CAP = 512
+# four texts of text bucket 32 and four of bucket 64 (the hash tokenizer
+# takes each character: 20, 13, 23, 26 and 33, 39, 41, 42 tokens); all
+# eight lie in the bench configuration's one bucket, 48
+SERVE_TEXTS = ("欢迎大家来体验这个语音合成系统谢谢大家.", "今天天气很好我们出去走走.",
+               "这个系统可以把文字变成自然流畅的声音欢迎试用.",
+               "语音合成系统正在为每一位用户生成清晰的声音谢谢大家.",
+               "欢迎大家来体验这个语音合成系统谢谢大家今天天气很好我们出去走走吧.",
+               "这个系统可以把文字变成自然流畅的声音欢迎试用语音合成系统正在为每一位用户生成.",
+               "语音合成系统正在为每一位用户生成清晰的声音谢谢大家欢迎大家来体验这个语音合成系统.",
+               "今天天气很好我们出去走走这个系统可以把文字变成自然流畅的声音欢迎试用谢谢大家来体验.")
+# the continuous part: 8 slots, 16 steps a chunk, 8 texts of bucket 48
+SLOTS, CHUNK_STEPS = 8, 16
+POISSON_REQUESTS = 16
+
+
+def speaker_prompt(f0: float, seconds: float = 2.0, sr: int = 22050) -> bytes:
+    """A two-tone prompt at f0 and 2 f0: one speaker a frequency, 2 s (the
+    warm-up prompt's length, so the same prompt bucket)."""
+    import numpy as np
+    from voice_tts_tpu_torch.audio import encode_wav_int16
+
+    t = np.arange(int(seconds * sr)) / sr
+    tone = (0.4 * np.sin(2 * np.pi * f0 * t)
+            + 0.1 * np.sin(2 * np.pi * 2 * f0 * t)).astype(np.float32)
+    return encode_wav_int16(tone * 32767, sr)
+
+
+def _percentiles(xs):
+    import numpy as np
+
+    return {"p50_s": float(np.percentile(xs, 50)), "p95_s": float(np.percentile(xs, 95))}
+
+
+def _post_tts(port, prompt: bytes, text: str, out: list, i: int, t_start=None):
+    """POST /tts (after `t_start`, a perf_counter time, when given); stores
+    (status, latency s, audio s, decoded WAV sample rate, samples) at out[i]."""
+    import numpy as np
+    from voice_tts_tpu_torch.audio import decode_audio_bytes
+
+    if t_start is not None:
+        time.sleep(max(0.0, t_start - time.perf_counter()))
+    t0 = time.perf_counter()
+    status, body = http(port, "POST", "/tts", json.dumps(
+        {"text": text, "spk_audio": prompt.hex()}).encode())
+    lat = time.perf_counter() - t0
+    sr = n = 0
+    audio = 0.0
+    if status == 200:
+        resp = json.loads(body)
+        wav, sr = decode_audio_bytes(bytes.fromhex(resp["audio_hex"]))
+        n = wav.size if np.all(np.isfinite(wav)) else 0
+        audio = resp["audio_length"]
+    out[i] = (status, lat, audio, sr, n, body[:300] if status != 200 else b"")
+
+
+def _fire(port, reqs, starts=None):
+    """Send the (prompt, text) requests from threads of their own, each at
+    its start time (perf_counter) or all at once; returns their records in
+    request order and the wall from the first send to the last answer."""
+    import threading
+
+    out = [None] * len(reqs)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=_post_tts, args=(port, p, t, out, i,
+                                                        None if starts is None else starts[i]))
+               for i, (p, t) in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return out, time.perf_counter() - t0
+
+
+def _check_served(tag, out):
+    for i, (status, lat, audio, sr, n, body) in enumerate(out):
+        if status != 200 or sr != 22050 or n == 0:
+            fail(f"[{tag}] request {i}: status {status}, sample rate {sr}, {n} finite "
+                 f"samples: {body!r}")
+
+
+def _metrics(port) -> dict:
+    status, body = http(port, "GET", "/metrics")
+    if status != 200:
+        fail(f"/metrics answered {status}")
+    return {k: float(v) for k, v in (line.split() for line in body.decode().splitlines()
+                                     if not line.startswith("#"))}
+
+
+def _record_mel_jobs(engine):
+    """Record every job `_mel_jobs` synthesizes (its dict); returns the list
+    and the function that puts the engine back."""
+    seen, mel_jobs = [], engine._mel_jobs
+
+    def rec(jobs, cbucket):
+        seen.extend(jobs)
+        return mel_jobs(jobs, cbucket)
+    engine._mel_jobs = rec
+
+    def restore():
+        del engine._mel_jobs
+    return seen, restore
+
+
+def _codes_by_text(jobs) -> dict:
+    """Each recorded job's codes, keyed by its text's token ids."""
+    return {tuple(j["ids"]): [int(c) for c in j["codes"][:j["code_len"]]] for j in jobs}
+
+
+def _key_text(key) -> str:
+    """A device-loop key without its object ids (ints past 2^32)."""
+    return repr(tuple(x for x in key if not (isinstance(x, int) and x >= 2 ** 32)))[:300]
+
+
+def run_grouped_serving(torch, dev, counters, engine, card):
+    """The queued service in grouped mode on the production engine (beam-3
+    through K3 with the ancestor table, int8 KV), greedy so that a
+    request's codes in a group and alone can be compared bit for bit, the
+    codes cut to SERVE_CAP: `workload` warm-up (every text bucket at
+    batches 1, 2, 4 and 8, then the full-cap pass), two speakers conditioned
+    beforehand, 8 concurrent POST /tts (texts of buckets 32 and 64): all 200
+    with a 22.05 kHz WAV, fewer than 8 batches in /metrics, no graph
+    captured, then each request alone (a group of one: `infer`): the same
+    codes.  Returns the burst's launches."""
+    import dataclasses
+
+    from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
+
+    gen0 = engine.cfg.generation
+    engine.cfg.generation = dataclasses.replace(gen0, max_mel_tokens=SERVE_CAP,
+                                                do_sample=False)
+    engine.cfg.server.warmup_mode = "workload"
+    service = TTSService(engine, profile="serving")
+    service._warmup()
+    warm = service.warmup_stats
+    print(f"[grouped] workload warm-up ({card}): {warm['seconds']:.2f} s, "
+          f"{warm['graphs']} graphs captured, {len(engine.loops._keys)} keys: "
+          + "; ".join(_key_text(k) for k in engine.loops._keys))
+    if warm["graphs"] == 0:
+        fail("[grouped] the warm-up captured no graph")
+    prompts = (speaker_prompt(180.0), speaker_prompt(260.0))
+    for p in prompts:
+        engine._speaker_conditioning(p)
+    reqs = [(prompts[i % 2], text) for i, text in enumerate(SERVE_TEXTS)]
+    from voice_tts_tpu_torch.engine import post
+
+    buckets = sorted({post.pick_bucket(len(t), engine.cfg.engine.text_buckets)
+                      for t in SERVE_TEXTS})
+    seen, restore = _record_mel_jobs(engine)
+    server = BackgroundServer(service)
+    port = server.start()
+    try:
+        before = _metrics(port)
+        stats0, keys0 = dict(engine.loops.stats), len(engine.loops._keys)
+        counters.reset()
+        out, wall = _fire(port, reqs)
+        launches = counters.snapshot()
+        _check_served("grouped", out)
+        after = _metrics(port)
+        batches = after["tts_batches_total"] - before["tts_batches_total"]
+        grouped = after["tts_batched_requests_total"] - before["tts_batched_requests_total"]
+        captured = engine.loops.stats["graphs"] - stats0["graphs"]
+        lat = [o[1] for o in out]
+        audio = sum(o[2] for o in out)
+        print(f"[grouped] 8 concurrent POST /tts, beam-3 greedy, cap {SERVE_CAP}, text "
+              f"buckets {buckets} ({card}): all 200; latency "
+              f"{json.dumps(_percentiles(lat))}, wall {wall:.4f} s, audio "
+              f"{audio:.3f} s, {audio / wall:.4f} audio s per wall s; group sizes "
+              f"{service.batch_sizes}; /metrics: {batches:.0f} batches of {grouped:.0f} "
+              f"requests; graphs captured {captured}, keys {keys0} -> "
+              f"{len(engine.loops._keys)}; launches {json.dumps(launches)}")
+        if grouped != 8 or not batches < 8:
+            fail(f"[grouped] 8 requests went out in {batches:.0f} batches")
+        if captured or len(engine.loops._keys) != keys0:
+            fail("[grouped] the traffic captured a graph after the warm-up: "
+                 + "; ".join(_key_text(k) for k in list(engine.loops._keys)[keys0:]))
+        if launches["fused_decode_step_batch"] == 0 or launches["fused_decode_step"]:
+            fail("[grouped] the beam decode did not run through K3 alone")
+        burst = _codes_by_text(seen)
+        # alone: a group of one runs `infer` (`_decode_beam`), one at a time
+        seq, restore_seq = _job_codes(engine)
+        alone_out = [None] * len(reqs)
+        try:
+            for i, (p, t) in enumerate(reqs):
+                _post_tts(port, p, t, alone_out, i)
+        finally:
+            restore_seq()
+        _check_served("grouped alone", alone_out)
+        tok = engine.tokenizer
+        alone = {tuple(tok.convert_tokens_to_ids(tok.tokenize(t))): c
+                 for (_, t), c in zip(reqs, seq)}
+        walls = [o[1] for o in alone_out]
+        print(f"[grouped] the same 8 requests one at a time: latency "
+              f"{json.dumps(_percentiles(walls))}, {sum(walls):.4f} s in all, "
+              f"{audio / sum(walls):.4f} audio s per wall s; the burst "
+              f"{sum(walls) / wall:.4f}x their throughput")
+    finally:
+        server.stop()
+        restore()
+        engine.cfg.generation = gen0
+    keys = sorted(burst)
+    _same_codes("[grouped] each request's codes in the burst against alone",
+                [burst[k] for k in keys], [alone.get(k) for k in keys])
+    if len(keys) != 8:
+        fail(f"[grouped] {len(keys)} jobs synthesized, not 8")
+    return launches
+
+
+def _bench_requests(engine):
+    """Eight requests over two speakers in text bucket 48 (the bench
+    configuration's only bucket)."""
+    prompts = (speaker_prompt(180.0), speaker_prompt(260.0))
+    return [{"spk_audio_prompt": prompts[i % 2], "text": t}
+            for i, t in enumerate(SERVE_TEXTS)]
+
+
+def _continuous_against_alone(torch, engine, jobs, gen):
+    """Each harvested job's steps, limit flag and codes against the port's
+    `decode()` of its request alone (K1, the fused pack, no readout pack)."""
+    import numpy as np
+    from voice_tts_tpu_torch.engine import post
+    from voice_tts_tpu_torch.models.gpt.decode import decode as gpt_decode
+
+    dev, cfg = engine.device, engine.cfg
+    got, ref = [], []
+    for job in jobs:
+        text = torch.zeros((1, job["bucket"]), dtype=torch.long)
+        text[0, :job["text_len"]] = torch.tensor(job["ids"][:job["bucket"]])
+        res = gpt_decode(engine.gpt_rt, gen, job["spk"]["cond_latents"], job["emovec"],
+                         text.to(dev), torch.tensor([job["text_len"]], device=dev),
+                         gen.max_mel_tokens, None, engine.fused_pack, None,
+                         int8_kv=cfg.engine.use_int8_kv, loops=engine.loops)
+        n, hit = int(res.lengths[0]), bool(res.hit_limit[0])
+        code_len0 = max(n - (0 if hit else 1), 1)
+        row, row_len = post.remove_long_silence(
+            res.codes[:, :code_len0].cpu().numpy(), np.asarray([code_len0]),
+            cfg.gpt.stop_mel_token, cfg.engine.silent_token)
+        got.append([job["steps"], job["hit_limit"]]
+                   + [int(c) for c in job["codes"][:job["code_len"]]])
+        ref.append([n, hit] + row[0, :int(row_len[0])].tolist())
+    return got, ref
+
+
+def _chunk_state_run(torch, engine, loops, gen, reqs, seed, time_it=False):
+    """Three requests admitted one chunk apart into 8 slots, 6 chunks, under
+    `loops` (op by op, or graphs), the draws from a generator seeded
+    `seed`: every state tensor and status after each chunk.  With
+    `time_it`, then every slot filled: K3 at the slots' per-row positions
+    with no readout pack, as the chunk calls it, held against its plain
+    version (`compare_step`, the logits of each through the chunk's
+    row-by-row readout) on the slot state and on the same cache quantized
+    to int8 with its scales; then K3 alone device-only, and a replayed chunk
+    (CUDA events)."""
+    from voice_tts_tpu_torch.engine import continuous as cont
+    from voice_tts_tpu_torch.models.gpt.unified_voice import n_cond_latents
+    from voice_tts_tpu_torch.ops.fused_decode import BLOCK_T
+
+    model, pack, dev, cfg = engine.gpt_rt, engine.fused_pack, engine.device, engine.cfg
+    gen_t = torch.Generator(device=dev).manual_seed(seed)
+    dtype = model.conditioning_encoder.after_norm.bias.dtype
+    t_max = n_cond_latents(cfg.gpt) + 2 + max(cfg.engine.text_buckets) + 2 + 1
+    t_max += gen.max_mel_tokens
+    t_max += (-t_max) % BLOCK_T
+    state = cont.init_state(cfg.gpt, SLOTS, t_max, gen.max_mel_tokens, dtype,
+                            cfg.engine.use_int8_kv, dev)
+    state = cont.bind_state(loops, cont.chunk_key(model, pack, gen, gen_t, state,
+                                                  CHUNK_STEPS), state)
+    statuses = []
+    for c in range(6):
+        if c < len(reqs):
+            cond, emo, text, tlen = reqs[c]
+            cont.admit(model, gen, state, c, cond, emo, text, tlen, gen_t)
+        _, status = cont.run_chunk(model, pack, gen, state, gen_t, CHUNK_STEPS, loops)
+        statuses.append(status.clone())
+    torch.cuda.synchronize()
+    out = [x.clone() for x in state if x is not None], statuses
+    if time_it:
+        from voice_tts_tpu_torch.ops.fused_decode import (fused_decode_step_batch,
+                                                          fused_decode_step_batch_plain,
+                                                          quantize_kv_cache_batch)
+
+        for slot in range(len(reqs), SLOTS):
+            cont.admit(model, gen, state, slot, *reqs[slot % len(reqs)], gen_t)
+        x = model.embed_decode_token_rows(state.token, state.steps - 1)
+        caches = [("int8" if state.kv_scales is not None else "float", state.cache,
+                   state.kv_scales)]
+        if state.kv_scales is None:
+            caches.append(("int8", *quantize_kv_cache_batch(state.cache)))
+        with torch.no_grad():
+            for name, cache, scales in caches:
+                def k3(fn):
+                    hidden, kv_new, logits = fn(x, pack, cache, state.bias, state.pos,
+                                                cfg.gpt.heads, kv_scales=scales)
+                    if logits is not None:
+                        fail("[continuous] K3 read out without a readout pack")
+                    return hidden, kv_new, model.readout_rows(hidden)
+                got, ref = k3(fused_decode_step_batch), k3(fused_decode_step_batch_plain)
+                torch.cuda.synchronize()
+                compare_step(torch, f"[continuous] K3 at {SLOTS} slots, {name} KV, per-row "
+                             f"positions {state.pos.tolist()}, Tmax {t_max}, no readout "
+                             f"pack", got, ref)
+        k3 = device_time_ms(torch, lambda: fused_decode_step_batch(
+            x, pack, state.cache, state.bias, state.pos, cfg.gpt.heads,
+            kv_scales=state.kv_scales), CHAIN_ITERS)
+        chunk = cuda_time_ms(torch, lambda: cont.run_chunk(
+            model, pack, gen, state, gen_t, CHUNK_STEPS, loops), 5, warmup=1)
+        print(f"[continuous] K3 at {SLOTS} slots, per-row positions "
+              f"{state.pos.tolist()}, Tmax {t_max}: device-only {k3:.4f} ms a step; a "
+              f"replayed chunk {chunk:.4f} ms, {chunk / CHUNK_STEPS:.4f} a step (K3, the "
+              f"readout row by row, the sampling)")
+    return out
+
+
+def run_continuous_serving(torch, dev, counters, engine, card):
+    """Continuous batching on the bench engine (sampling, one beam), 8
+    slots, the 256 cap, 16 steps a chunk: (1) a greedy `ContinuousBatcher`
+    over 8 requests, one submitted each chunk while the others decode:
+    each request's codes against `decode()` alone, K3 chunks x 16 times;
+    (2) a chunk key's first capture while a synthesis thread runs, its WAVs
+    against the same synthesis alone; (3) chunks replayed against the same
+    chunks op by op (sampling, staggered admissions): bit-equal, then K3 at
+    the slots' positions against its plain version (`_chunk_state_run`);
+    (4) the service with `--continuous-batching`: its workload warm-up
+    (which must capture the worker's chunk graph), two requests, then 16
+    requests with Poisson arrivals at a mean gap of a quarter of the second
+    request's wall, under the profiler.  Returns the launches of (1) and
+    (4) together."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    from voice_tts_tpu_torch.engine import continuous as cont
+    from voice_tts_tpu_torch.engine.device_loop import GATE, DeviceLoops
+    from voice_tts_tpu_torch.scripts.decode_host_time import busy_seconds
+    from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
+
+    reqs = _bench_requests(engine)
+    greedy = engine._generation_config({"do_sample": False})
+    # (1) greedy batcher, staggered, against decode() alone
+    seen, restore = _record_mel_jobs(engine)
+    batcher = cont.ContinuousBatcher(engine, slots=SLOTS, chunk_steps=CHUNK_STEPS,
+                                     generation_kwargs={"do_sample": False})
+    counters.reset()
+    t0 = time.perf_counter()
+    pairs = []
+    try:
+        for r in reqs:
+            pairs.append(batcher.submit(r))
+            batcher.step_once()
+        batcher.run()
+    finally:
+        batcher.stop()
+        restore()
+    wall = time.perf_counter() - t0
+    launches = counters.snapshot()
+    for holder, _ in pairs:
+        if not holder or isinstance(holder[0], Exception):
+            fail(f"[continuous] a batcher request failed: {holder}")
+    st = batcher.stats
+    print(f"[continuous] greedy batcher, 8 requests one a chunk, {SLOTS} slots, "
+          f"{CHUNK_STEPS} steps a chunk, cap {batcher.max_new} ({card}): wall {wall:.4f} s, "
+          f"{json.dumps(st)}, mean occupied slots a chunk "
+          f"{st['occupied'] / st['chunks']:.3f}; K3 {launches['fused_decode_step_batch']} "
+          f"launches, K1 {launches['fused_decode_step']}")
+    if launches["fused_decode_step_batch"] != st["chunks"] * CHUNK_STEPS:
+        fail("[continuous] K3 did not launch once a step of every chunk")
+    if launches["fused_decode_step"] != 0 or st["harvested"] != 8:
+        fail("[continuous] the batcher ran K1, or did not harvest 8 jobs")
+    got, ref = _continuous_against_alone(torch, engine, seen, greedy)
+    _same_codes("[continuous] steps, limit flag and codes a request against decode() "
+                "alone (K1, no readout pack)", got, ref)
+
+    # (2) a first capture while a synthesis thread runs
+    group = [dict(j) for j in seen[:2]]
+    fixed = {}
+    draw = engine._draw_noise
+
+    def noise(shape):
+        if tuple(shape) not in fixed:
+            fixed[tuple(shape)] = draw(shape)
+        return fixed[tuple(shape)]
+    engine._draw_noise = noise
+    try:
+        engine._mel_jobs(group, group[0]["cbucket"])
+        ref_wavs = [j["wav"].copy() for j in group]
+        spans, errors, stop = [], [], threading.Event()
+
+        def synthesize():
+            try:
+                while not stop.is_set() or len(spans) < 3:
+                    with sampled._engine_lock, GATE.shared():
+                        s = time.perf_counter()
+                        engine._mel_jobs(group, group[0]["cbucket"])
+                        torch.cuda.synchronize()
+                        spans.append((s, time.perf_counter(),
+                                      all(np.array_equal(j["wav"], w)
+                                          for j, w in zip(group, ref_wavs))))
+                    time.sleep(0.005)         # let the scheduler take the lock
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+        synth = threading.Thread(target=synthesize)
+        graphs0 = engine.loops.stats["graphs"]
+        sampled = cont.ContinuousBatcher(engine, slots=SLOTS, chunk_steps=CHUNK_STEPS)
+        synth.start()
+        while len(spans) < 1 and synth.is_alive():
+            time.sleep(0.01)
+        t_cap = time.perf_counter()
+        holder, ev = sampled.submit(reqs[0])
+        sampled.step_once()                   # conditioning, admission, the capture
+        t_done = time.perf_counter()
+        sampled.start()
+        ev.wait(300)
+        sampled.stop()
+        stop.set()
+        synth.join()
+    finally:
+        engine._draw_noise = draw
+    overlap = [s for s in spans if s[0] < t_done and s[1] > t_cap]
+    print(f"[continuous] first capture of a chunk key ({t_done - t_cap:.4f} s from "
+          f"submission, graphs +{engine.loops.stats['graphs'] - graphs0}) while "
+          f"synthesis ran {len(spans)} times ({len(overlap)} overlapping the capture's "
+          f"window); every synthesis bit-equal to the one alone "
+          f"{all(s[2] for s in spans)}; the request "
+          f"{'completed' if holder and not isinstance(holder[0], Exception) else holder}")
+    if errors or not all(s[2] for s in spans):
+        fail(f"[continuous] synthesis beside the capture failed or changed: {errors}")
+    if not holder or isinstance(holder[0], Exception):
+        fail(f"[continuous] the request whose chunk captured failed: {holder}")
+    if engine.loops.stats["graphs"] == graphs0:
+        fail("[continuous] the new chunk key captured no graph")
+
+    # (3) replayed chunks against op by op, sampling, staggered admissions
+    gen_s = engine.cfg.generation
+    inputs = []
+    for r in reqs[:3]:
+        spk, emovec, segs = engine._prepare(r["spk_audio_prompt"], None, 1.0, None, False,
+                                            r["text"], 120)
+        ids = engine.tokenizer.convert_tokens_to_ids(segs[0])
+        bucket = max(engine.cfg.engine.text_buckets)
+        text = torch.zeros((1, bucket), dtype=torch.long)
+        text[0, :len(ids)] = torch.tensor(ids)
+        inputs.append((spk["cond_latents"], emovec, text.to(dev),
+                       torch.tensor([len(ids)], device=dev)))
+    runs = {name: _chunk_state_run(torch, engine, DeviceLoops(dev, capture=capture),
+                                   gen_s, inputs, 1234, time_it=capture)
+            for name, capture in (("op_by_op", False), ("graphs", True))}
+    same = (all(torch.equal(a, b) for a, b in zip(runs["op_by_op"][0], runs["graphs"][0]))
+            and all(torch.equal(a, b) for a, b in zip(runs["op_by_op"][1],
+                                                       runs["graphs"][1])))
+    steps = runs["graphs"][1][-1][3].tolist()
+    print(f"[continuous] 6 sampled chunks, 3 staggered admissions: replayed against op "
+          f"by op bit-equal {same} (steps a slot {steps})")
+    if not same:
+        fail("[continuous] a replayed chunk differs from the same chunk op by op")
+
+    # (4) one at a time through K1 (`infer`), then the service, Poisson arrivals
+    engine.infer(reqs[0]["spk_audio_prompt"], reqs[0]["text"])
+    walls = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        engine.infer(r["spk_audio_prompt"], r["text"])
+        walls.append(time.perf_counter() - t0)
+    print(f"[continuous] 8 requests one at a time through `infer` (K1, sampling) ({card}): "
+          f"wall {json.dumps(_percentiles(walls))}, {len(walls) / sum(walls):.4f} "
+          f"requests/s")
+    e = engine.cfg
+    e.server.continuous_batching, e.server.chunk_steps = True, CHUNK_STEPS
+    e.server.max_batch_size, e.server.warmup_mode = SLOTS, "workload"
+    service = TTSService(engine, profile="bench")
+    service._warmup()
+    warm_up = service.warmup_stats
+    key = service._batchers[0].key
+    print(f"[continuous] workload warm-up through the replica's batcher ({card}): "
+          f"{warm_up['seconds']:.2f} s, {warm_up['graphs']} graphs captured, the chunk "
+          f"key's graph captured {engine.loops._keys[key].graph is not None}")
+    if engine.loops._keys[key].graph is None:
+        fail("[continuous] the warm-up did not capture the worker's chunk graph")
+    server = BackgroundServer(service)
+    port = server.start()
+    try:
+        info = json.loads(http(port, "GET", "/debug/worker-info")[1])["replicas"][0]
+        if info["mode"] != "continuous":
+            fail(f"[continuous] worker-info reports {info['mode']}")
+        keys0 = list(engine.loops._keys)
+        graphs0 = engine.loops.stats["graphs"]
+        r0 = [(reqs[0]["spk_audio_prompt"], reqs[0]["text"])]
+        cold, cold_wall = _fire(port, r0)
+        warm, warm_wall = _fire(port, r0)
+        _check_served("continuous warm-up", cold + warm)
+        gap = warm_wall / 4
+        rng = np.random.default_rng(7)
+        arrivals = np.cumsum(rng.exponential(gap, POISSON_REQUESTS))
+        batcher = service._batchers[0]
+        stats0 = dict(batcher.stats)
+        traffic = [(reqs[i % len(reqs)]["spk_audio_prompt"], reqs[i % len(reqs)]["text"])
+                   for i in range(POISSON_REQUESTS)]
+        from torch.profiler import ProfilerActivity, profile
+
+        counters.reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out, wall = _fire(port, traffic, list(t0 + arrivals))
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        got = counters.snapshot()
+        _check_served("continuous", out)
+        d = {k: batcher.stats[k] - stats0[k] for k in stats0}
+        busy = busy_seconds(prof)
+        lat = [o[1] for o in out]
+        audio = sum(o[2] for o in out)
+        print(f"[continuous] {POISSON_REQUESTS} POST /tts, Poisson arrivals at a mean gap "
+              f"of {gap:.4f} s (a quarter of the second request's {warm_wall:.4f} s; the first "
+              f"{cold_wall:.4f} s) ({card}): all 200; latency {json.dumps(_percentiles(lat))}, "
+              f"wall {span:.4f} s, {POISSON_REQUESTS / span:.4f} requests/s, "
+              f"{audio / span:.4f} audio s per wall s; chunks {d['chunks']}, mean occupied "
+              f"slots a chunk {d['occupied'] / max(d['chunks'], 1):.3f}; host reads a "
+              f"request {(d['status_reads'] + d['codes_reads']) / POISSON_REQUESTS:.3f} "
+              f"(status {d['status_reads']}, codes {d['codes_reads']}); device busy "
+              f"{busy:.4f} s, idle share {1 - busy / span:.4f} (profiled); K3 "
+              f"{got['fused_decode_step_batch']} launches, K1 {got['fused_decode_step']}")
+        new_keys = [k for k in engine.loops._keys if k not in keys0]
+        print(f"[continuous] the traffic after the warm-up captured "
+              f"{engine.loops.stats['graphs'] - graphs0} graphs: "
+              + "; ".join(_key_text(k) for k in new_keys))
+        if got["fused_decode_step_batch"] != d["chunks"] * CHUNK_STEPS or got["fused_decode_step"]:
+            fail("[continuous] the served chunks did not run K3 once a step, or K1 ran")
+    finally:
+        server.stop()
+        e.server.continuous_batching = False
+    return {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
+
+
+def _on_card_spy(engine, i, seen, names=("infer", "infer_batch", "_prepare", "_mel_jobs")):
+    """Record (replica i, the calling thread's current device) at each call
+    of the engine's entry points."""
+    import torch
+
+    for name in names:
+        fn = getattr(engine, name)
+
+        def spy(*a, _fn=fn, **k):
+            seen.append((i, torch.cuda.current_device()))
+            return _fn(*a, **k)
+        setattr(engine, name, spy)
+    return engine
+
+
+def run_workers(torch, counters, card):
+    """`--workers N` over every card of the machine (two or more; `--only
+    workers`): tiny engines with the int8 trunk and the fused decode pack,
+    replica i on cuda:i, so their kernels (K4 / K1 / K3, K2) launch on card
+    i.
+    Grouped mode, then continuous: 2N concurrent POST /tts, all 200, every
+    replica serving, each engine entry point called on a thread whose
+    current device is the replica's card.  Grouped mode then fails the last
+    replica once with a fatal error: the watchdog rebuilds it on its card,
+    and the next 2N requests are all 200 again."""
+    from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"[workers] needs two cards or more; found {n}")
+    prompts = [speaker_prompt(180.0 + 40 * i) for i in range(2 * n)]
+    reqs = [(p, SERVE_TEXTS[i % len(SERVE_TEXTS)][:12]) for i, p in enumerate(prompts)]
+    for mode in ("grouped", "continuous"):
+        service = TTSService()
+        service.load_engines(workers=n, tiny=True, continuous=True, device="cuda")
+        devices = [str(e.device) for e in service.engines]
+        if devices != [f"cuda:{i}" for i in range(n)]:
+            fail(f"[workers] replicas on {devices}")
+        seen = []
+        for i, e in enumerate(service.engines):
+            e.cfg.server.continuous_batching = mode == "continuous"
+            e.cfg.generation.do_sample, e.cfg.generation.max_mel_tokens = False, 32
+            _on_card_spy(e, i, seen)
+        factory = service._engine_factory
+
+        def rebuilt(i, factory=factory, seen=seen):
+            e = factory(i)
+            e.cfg.generation.do_sample, e.cfg.generation.max_mel_tokens = False, 32
+            return _on_card_spy(e, i, seen)
+        service._engine_factory = rebuilt
+        server = BackgroundServer(service)
+        port = server.start()
+        try:
+            info = json.loads(http(port, "GET", "/debug/worker-info")[1])["replicas"]
+            if [r["mode"] for r in info] != [mode] * n:
+                fail(f"[workers] worker-info modes {[r['mode'] for r in info]}")
+            counters.reset()
+            out, wall = _fire(port, reqs)
+            launches = counters.snapshot()
+            _check_served(f"workers {mode}", out)
+            served = sorted({i for i, _ in seen})
+            strays = sorted({(i, d) for i, d in seen if d != i})
+            print(f"[workers] {mode}: {n} replicas on {devices} ({card}), {2 * n} concurrent "
+                  f"POST /tts all 200 in {wall:.4f} s; replicas called {served}; calls off "
+                  f"their card {strays}; launches {json.dumps(launches)}")
+            if served != list(range(n)) or strays:
+                fail(f"[workers] {mode}: a replica served nothing, or ran off its card")
+            # a group of 2+ decodes eagerly through K4, a lone request
+            # through K1, a continuous chunk through K3
+            decode = (launches["fused_decode_step"] + launches["fused_decode_step_batch"]
+                      + launches["int8_gemv"])
+            if not decode or not launches["aa_snake_activation"]:
+                fail(f"[workers] {mode}: the decode or the vocoder kernels did not launch")
+            if mode == "grouped":
+                last = service.engines[-1]
+
+                def fatal(*a, **k):
+                    raise RuntimeError("CUDA error: simulated device failure")
+                last.infer = last.infer_batch = fatal
+                failed, _ = _fire(port, reqs[:n])
+                deadline = time.time() + 120
+                while (_metrics(port)["tts_replica_rebuilds_total"] < 1
+                       and time.time() < deadline):
+                    time.sleep(0.2)
+                new = service.engines[-1]
+                seen.clear()
+                again, _ = _fire(port, reqs)
+                _check_served("workers rebuilt", again)
+                strays = sorted({(i, d) for i, d in seen if d != i})
+                print(f"[workers] grouped: a fatal error on replica {n - 1}: statuses "
+                      f"{[o[0] for o in failed]}; rebuilt {new is not last} on "
+                      f"{new.device}; then {2 * n} requests all 200, replicas called "
+                      f"{sorted({i for i, _ in seen})}, calls off their card {strays}")
+                if (new is last or str(new.device) != f"cuda:{n - 1}" or strays
+                        or sorted(o[0] for o in failed) != [200] * (n - 1) + [500]):
+                    fail("[workers] the watchdog did not rebuild the replica on its card")
+        finally:
+            server.stop()
+        del service
+        torch.cuda.empty_cache()
+
+
 def run_bench_slice(torch, dev, counters):
     """The flagship engine in the bench configuration (`--profile bench`):
     sampling, one beam through K1."""
@@ -3015,7 +3681,7 @@ def run_bench_slice(torch, dev, counters):
         fail("K3 was launched on the one-beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
         fail("K2 was not launched on every vocoder activation")
-    return launches, metrics
+    return launches, metrics, engine
 
 
 def run_spec_slice(torch, dev, counters, bench_metrics):
@@ -3335,11 +4001,16 @@ KERNEL_CHECKS = {"k2": check_k2, "k4": check_k4, "k1": check_k1, "k3": check_k3,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", nargs="+", choices=list(KERNEL_CHECKS) + ["vocoder", "batched"],
+    ap.add_argument("--only", nargs="+",
+                    choices=list(KERNEL_CHECKS) + ["vocoder", "batched", "serving",
+                                                   "workers"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
                          "the vocoder A/B on a flagship BigVGAN with random weights, "
-                         "`batched` the batched phase on a production engine of its own")
+                         "`batched` the batched phase on a production engine of its own, "
+                         "`serving` the serving phase on a production and a bench engine "
+                         "of its own, `workers` the server's replicas over every card "
+                         "(two or more)")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -3360,6 +4031,16 @@ def main():
                 from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
                 run_batched_slice(torch, dev, counters, TTSEngine.random(
                     serving_config(), device=dev, seed=0), card)
+            elif name == "serving":
+                from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config,
+                                                               serving_config)
+                run_continuous_serving(torch, dev, counters, TTSEngine.random(
+                    bench_config(), device=dev, seed=0), card)
+                torch.cuda.empty_cache()
+                run_grouped_serving(torch, dev, counters, TTSEngine.random(
+                    serving_config(), device=dev, seed=0), card)
+            elif name == "workers":
+                run_workers(torch, counters, card)
             else:
                 KERNEL_CHECKS[name](torch, dev, results)
         print(card)
@@ -3379,10 +4060,13 @@ def main():
     check_tiny_engine_vocoders(torch, dev, counters)
     by_path["serving"], engine = run_production_slice(torch, dev, counters)
     by_path["batched"] = run_batched_slice(torch, dev, counters, engine, card)
+    by_path["grouped"] = run_grouped_serving(torch, dev, counters, engine, card)
     vocoder = engine.vocoder
     del engine
     torch.cuda.empty_cache()
-    by_path["bench"], bench_metrics = run_bench_slice(torch, dev, counters)
+    by_path["bench"], bench_metrics, bench = run_bench_slice(torch, dev, counters)
+    by_path["continuous"] = run_continuous_serving(torch, dev, counters, bench, card)
+    del bench
     torch.cuda.empty_cache()
     by_path["spec"] = run_spec_slice(torch, dev, counters, bench_metrics)
     torch.cuda.empty_cache()

@@ -21,6 +21,8 @@ import voice_tts_tpu_torch.text.native_tn
 import voice_tts_tpu_torch.models.gpt.decode
 import voice_tts_tpu_torch.engine.engine
 import voice_tts_tpu_torch.serving.app
+import voice_tts_tpu_torch.engine.continuous
+import voice_tts_tpu_torch.engine.device_loop
 import voice_tts_tpu_torch.ops.fused_decode
 import voice_tts_tpu_torch.models.gpt.beam
 import voice_tts_tpu_torch.ops.aa_activation

@@ -28,14 +28,35 @@ states (`set_state`, `manual_seed`) replays the same streams.  A
 capture or replay error propagates: nothing here falls back to the op-by-op
 run.
 
+`run_graph` runs a function of a state once a call, on the key's graph: the
+continuous scheduler's chunk (`engine/continuous.py`), whose state the
+caller also writes between calls (a slot's admission).
+
 The kernel wrappers count their launches in Python (`ops/counters.py`), which
 a replay does not run: a capture takes back what it counted, and each replay
 adds it again, so a decode kernel counts every step a chunk executes,
 including the at most CHUNK - 1 steps after the stop.
+
+Captures run in the default global error mode, in which a CUDA call of
+another thread (an allocation, a synchronisation) fails the capture.  Code
+that touches the device from several threads (the continuous scheduler and
+its synthesis thread, the replicas of a server) runs its device work under
+`GATE.shared()`, and every capture takes `GATE.exclusive()`: it waits until
+no other thread is inside a shared section, and holds the others out while
+it captures.  The thread-local error mode does not make the gate needless:
+with it, and no gate, the continuous chunk's first capture beside a
+running synthesis thread was invalidated on the card
+(`cudaErrorStreamCaptureInvalidated`).  CUDA refuses, in every mode, a
+synchronisation of the whole device while one of its streams captures,
+and other threads make such calls: `torch.cuda.synchronize`, the
+`cudaFree` of `torch.cuda.empty_cache` (a replica's rebuild, the start
+of every `torch.cuda.graph`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -48,6 +69,66 @@ CHUNK = 16
 
 # the generators a loop draws from: none, one, or one a request
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+
+
+class CaptureGate:
+    """A shared / exclusive gate over the device work of the process's
+    threads.  `shared()` sections run together; `exclusive()` waits until no
+    other thread is in a shared section and keeps new ones out until it
+    ends.  Both nest in one thread.  A thread that asks for `exclusive()`
+    inside its own shared section sets that section aside while it waits
+    (it launches nothing meanwhile), so two such threads cannot deadlock."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared: Dict[int, int] = {}    # thread -> depth of its shared sections
+        self._owner: Optional[int] = None    # the thread in exclusive()
+        self._depth = 0
+        self._waiting = 0                    # threads waiting for exclusive()
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner != me and me not in self._shared:
+                self._cond.wait_for(lambda: self._owner is None and not self._waiting)
+            self._shared[me] = self._shared.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared[me] -= 1
+                if not self._shared[me]:
+                    del self._shared[me]
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        held = 0
+        with self._cond:
+            if self._owner == me:
+                self._depth += 1
+            else:
+                held = self._shared.pop(me, 0)
+                self._waiting += 1
+                self._cond.wait_for(lambda: self._owner is None and not self._shared)
+                self._waiting -= 1
+                self._owner, self._depth = me, 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if not self._depth:
+                    self._owner = None
+                    if held:
+                        self._shared[me] = held
+                    self._cond.notify_all()
+
+
+# the process's gate: captures against the device work of other threads
+GATE = CaptureGate()
 
 
 def read_flag(flag: torch.Tensor) -> bool:
@@ -129,10 +210,11 @@ class DeviceLoops:
             generator = (generator,)
         for g in generator or ():
             graph.register_generator_state(g)
-        before = counters.snapshot()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            fn()
-        after = counters.snapshot()
+        with GATE.exclusive():
+            before = counters.snapshot()
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                fn()
+            after = counters.snapshot()
         entry.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         for k, n in entry.launches.items():
             counters.LAUNCHES[k] -= n
@@ -181,6 +263,27 @@ class DeviceLoops:
             n += 1
             if not _read(self, entry.flag):
                 return state, n
+
+    def graph(self, key: tuple, state: NamedTuple, fn: Callable,
+              generator: Generators) -> torch.Tensor:
+        """`run_graph` on the key's graph: `state` holds static tensors of
+        `bind` and is updated in place; returns the key's static output."""
+        entry = self._keys[key]
+        if entry.graph is None:
+            def first():
+                new, out = fn(state)
+                _assign(state, new)
+                entry.out = out.clone()
+
+            def in_place():
+                new, out = fn(state)
+                _assign(state, new)
+                entry.out.copy_(out)
+            self._warm(first)
+            self._capture(entry, in_place, generator)
+        else:
+            self._replay(entry)
+        return entry.out
 
     def once(self, key: tuple, inputs: Dict[str, torch.Tensor],
              fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
@@ -233,6 +336,22 @@ def run_chunks(state: NamedTuple, step: Callable[[NamedTuple], NamedTuple],
         n += 1
         if not _read(loops, active(state)):
             return state, n
+
+
+def run_graph(state: NamedTuple, fn: Callable[[NamedTuple], Tuple[NamedTuple, torch.Tensor]],
+              loops: Optional[DeviceLoops], key: tuple,
+              generator: Generators = None) -> Tuple[NamedTuple, torch.Tensor]:
+    """fn(state) -> (state', out) once.  With a capturing `loops`, `state`
+    must hold the static tensors of `bind(loops, key, ...)`: the first call
+    runs fn op by op and captures it, each later call replays the graph,
+    and `out` is the key's static output (the next call overwrites it);
+    otherwise fn runs op by op.  Either way `state` is updated in place and
+    returned."""
+    if loops is None or not loops.capture:
+        new, out = fn(state)
+        _assign(state, new)
+        return state, out
+    return state, loops.graph(key, state, fn, generator)
 
 
 def run_once(inputs: Dict[str, torch.Tensor],

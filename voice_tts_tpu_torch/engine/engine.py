@@ -74,6 +74,7 @@ settings of the JAX engine).  Left out: the Qwen text emotion model
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -183,6 +184,24 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def on_device(device):
+    """A block in which `device` is this thread's current CUDA device (a
+    no-op off the card).  The kernels launch on the current device's
+    streams, so a thread drives a replica on another card only inside such
+    a block, or after `use_device`."""
+    if device is None or torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(torch.device(device))
+
+
+def use_device(device) -> None:
+    """Make `device` this thread's current CUDA device for good (a no-op off
+    the card): the first call of a thread that drives one replica."""
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
 
 
 def bench_config() -> TTSConfig:

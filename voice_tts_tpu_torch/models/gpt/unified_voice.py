@@ -179,9 +179,23 @@ class UnifiedVoice(nn.Module):
             pos = torch.full((1, 1), step + 1, dtype=torch.long, device=token.device)
         return (self.mel_embedding(token[:, None]) + self.mel_pos_embedding(pos))[:, 0]
 
+    def embed_decode_token_rows(self, token: torch.Tensor,
+                                steps: torch.Tensor) -> torch.Tensor:
+        """Per-row AR-step embedding for continuous batching: token (B,),
+        steps (B,) each row's last emitted code index, a device tensor ->
+        (B, D), each row at its own mel position steps + 1."""
+        return (self.mel_embedding(token[:, None])
+                + self.mel_pos_embedding(steps[:, None].long() + 1))[:, 0]
+
     def readout(self, hidden: torch.Tensor) -> torch.Tensor:
         """final_norm + mel_head on a (B, D) hidden state -> (B, vocab) f32."""
         return self.mel_head(self.final_norm(hidden).float())
+
+    def readout_rows(self, hidden: torch.Tensor) -> torch.Tensor:
+        """`readout` of each row of (B, D) alone: a GEMM over more rows may
+        sum in another order (cuBLAS picks its kernel by the row count), so
+        this keeps a row's logits those of `readout` at batch 1."""
+        return torch.cat([self.readout(hidden[i:i + 1]) for i in range(hidden.shape[0])])
 
     def decode_step(self, token, step: int, cache_index: int, valid, kv_cache):
         """One AR step on the unfused path; `kv_cache` is updated in place."""

@@ -335,6 +335,38 @@ def apply_kv_update_q_batch(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
     return kv_cache, kv_scales
 
 
+def _scatter_rows(buf: torch.Tensor, dim: int, pos: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """Write `rows` (buf's shape without its time axis `dim`) into `buf`, each
+    row b of axis dim - 1 at its own position pos[b] of axis `dim`, by
+    `scatter_`: no host read, so a captured graph holds the write."""
+    rows = rows.to(buf.dtype).unsqueeze(dim)
+    shape = [1] * buf.dim()
+    shape[dim - 1] = pos.shape[0]
+    buf.scatter_(dim, pos.long().reshape(shape).expand(rows.shape), rows)
+
+
+def apply_kv_update_rows(kv_cache: torch.Tensor, kv_new: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """Per-row write (continuous batching): kv_new (L, 2, B, D) lands at each
+    row's own position pos (B,), a device tensor, in the batched time-major
+    cache (L, 2, B, Tmax, D).  An idle row writes at its stale position, as
+    in the JAX package; the next admission overwrites its row."""
+    _scatter_rows(kv_cache, 3, pos, kv_new)
+    return kv_cache
+
+
+def apply_kv_update_q_rows(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
+                           kv_new: torch.Tensor, pos: torch.Tensor):
+    """Per-row int8 write: quantize kv_new (L, 2, B, D) f32 and place each
+    row and its scales at its own position pos (B,) (cache int8 (L, 2, B,
+    Tmax, D), scales (L, B, Tmax, 2)).  Returns (cache, scales)."""
+    q, s = _quantize_rows(kv_new)                    # s (L, 2, B)
+    _scatter_rows(kv_cache, 3, pos, q)
+    _scatter_rows(kv_scales, 2, pos, s.permute(0, 2, 1))
+    return kv_cache, kv_scales
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
