@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 (`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
 without the slices and without the result line; `--only vocoder` runs the
 vocoder A/B alone on a flagship BigVGAN with random weights, `--only
-batched` and `--only serving` those phases on engines of their own.)
+batched`, `--only serving` and `--only loading` those phases on engines of
+their own.)
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
@@ -96,6 +97,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    200 with a 22.05 kHz WAV, fewer than 8 batches in /metrics, no graph
    captured, each request's codes bit-equal to it served alone; p50 / p95
    latency, audio seconds per wall second, the group sizes;
+   Then the loading phase (`run_loading`; `--only loading` runs it alone
+   on a production engine of its own): the production engine's weights
+   (its f32 masters rebuilt from its seed and checked against its tensors
+   and runtime copies) written in the published checkpoint layout
+   (`published_layout.py`: config.yaml, gpt.pth, the s2mel trainer's
+   nesting, the vocoder with weight-norm pairs, CAMPPlus, the codec with
+   its decoder, w2v-bert with a layer past the tap, stats and matrices)
+   under a temporary directory, with the bytes and seconds; the port's
+   onboarding `main` on it with `--out`, the quality gates (96 steps: K1
+   int8, K1 + K7 int4 at g128 and D / 2, K1 with the folded readout) and
+   `--bench`: every family 0 unmatched / missing / mismatched / extra
+   keys, every converted tensor the source's bit for bit but the
+   weight-norm-folded convolutions (within 2^-22 relative), each scheme's
+   KL; then the server on the converted directory with `--model-dir`
+   (production profile, `minimal` warm-up) and one POST /tts: its decodes
+   bit-equal to the source engine's for the same request, generator state
+   and cap memory, its WAV within 2 LSB (K3 and K2 on the path);
 8. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per executed step, K3 never, K2 109 times per vocode, the replayed
    request bit-equal to the uncaptured one; then the serving phase's
@@ -134,13 +152,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    engine print the DiT attention kernels' device time a request).
 12. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
     (the unfused decode step: K5 attention, K4 projections) and
-    `use_fused_vocoder` (stages 2-5 through K10), three POST /tts and one
+    `use_fused_vocoder` (stages 2-5 through K10), two POST /tts (three
+    until the loading phase took its share of the time limit) and one
     profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
     never, K10 4 and K2 37 times a vocode; prints the stage timers beside
     the bench slice's;
 13. K5 beam request: a second engine on the K5 slice's models in the
-    production profile with `pallas_decode_attention` and a 512-code cap,
-    one request (beam-3 through the eager arm, 511 steps): K5 24 and K4 96
+    production profile with `pallas_decode_attention` and a 256-code cap,
+    one request (beam-3 through the eager arm, 255 steps): K5 24 and K4 96
     times a beam step, K3 and K1 never;
 14. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
@@ -179,7 +198,9 @@ its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
 from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice,
 K12 and K13 from the micro-benchmark path; `launches_by_path` has all
-eleven paths, "batched" the batched phase's two warm `infer_batch` runs,
+twelve paths, "loading" the onboarding (gates and bench), the server's
+warm-up and the served request (not the source engine's comparison
+request), "batched" the batched phase's two warm `infer_batch` runs,
 "grouped" the serving burst, "continuous" the greedy batcher's and the
 Poisson run's chunks),
 its largest error against the plain version, both times, its bound
@@ -2626,6 +2647,30 @@ def check_served_through_graphs(tag, engine, before: dict, metrics):
              "a chunk")
 
 
+def _recorded_decodes(call):
+    """Run `call()` with every decode of the engine module recorded: (the
+    call's result, [(codes, lengths, limit flags, steps, chunks)])."""
+    from voice_tts_tpu_torch.engine import engine as eng_mod
+
+    decodes = []
+    originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode",
+                                                  "beam_decode_fused_batch")}
+
+    def wrap(fn):
+        def recorded(*a, **kw):
+            res = fn(*a, **kw)
+            decodes.append(tuple(x.clone() if hasattr(x, "clone") else x for x in res))
+            return res
+        return recorded
+    for f, fn in originals.items():
+        setattr(eng_mod, f, wrap(fn))
+    try:
+        return call(), decodes
+    finally:
+        for f, fn in originals.items():
+            setattr(eng_mod, f, fn)
+
+
 def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs",),
                             retry=False, call=None):
     """The same request on `engine` with its loops op by op
@@ -2638,7 +2683,6 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
     `infer_batch`: every result's WAV).  Each name in `runs` is one more
     graph request; the last must capture nothing (a replay)."""
     import numpy as np
-    from voice_tts_tpu_torch.engine import engine as eng_mod
     from voice_tts_tpu_torch.engine.device_loop import GATE, DeviceLoops
 
     graphs = engine.loops
@@ -2648,17 +2692,6 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
     recs = {}
     for name in names:
         rec = {"decodes": [], "mels": []}
-        originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode",
-                                                      "beam_decode_fused_batch")}
-
-        def wrap(fn):
-            def recorded(*a, **kw):
-                res = fn(*a, **kw)
-                rec["decodes"].append(tuple(res))
-                return res
-            return recorded
-        for f, fn in originals.items():
-            setattr(eng_mod, f, wrap(fn))
         s2mel = engine._s2mel
 
         def s2mel_recorded(*a, **kw):
@@ -2672,12 +2705,10 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
         before = dict(graphs.stats)
         try:
             t0 = time.perf_counter()
-            out = call()
+            out, rec["decodes"] = _recorded_decodes(call)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            for f, fn in originals.items():
-                setattr(eng_mod, f, fn)
             del engine._s2mel
             engine.loops = graphs
         recs[name] = (rec, out, wall, {k: graphs.stats[k] - before[k] for k in before})
@@ -3234,6 +3265,219 @@ def run_grouped_serving(torch, dev, counters, engine, card):
     return launches
 
 
+# the loading phase's gate depth (the onboarding default) and the bound on
+# the weight-norm-folded vocoder convolutions against the written weights:
+# g * v / ||v|| with v = w and g = ||w|| rounds w by at most 2 f32 ulps
+GATE_STEPS = 96
+FOLD_REL_TOL = 2.0 ** -22
+# int16 LSBs between the source engine's WAV and the served one: only the
+# folded vocoder convolutions differ (by at most FOLD_REL_TOL)
+LOADING_WAV_LSB = 2
+
+
+def _wav_int16(data: bytes):
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(data)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16), w.getframerate()
+
+
+def run_loading(torch, dev, counters, engine, card):
+    """Model loading on the production engine's weights (`--only loading`
+    builds one of its own): (1) the six families' f32 masters rebuilt from
+    the engine's seed (`random_models`; the engine released its GPT and
+    w2v-bert masters), checked against the engine's tensors and runtime
+    copies, written in the published checkpoint layout
+    (`published_layout.py`) under a temporary directory; (2) the port's
+    onboarding `main` on it with `--out`, the quality gates (GATE_STEPS
+    steps on the card) and `--bench`: every family 0 unmatched / missing /
+    mismatched / extra keys, every converted tensor the source's bit for bit
+    but the weight-norm-folded ones (within FOLD_REL_TOL relative); (3) the
+    server on `--out` with `--model-dir` (production profile, `minimal`
+    warm-up) and one POST /tts, its decodes bit-equal to the source
+    engine's for the same request from the same generator state and cap
+    memory, its WAV within LOADING_WAV_LSB.  Returns the launches from the
+    onboarding through the request, the source engine's comparison request
+    taken out."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import published_layout as pl
+    from voice_tts_tpu_torch.engine.engine import random_models, serving_config
+    from voice_tts_tpu_torch.serving.app import BackgroundServer, TTSService, parse_args
+    from voice_tts_tpu_torch.utils import onboard
+    from voice_tts_tpu_torch.utils.artifacts import load_artifacts
+    from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
+
+    cfg = serving_config()
+    root = tempfile.mkdtemp(prefix="published_layout_")
+    t_phase = time.perf_counter()
+    try:
+        # (1) the source weights, in the published layout
+        t0 = time.perf_counter()
+        models, extras = random_models(cfg, dev, seed=0)
+        states = {k: {n: t.cpu() for n, t in m.state_dict().items()}
+                  for k, m in models.items()}
+        del models
+        torch.cuda.empty_cache()
+        same = {fam: all(torch.equal(engine.models[fam].state_dict()[k].cpu(), v)
+                         for k, v in states[fam].items())
+                for fam in ("s2mel", "vocoder", "campplus", "repcodec")}
+        rt = {k: v.cpu() for k, v in engine.gpt_rt.state_dict().items()}
+        q = quantize_gpt_state({k: v.to(dev) for k, v in states["gpt"].items()})
+        same["gpt (int8 runtime)"] = set(rt) == set(q) and all(
+            torch.equal(rt[k], q[k].cpu()) for k in q)
+        w2v = engine.w2v_rt.state_dict()
+        same["w2v (bf16 runtime)"] = all(torch.equal(w2v[k].cpu(), v.to(torch.bfloat16))
+                                         for k, v in states["w2v"].items())
+        same["emo / spk matrices"] = all(
+            np.array_equal(a, b) for key in ("emo_matrix", "spk_matrix")
+            for a, b in zip(getattr(engine, key), extras[key]))
+        print(f"[loading] source weights rebuilt from seed 0 equal the production "
+              f"engine's: {json.dumps(same)}")
+        if not all(same.values()):
+            fail("[loading] the rebuilt weights are not the production engine's")
+        extras.update(w2v_mean=engine.w2v_mean.cpu().numpy(),
+                      w2v_std=engine.w2v_std.cpu().numpy())
+        t1 = time.perf_counter()
+        layout = pl.write_published_layout(os.path.join(root, "published"), cfg,
+                                           states, extras)
+        print(f"[loading] published layout: {layout['bytes']} bytes written in "
+              f"{time.perf_counter() - t1:.2f} s ({time.perf_counter() - t0:.2f} s "
+              f"with the rebuild), {len(layout['paths'])} files")
+
+        # (2) onboarding: convert, verify, gates, artifacts, bench
+        out = os.path.join(root, "converted")
+        report_path = os.path.join(root, "report.json")
+        counters.reset()
+        t1 = time.perf_counter()
+        rc = onboard.main(layout["onboard_args"] + [
+            "--out", out, "--report-json", report_path, "--quality-gates",
+            "--gate-steps", str(GATE_STEPS), "--bench", "--bench-repeats", "1",
+            "--device", "cuda"])
+        onboard_s = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(report_path) as f:
+            report = json.load(f)
+        if rc != 0:
+            fail(f"[loading] onboarding exited {rc}")
+        keys = {fam: {k: len(row[k]) for k in ("unmatched", "missing", "mismatched",
+                                               "extra")}
+                for fam, row in report["families"].items()}
+        print(f"[loading] onboarding: exit {rc} in {onboard_s:.2f} s; keys per family "
+              + json.dumps({fam: dict(keys[fam], converted=row["n_converted"],
+                                       dropped=len(row["dropped"]))
+                             for fam, row in report["families"].items()}))
+        if set(keys) != set(states) or any(any(v.values()) for v in keys.values()):
+            fail("[loading] a family has unmatched, missing, mismatched or extra keys")
+        saved_cfg, saved, _, _ = load_artifacts(out)
+        worst, bad = 0.0, []
+        for fam, src in states.items():
+            for k, v in src.items():
+                got = saved[fam][k]
+                if fam == "vocoder" and k.endswith("weight") and v.dim() == 3:
+                    rel = float(((got.double() - v.double()).abs()
+                                 / v.double().abs().clamp(min=1e-30)).max())
+                    worst = max(worst, rel)
+                    if rel > FOLD_REL_TOL:
+                        bad.append(k)
+                elif not torch.equal(got, v):
+                    bad.append(f"{fam}.{k}")
+        # the saved config is the YAML's mapping; the production profile on
+        # top of it must be the source engine's configuration
+        same_cfg = saved_cfg.apply_serving_profile().to_dict() == cfg.to_dict()
+        print(f"[loading] converted tensors against the source: "
+              f"{sum(len(s) for s in states.values())} compared, {len(bad)} off; "
+              f"weight-norm-folded max relative error {worst:.3e} "
+              f"(bound {FOLD_REL_TOL:.3e}); config mapped back: {same_cfg}")
+        if bad or not same_cfg:
+            fail(f"[loading] converted tensors differ from the source: {bad[:8]}")
+        gate = report["quality_gates"]
+        print(f"[loading] quality gate ({card}; {GATE_STEPS} steps, "
+              f"{gate['config']['device']}): " + json.dumps(gate["teacher_forced"]))
+        print(f"[loading] free-running agreement: {json.dumps(gate['free_running'])}")
+        print(f"[loading] onboarding bench (serving profile): "
+              f"{json.dumps(report['bench'])}")
+
+        # (3) serve the converted directory
+        with open(os.path.join(out, "config.json")) as f:
+            saved_json = json.load(f)
+        saved_json["server"]["warmup_mode"] = "minimal"
+        with open(os.path.join(out, "config.json"), "w") as f:
+            json.dump(saved_json, f)
+        args = parse_args(["--model-dir", out, "--device", "cuda"])
+        service = TTSService()
+        t1 = time.perf_counter()
+        service.load_engines(args.workers, profile=args.profile, device=args.device,
+                             model_dir=args.model_dir)
+        loaded = service.engines[0]
+        print(f"[loading] server on --model-dir (profile {args.profile}): loaded and "
+              f"warmed ({service.warmup_stats}) in {time.perf_counter() - t1:.2f} s")
+        served = {k: v for k, v in loaded.cfg.to_dict().items() if k != "server"}
+        production = {k: v for k, v in serving_config().to_dict().items() if k != "server"}
+        if served != production or service.warmup_stats["mode"] != "minimal":
+            fail("[loading] the served engine is not the production profile of the "
+                 "converted directory")
+        engine.cfg = serving_config()     # undo the earlier phases' settings
+        prompt, text = tone_prompt(3.0, 22050), "欢迎大家来体验这个语音合成系统谢谢大家."
+        hint = dict(engine._cap_hint)
+        engine.generator.manual_seed(1234)
+        before_src = counters.snapshot()
+        src_out, src_dec = _recorded_decodes(lambda: engine.infer(
+            spk_audio_prompt=prompt, text=text, emo_audio_prompt=None, emo_alpha=1.0,
+            emo_vector=None))
+        after_src = counters.snapshot()
+        server = BackgroundServer(service)
+        port = server.start()
+        try:
+            loaded._cap_hint = hint
+            loaded.generator.manual_seed(1234)
+            t1 = time.perf_counter()
+            (status, body), dec = _recorded_decodes(lambda: http(
+                port, "POST", "/tts", json.dumps({"text": text,
+                                                   "spk_audio": prompt.hex()}).encode()))
+            wall = time.perf_counter() - t1
+        finally:
+            server.stop()
+            service.close()
+        launches = {k: v - (after_src[k] - before_src[k])
+                    for k, v in counters.snapshot().items()}
+        if status != 200:
+            fail(f"[loading] POST /tts -> {status}: {body[:500]!r}")
+        wav, sr = _wav_int16(bytes.fromhex(json.loads(body)["audio_hex"]))
+        same_codes = len(dec) == len(src_dec) and all(
+            all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                for a, b in zip(d, s)) for d, s in zip(dec, src_dec))
+        lsb = (int(np.abs(wav.astype(np.int32) - src_out.wav.astype(np.int32)).max())
+               if wav.shape == src_out.wav.shape else None)
+        print(f"[loading] POST /tts -> {status} in {wall:.3f} s: {wav.size} samples at "
+              f"{sr} Hz; decodes (steps, chunks) {[(d[3], d[4]) for d in dec]} vs the "
+              f"source engine's {[(d[3], d[4]) for d in src_dec]}, codes bit-equal "
+              f"{same_codes}; WAV max |diff| {lsb} LSB (bound {LOADING_WAV_LSB}); "
+              f"launches {launches}")
+        if not same_codes:
+            fail("[loading] the served codes differ from the source engine's")
+        if lsb is None or lsb > LOADING_WAV_LSB or sr != 22050:
+            fail("[loading] the served WAV is not the source engine's")
+        for name in ("fused_decode_step", "fused_decode_int4", "fused_decode_step_batch",
+                     "aa_snake_activation"):
+            if launches[name] == 0:
+                fail(f"[loading] {name} was not launched on the loading path")
+        print(f"[loading] phase wall {time.perf_counter() - t_phase:.2f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _bench_requests(engine):
     """Eight requests over two speakers in text bucket 48 (the bench
     configuration's only bucket)."""
@@ -3285,7 +3529,7 @@ def _chunk_state_run(torch, engine, loops, gen, reqs, seed, time_it=False):
 
     model, pack, dev, cfg = engine.gpt_rt, engine.fused_pack, engine.device, engine.cfg
     gen_t = torch.Generator(device=dev).manual_seed(seed)
-    dtype = model.conditioning_encoder.after_norm.bias.dtype
+    dtype = model.param_dtype
     t_max = n_cond_latents(cfg.gpt) + 2 + max(cfg.engine.text_buckets) + 2 + 1
     t_max += gen.max_mel_tokens
     t_max += (-t_max) % BLOCK_T
@@ -3851,7 +4095,7 @@ def k5_config():
 
 
 def run_k5_slice(torch, dev, counters, bench_metrics):
-    """The K5 slice at the flagship widths: three POST /tts (5 s prompts),
+    """The K5 slice at the flagship widths: two POST /tts (5 s prompts),
     each launching K5 24 times and K4 96 times a decode step, K1 and K3
     never, K10 once per fused stage (4) and K2 on the other stages' and the
     post activations (37) a vocode; then one profiled request.  Returns
@@ -3875,7 +4119,7 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
     n_k2 = (plan.count(False) * len(vc.resblock_kernel_sizes) * 2
             * len(vc.resblock_dilation_sizes[0]) + 1)
     launches, _, _, prompt, text, metrics, per_request = serve_requests(
-        torch, engine, "k5", counters)
+        torch, engine, "k5", counters, prompts_s=(5.0, 5.0))
     for i, (m, got) in enumerate(zip(metrics, per_request)):
         steps = m["decode_steps"]
         tag = f"[k5] request #{i}"
@@ -3895,15 +4139,16 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
 
 # the K5 beam request's code cap: random weights never stop, and the
 # profile's 1500 would decode 511 + 1499 eager beam steps (115 s of the
-# run's time limit in one measured run, 55.7 ms a step); 512 decodes 511
-K5_BEAM_MAX_CODES = 512
+# run's time limit in one measured run, 55.7 ms a step); 256 decodes 255
+# (512 until the loading phase took its share of the time limit)
+K5_BEAM_MAX_CODES = 256
 
 
 def run_k5_beam(torch, dev, counters, k5_engine):
     """One beam-3 request with K5: a second engine in the production profile
     with `pallas_decode_attention`, on the K5 slice engine's models (the
     int8 runtime GPT is built from its f32 master), its code cap cut to
-    K5_BEAM_MAX_CODES.  Random weights decode to the cap (511 steps), each a
+    K5_BEAM_MAX_CODES.  Random weights decode to the cap (255 steps), each a
     K5 launch per layer and K4 four; K3 and K1 never."""
     from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
 
@@ -4003,14 +4248,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+",
                     choices=list(KERNEL_CHECKS) + ["vocoder", "batched", "serving",
-                                                   "workers"],
+                                                   "workers", "loading"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
                          "the vocoder A/B on a flagship BigVGAN with random weights, "
                          "`batched` the batched phase on a production engine of its own, "
                          "`serving` the serving phase on a production and a bench engine "
                          "of its own, `workers` the server's replicas over every card "
-                         "(two or more)")
+                         "(two or more), `loading` the loading phase on a production "
+                         "engine of its own")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -4041,15 +4287,30 @@ def main():
                     serving_config(), device=dev, seed=0), card)
             elif name == "workers":
                 run_workers(torch, counters, card)
+            elif name == "loading":
+                from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+                run_loading(torch, dev, counters, TTSEngine.random(
+                    serving_config(), device=dev, seed=0), card)
             else:
                 KERNEL_CHECKS[name](torch, dev, results)
         print(card)
         print(json.dumps({"kernels": results}))
         return
+    laps = [time.perf_counter()]
+
+    def lap(name):
+        """Print the phase's seconds and the run's since the build."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - laps[-1]:.2f} s ({now - laps[0]:.2f} s after "
+              f"the build)")
+        laps.append(now)
+
     for check in KERNEL_CHECKS.values():
         check(torch, dev, results)
+    lap("kernel checks")
     torch.cuda.empty_cache()
     by_path = {"micro": run_micro_path(torch, dev, counters, results)}
+    lap("micro path")
     torch.cuda.empty_cache()
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
@@ -4058,27 +4319,39 @@ def main():
     check_tiny_engine_k5(torch, dev, counters)
     check_tiny_engine_k5_int8(torch, dev, counters)
     check_tiny_engine_vocoders(torch, dev, counters)
+    lap("tiny engines")
     by_path["serving"], engine = run_production_slice(torch, dev, counters)
+    lap("production slice")
     by_path["batched"] = run_batched_slice(torch, dev, counters, engine, card)
+    lap("batched phase")
     by_path["grouped"] = run_grouped_serving(torch, dev, counters, engine, card)
+    lap("grouped serving")
+    by_path["loading"] = run_loading(torch, dev, counters, engine, card)
+    lap("loading phase")
     vocoder = engine.vocoder
     del engine
     torch.cuda.empty_cache()
     by_path["bench"], bench_metrics, bench = run_bench_slice(torch, dev, counters)
+    lap("bench slice")
     by_path["continuous"] = run_continuous_serving(torch, dev, counters, bench, card)
+    lap("continuous serving")
     del bench
     torch.cuda.empty_cache()
     by_path["spec"] = run_spec_slice(torch, dev, counters, bench_metrics)
+    lap("spec slice")
     torch.cuda.empty_cache()
     by_path["dit"], dit_engine = run_dit_slice(torch, dev, counters, bench_metrics)
     by_path["flash"] = run_flash_engine(torch, dev, counters, dit_engine)
+    lap("DiT slice and K11 engine")
     del dit_engine
     torch.cuda.empty_cache()
     by_path["k5"], k5_engine = run_k5_slice(torch, dev, counters, bench_metrics)
     by_path["k5_beam"] = run_k5_beam(torch, dev, counters, k5_engine)
+    lap("K5 slice and beam request")
     del k5_engine
     torch.cuda.empty_cache()
     vocoder_ab(torch, dev, vocoder)
+    lap("vocoder A/B")
     # each kernel's launches come from the path that runs it: K3 and K2 from
     # the production slice, K1 from the bench slice, K6 and K7 from the spec
     # slice, K8 and K9 from the DiT slice, K11 from its engine, K5, K4 and

@@ -133,7 +133,7 @@ def admit(model: UnifiedVoice, gen: GenerationConfig, state: SlotState, slot: in
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = state.bias.shape[1]
     dev = text.device
-    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+    param_dtype = model.param_dtype
     prompt, valid_p = model.build_prompt(cond.to(param_dtype), emo.to(param_dtype),
                                          text, tlen)
     cache = model.gpt.init_cache(1, t_max, prompt.dtype, dev)
@@ -246,7 +246,7 @@ class ContinuousBatcher:
         t_max = p_max + 1 + self.max_new
         self.t_max = t_max + (-t_max) % BLOCK_T
         model = engine.gpt_rt
-        cache_dtype = model.conditioning_encoder.after_norm.bias.dtype
+        cache_dtype = model.param_dtype
         self.generator = torch.Generator(device=engine.device).manual_seed(cfg.engine.seed)
         self.loops = engine.loops
         state = init_state(cfg.gpt, self.slots, self.t_max, self.max_new, cache_dtype,

@@ -64,6 +64,14 @@ shared position.  The s2mel and the vocoder then run at the batch of a
 code bucket.  `infer_generator` (and `infer(stream_return=True)`) yields
 each segment's waveform as it is made; `to_device` moves a replica.
 
+Factories: `from_artifacts` loads a converted model directory
+(`utils.artifacts`, written from the published checkpoints by
+`utils.onboard`) in the production, bench or saved profile; `random` /
+`tiny` build random weights (`random_models`); `from_jax_params` converts a
+JAX engine's parameter trees.  Every `condition_type` the JAX package
+builds is ported: `conformer_perceiver`, `perceiver` and the mean-pooled
+default arm (one conditioning latent).
+
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
 setting of the Mosaic kernels, which the CUDA chain does not have), and
 `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` (graph and dispatch
@@ -118,7 +126,9 @@ from voice_tts_tpu_torch.ops.fused_decode import (check_int4_expand, pack_gpt,
 from voice_tts_tpu_torch.ops.fused_vocoder import (bigvgan_fused_apply,
                                                    fused_stage_plan,
                                                    pack_fused_stages)
+from voice_tts_tpu_torch.text import SentencePieceBPE, TextNormalizer, sp_model
 from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
+from voice_tts_tpu_torch.utils.artifacts import load_artifacts, split_matrix_groups
 from voice_tts_tpu_torch.utils.convert import FAMILIES, convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
@@ -204,14 +214,13 @@ def use_device(device) -> None:
         torch.cuda.set_device(dev)
 
 
-def bench_config() -> TTSConfig:
-    """The flagship widths (`TTSConfig()`) with the decode settings `bench.py`
-    uses when no environment variable is set: sampling (top-k 30, top-p 0.8,
-    temperature 0.8, repetition penalty 10), num_beams 1, max_mel_tokens
-    256, text bucket 48, code bucket 256, 15 s prompts, bf16 GPT with the
-    int8 trunk through the fused decode step and the folded readout, float
-    KV, f32 s2mel / vocoder / conditioning."""
-    cfg = TTSConfig()
+def apply_bench_profile(cfg: TTSConfig) -> TTSConfig:
+    """The decode settings `bench.py` uses when no environment variable is
+    set, applied to `cfg` in place (returns it): sampling (top-k 30, top-p
+    0.8, temperature 0.8, repetition penalty 10), num_beams 1,
+    max_mel_tokens 256, text bucket 48, code bucket 256, 15 s prompts, bf16
+    GPT with the int8 trunk through the fused decode step and the folded
+    readout, float KV, f32 s2mel / vocoder / conditioning."""
     cfg.generation.max_mel_tokens = 256
     cfg.generation.num_beams = 1
     e = cfg.engine
@@ -225,6 +234,12 @@ def bench_config() -> TTSConfig:
     e.use_int8_kv = False
     e.fuse_pipeline = True
     return cfg
+
+
+def bench_config() -> TTSConfig:
+    """The flagship widths (`TTSConfig()`) in the bench profile
+    (`apply_bench_profile`)."""
+    return apply_bench_profile(TTSConfig())
 
 
 def serving_config() -> TTSConfig:
@@ -262,16 +277,40 @@ def tiny_config(**engine_overrides) -> TTSConfig:
     return cfg
 
 
-def build_models(cfg: TTSConfig) -> Dict[str, torch.nn.Module]:
-    """The six model families at `cfg`'s widths (parameters uninitialised)."""
+def build_models(cfg: TTSConfig, repcodec_decoder: bool = False
+                 ) -> Dict[str, torch.nn.Module]:
+    """The six model families at `cfg`'s widths (parameters uninitialised);
+    RepCodec with its decoder when `repcodec_decoder` (a loaded codec that
+    carries the decoder's weights)."""
     return {
         "gpt": UnifiedVoice(cfg.gpt),
         "s2mel": S2Mel(cfg.s2mel, cfg.semantic_codec.hidden_size),
         "vocoder": BigVGAN(cfg.vocoder),
         "campplus": CAMPPlus(cfg.campplus),
-        "repcodec": RepCodec(cfg.semantic_codec),
+        "repcodec": RepCodec(cfg.semantic_codec, decoder=repcodec_decoder),
         "w2v": Wav2Vec2Bert(cfg.w2v_bert),
     }
+
+
+def random_models(cfg: TTSConfig, device, seed: int = 0):
+    """The six families' f32 masters at the JAX initialisers' scales,
+    initialised in place on `device` from one generator seeded `seed`, and
+    the random emo / spk matrices drawn after them: (models, extras).  The
+    same `cfg`, device and seed give the same tensors."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        models = build_models(cfg)
+        for m in models.values():
+            init_weights(m, gen)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).cpu().numpy()
+    extras = {
+        "emo_matrix": [randn(n, cfg.gpt.model_dim) * 0.05 for n in cfg.engine.emo_num],
+        "spk_matrix": [randn(n, cfg.campplus.embedding_size) for n in cfg.engine.emo_num],
+    }
+    return models, extras
 
 
 class TTSEngine:
@@ -487,24 +526,51 @@ class TTSEngine:
 
     @classmethod
     def random(cls, cfg: TTSConfig, device="cuda", seed: int = 0) -> "TTSEngine":
-        """Random-weight engine at the JAX initialisers' scales."""
+        """Random-weight engine at the JAX initialisers' scales
+        (`random_models`)."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        with torch.device(dev):       # initialise in place on the device
-            models = build_models(cfg)
-            for m in models.values():
-                init_weights(m, gen)
-        emo_dim = cfg.gpt.model_dim
-
-        def randn(*shape):
-            return torch.randn(*shape, generator=gen, device=dev).cpu().numpy()
-        extras = {
-            "emo_matrix": [randn(n, emo_dim) * 0.05 for n in cfg.engine.emo_num],
-            "spk_matrix": [randn(n, cfg.campplus.embedding_size)
-                           for n in cfg.engine.emo_num],
-        }
+        models, extras = random_models(cfg, dev, seed)
         return cls(cfg, models, HashTokenizer(cfg.gpt.number_text_tokens),
                    extras, dev)
+
+    @classmethod
+    def from_artifacts(cls, directory: str, profile: Optional[str] = None,
+                       device="cuda") -> "TTSEngine":
+        """Load a converted model directory (`utils.artifacts`).
+
+        `profile="serving"` applies the production profile
+        (`TTSConfig.apply_serving_profile`) to the saved config, "bench"
+        the bench profile (`apply_bench_profile`); None / "stock" keeps the
+        config as saved.  A missing family raises FileNotFoundError.  The
+        tokenizer is the directory's `bpe.model` through the sentencepiece
+        reader, else `HashTokenizer`."""
+        cfg, states, extras, bpe_bytes = load_artifacts(directory)
+        if profile == "serving":
+            cfg.apply_serving_profile()
+        elif profile == "bench":
+            apply_bench_profile(cfg)
+        elif profile not in (None, "stock"):
+            raise ValueError(f"unknown profile {profile!r} "
+                             "(expected 'serving', 'bench' or 'stock')")
+        missing = [f for f in FAMILIES if f not in states]
+        if missing:
+            raise FileNotFoundError(f"missing model families in {directory}: {missing}")
+        for key in ("emo_matrix", "spk_matrix"):
+            if key + "_raw" in extras:
+                extras[key] = split_matrix_groups(extras.pop(key + "_raw"),
+                                                  cfg.engine.emo_num)
+        if bpe_bytes:
+            normalizer = TextNormalizer()
+            normalizer.load()
+            tokenizer = TextTokenizer(
+                SentencePieceBPE(sp_model.parse_model(bpe_bytes)), normalizer)
+        else:
+            tokenizer = HashTokenizer(cfg.gpt.number_text_tokens)
+        models = build_models(
+            cfg, repcodec_decoder="decoder_out.weight" in states["repcodec"])
+        for fam in FAMILIES:
+            load_family(models[fam], states.pop(fam))
+        return cls(cfg, models, tokenizer, extras, device)
 
     @classmethod
     def tiny(cls, device="cpu", seed: int = 0, **engine_overrides) -> "TTSEngine":

@@ -1,7 +1,10 @@
 """RepCodec semantic codec: w2v-bert features -> discrete semantic codes
 (`voice_tts_tpu/models/conditioning/repcodec.py`): VocosBackbone ConvNeXt
-encoder + linear, single L2-normalized factorized VQ.  The serving path
-uses `forward` (quantize) and `repcodec_vq2emb`."""
+encoder + linear, single L2-normalized factorized VQ, with the stride-2
+`down` / `up` convs when `downsample_scale > 1`.  The serving path uses
+`forward` (quantize) and `repcodec_vq2emb`; `reconstruct` is the full
+autoencode (the decoder, built with `decoder=True`: the published codec
+carries its weights)."""
 
 from __future__ import annotations
 
@@ -79,25 +82,53 @@ class FactorizedVQ(nn.Module):
 
 
 class RepCodec(nn.Module):
-    """Encoder + quantizer (the decoder is not on the serving path)."""
+    """Encoder + quantizer, and with `decoder` the decoder (not on the
+    serving path)."""
 
-    def __init__(self, cfg: RepCodecConfig):
+    def __init__(self, cfg: RepCodecConfig, decoder: bool = False):
         super().__init__()
-        if cfg.downsample_scale and cfg.downsample_scale > 1:
-            raise NotImplementedError("RepCodec downsampling is not ported")
         self.cfg = cfg
+        h = cfg.hidden_size
+        self.downsampled = bool(cfg.downsample_scale and cfg.downsample_scale > 1)
+        if self.downsampled:
+            self.down = Conv1d(h, h, 3, stride=2, padding=1)
+            self.up = Conv1d(h, h, 3, padding=1)
         self.encoder_backbone = VocosBackbone(
-            cfg.hidden_size, cfg.vocos_dim, cfg.vocos_intermediate_dim,
-            cfg.vocos_num_layers)
-        self.encoder_out = Linear(cfg.vocos_dim, cfg.hidden_size)
-        self.quantizer = FactorizedVQ(cfg.hidden_size, cfg.codebook_size,
-                                      cfg.codebook_dim)
+            h, cfg.vocos_dim, cfg.vocos_intermediate_dim, cfg.vocos_num_layers)
+        self.encoder_out = Linear(cfg.vocos_dim, h)
+        self.quantizer = FactorizedVQ(h, cfg.codebook_size, cfg.codebook_dim)
+        self.has_decoder = decoder
+        if decoder:
+            self.decoder_backbone = VocosBackbone(
+                h, cfg.vocos_dim, cfg.vocos_intermediate_dim, cfg.vocos_num_layers)
+            self.decoder_out = Linear(cfg.vocos_dim, h)
+
+    def _quantize(self, x: torch.Tensor):
+        """features (B, T, H) -> (codes (B, T'), z_q (B, H, T')), T' = T
+        halved (rounded up) when downsampled."""
+        h = x.transpose(1, 2)
+        if self.downsampled:
+            h = F.gelu(self.down(h))
+        h = self.encoder_out(self.encoder_backbone(h))
+        return self.quantizer(h.transpose(1, 2))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """features (B, T, H) -> (codes (B, T), quantized (B, T, H))."""
-        h = self.encoder_out(self.encoder_backbone(x.transpose(1, 2)))
-        indices, z_q = self.quantizer(h.transpose(1, 2))
+        """features (B, T, H) -> (codes (B, T'), quantized (B, T', H))."""
+        indices, z_q = self._quantize(x)
         return indices, z_q.transpose(1, 2)
+
+    def reconstruct(self, x: torch.Tensor) -> torch.Tensor:
+        """The full autoencode: features (B, T, H) -> (B, T, H) (T rounded up
+        to even when downsampled: nearest x2 upsampling before `up`)."""
+        if not self.has_decoder:
+            raise ValueError("RepCodec.reconstruct needs the decoder: build "
+                             "RepCodec(cfg, decoder=True)")
+        _, z_q = self._quantize(x)
+        h = self.decoder_out(self.decoder_backbone(z_q))
+        if self.downsampled:
+            h = self.up(torch.repeat_interleave(h.transpose(1, 2), 2, dim=-1))
+            h = h.transpose(1, 2)
+        return h
 
 
 def repcodec_vq2emb(model: RepCodec, codes: torch.Tensor) -> torch.Tensor:

@@ -349,7 +349,7 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     injected = uniform is not None
     if uniform is None:
         uniform = _uniform_of(generator, dev)
-    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+    param_dtype = model.param_dtype
 
     with torch.no_grad():
         prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),
@@ -503,7 +503,7 @@ def beam_decode_fused_batch(model: UnifiedVoice, gen: GenerationConfig,
     vocab = cfg.number_mel_codes
     eos = cfg.stop_mel_token
     uniforms = [_uniform_of(g, dev) for g in generators]
-    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+    param_dtype = model.param_dtype
 
     with torch.no_grad():
         prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),

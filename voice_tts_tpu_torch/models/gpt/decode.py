@@ -198,7 +198,7 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
         t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     stop = cfg.stop_mel_token
-    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+    param_dtype = model.param_dtype
 
     with torch.no_grad():
         prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),
@@ -394,7 +394,7 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
     t_max += (-t_max) % BLOCK_T
     vocab = cfg.number_mel_codes
     eos = cfg.stop_mel_token
-    param_dtype = model.conditioning_encoder.after_norm.bias.dtype
+    param_dtype = model.param_dtype
 
     with torch.no_grad():
         prompt, valid_p = model.build_prompt(cond_latents.to(param_dtype),

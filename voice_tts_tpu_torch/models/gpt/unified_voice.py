@@ -1,6 +1,13 @@
 """UnifiedVoice v2: the acoustic-token GPT with speaker / emotion
-conditioning (`voice_tts_tpu/models/gpt/unified_voice.py`),
-`conformer_perceiver` conditioning.
+conditioning (`voice_tts_tpu/models/gpt/unified_voice.py`).
+
+Speaker conditioning by `condition_type`: `conformer_perceiver` (the
+published config: conformer + perceiver, `condition_num_latent` latents),
+`perceiver` (the reference constructor's default: attention-block encoder +
+a perceiver at its own defaults), any other string but `gst` /
+`conformer_encoder` the mean-pooled attention-block encoder (one latent);
+`gst` and `conformer_encoder` raise, as the reference's own
+`get_conditioning` fails on them.
 
 Sequence layout `[cond(32)+emo | speed_half | speed_full | start,text,stop |
 start_mel, mel codes...]`; text is right-padded inside a shape bucket with
@@ -18,6 +25,7 @@ import torch
 from torch import nn
 
 from voice_tts_tpu_torch.config import GPTConfig
+from voice_tts_tpu_torch.models.gpt.cond_encoder import AttentionConditioningEncoder
 from voice_tts_tpu_torch.models.gpt.conformer import ConformerEncoder
 from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack, QuantKVCache
 from voice_tts_tpu_torch.models.gpt.perceiver import PerceiverResampler
@@ -25,6 +33,8 @@ from voice_tts_tpu_torch.models.layers import Embedding, LayerNorm, Linear
 
 
 def n_cond_latents(cfg: GPTConfig) -> int:
+    """Speaker-conditioning latents in the decode prefix: the perceiver
+    branches emit `condition_num_latent`, the mean-pooled arm one."""
     if cfg.condition_type in ("conformer_perceiver", "perceiver"):
         return cfg.condition_num_latent
     return 1
@@ -33,17 +43,37 @@ def n_cond_latents(cfg: GPTConfig) -> int:
 class UnifiedVoice(nn.Module):
     def __init__(self, cfg: GPTConfig, int8: bool = False):
         super().__init__()
-        if cfg.condition_type != "conformer_perceiver":
-            raise NotImplementedError(
-                f"condition_type {cfg.condition_type!r}: the port carries the "
-                f"'conformer_perceiver' branch only")
         self.cfg = c = cfg
         cm, em = c.condition_module, c.emo_condition_module
-        self.conditioning_encoder = ConformerEncoder(cm)
-        self.perceiver_encoder = PerceiverResampler(
-            dim=c.model_dim, dim_context=cm.output_size,
-            num_latents=c.condition_num_latent, heads=cm.attention_heads,
-            ff_mult=cm.perceiver_mult)
+        if c.condition_type == "conformer_perceiver":
+            self.conditioning_encoder = ConformerEncoder(cm)
+            self.perceiver_encoder = PerceiverResampler(
+                dim=c.model_dim, dim_context=cm.output_size,
+                num_latents=c.condition_num_latent, heads=cm.attention_heads,
+                ff_mult=cm.perceiver_mult)
+        elif c.condition_type == "perceiver":
+            # the reference constructor's default: 6 AttentionBlocks, then
+            # a PerceiverResampler at its own defaults (heads 8, ff_mult 4,
+            # not the condition module's)
+            self.conditioning_encoder = AttentionConditioningEncoder(
+                cm.input_size, c.model_dim, c.heads)
+            self.perceiver_encoder = PerceiverResampler(
+                dim=c.model_dim, dim_context=c.model_dim,
+                num_latents=c.condition_num_latent)
+        elif c.condition_type in ("gst", "conformer_encoder"):
+            # the reference's get_conditioning raises on both (gst_encoder is
+            # never constructed; the conformer is called with the wrong
+            # arity), so no checkpoint can exist for them
+            raise ValueError(
+                f"condition_type {c.condition_type!r} is not supported: the "
+                f"reference's own get_conditioning raises on this branch; use "
+                f"'conformer_perceiver', 'perceiver', or any other string "
+                f"(mean-pooled default encoder)")
+        else:
+            # the reference's default arm: a mean-pooled ConditioningEncoder
+            # (B, 1, dim)
+            self.conditioning_encoder = AttentionConditioningEncoder(
+                cm.input_size, c.model_dim, c.heads, mean=True)
         self.emo_conditioning_encoder = ConformerEncoder(em)
         self.emo_perceiver_encoder = PerceiverResampler(
             dim=c.emo_dim, dim_context=em.output_size, num_latents=1,
@@ -62,11 +92,23 @@ class UnifiedVoice(nn.Module):
         self.mel_head = Linear(c.model_dim, c.number_mel_codes)
         self.speed_emb = Embedding(2, c.model_dim)
 
+    @property
+    def param_dtype(self) -> torch.dtype:
+        """The compute dtype of the non-trunk weights (bf16 on the int8 and
+        bf16 runtime copies, f32 on the master)."""
+        return self.final_norm.weight.dtype
+
     # ---- conditioning ----
 
     def get_conditioning(self, spk_cond: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
-        """spk_cond (B, T, 1024) w2v-bert features -> (B, 32, model_dim)."""
+        """spk_cond (B, T, 1024) w2v-bert features -> (B, n_cond_latents,
+        model_dim)."""
+        if self.cfg.condition_type == "perceiver":
+            # no length mask on this branch, as in the reference
+            return self.perceiver_encoder(self.conditioning_encoder(spk_cond))
+        if self.cfg.condition_type != "conformer_perceiver":
+            return self.conditioning_encoder(spk_cond)[:, None, :]
         h, mask = self.conditioning_encoder(spk_cond, lengths)
         ones = torch.ones((h.shape[0], self.cfg.condition_num_latent),
                           dtype=torch.bool, device=h.device)

@@ -57,9 +57,14 @@ ancestor table, int8 KV, folded readout, bf16 conditioning); `--profile
 bench` serves the bench decode configuration (`bench_config`: sampling,
 num_beams = 1 through K1, or K3 at per-row positions with
 `--continuous-batching`).  `--tiny` takes the tiny config whatever the
-profile.
+profile.  `--model-dir DIR` serves a converted model directory
+(`utils.artifacts`, written by `python -m voice_tts_tpu_torch.utils.onboard
+--out DIR`) through `TTSEngine.from_artifacts`, each replica loading it onto
+its own card: in the production profile by default, `--profile bench` the
+bench profile, `--profile stock` the directory's config as saved.
 
     python -m voice_tts_tpu_torch.serving.app --port 8020            # flagship
+    python -m voice_tts_tpu_torch.serving.app --model-dir /models/converted
     python -m voice_tts_tpu_torch.serving.app --profile bench --continuous-batching
     python -m voice_tts_tpu_torch.serving.app --workers 4            # 4 cards
     python -m voice_tts_tpu_torch.serving.app --tiny --device cpu    # demo
@@ -93,6 +98,8 @@ _SERVED_FLAGS = ("use_fp16", "use_int8_decode", "use_fused_decode",
                  "release_master_trees", "spec_decode_k", "use_bf16_s2mel",
                  "fuse_pipeline")
 PROFILES = ("serving", "bench")
+# a model directory may also be served with its config as saved
+MODEL_DIR_PROFILES = PROFILES + ("stock",)
 # seconds a grouped worker waits for more requests to join a batch
 GATHER_WINDOW_S = 0.02
 
@@ -188,10 +195,12 @@ class TTSService:
     # ------------------------------------------------------------------
 
     def load_engines(self, workers: int = 1, tiny: bool = False, continuous: bool = False,
-                     profile: str = "serving", device: str = "cuda"):
+                     profile: str = "serving", device: str = "cuda",
+                     model_dir: Optional[str] = None):
         """Build min(workers, cards) replicas (one off the card), replica i
-        on cuda:i, then warm them up unless `server.warmup` is off (the tiny
-        engine skips it, as in the JAX server)."""
+        on cuda:i (from `model_dir` when given, see `build_engine`), then
+        warm them up unless `server.warmup` is off (the tiny engine skips
+        it, as in the JAX server)."""
         import torch
 
         from voice_tts_tpu_torch.engine.engine import on_device, resolve_device
@@ -205,7 +214,8 @@ class TTSService:
             # on it), built there from whichever thread calls
             card = f"cuda:{i}" if n > 1 else None
             with on_device(card):
-                engine = build_engine(tiny, device, profile=profile, continuous=continuous)
+                engine = build_engine(tiny, device, profile=profile, continuous=continuous,
+                                      model_dir=model_dir)
                 if continuous:
                     engine.cfg.server.continuous_batching = True
                 if card is not None:
@@ -728,16 +738,25 @@ class BackgroundServer:
 
 
 def build_engine(tiny: bool, device: str, seed: int = 0, profile: str = "serving",
-                 continuous: bool = False):
-    """The served engine: random weights at the flagship widths in the
-    production profile (`serving`, the default) or the bench configuration
-    (`bench`), or the tiny configuration for demos (with `continuous`, the
-    int8 trunk and fused decode pack the slot scheduler needs)."""
+                 continuous: bool = False, model_dir: Optional[str] = None):
+    """The served engine: with `model_dir` the converted model directory
+    there (`TTSEngine.from_artifacts`) in the production profile
+    (`serving`, the default), the bench profile (`bench`) or its config as
+    saved (`stock`); else random weights at the flagship widths in the
+    production profile or the bench configuration, or the tiny
+    configuration for demos (with `continuous`, the int8 trunk and fused
+    decode pack the slot scheduler needs)."""
     from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config,
                                                    serving_config)
 
+    if model_dir:
+        if profile not in MODEL_DIR_PROFILES:
+            raise ValueError(f"unknown profile {profile!r} "
+                             f"(expected one of {MODEL_DIR_PROFILES})")
+        return TTSEngine.from_artifacts(model_dir, profile=profile, device=device)
     if profile not in PROFILES:
-        raise ValueError(f"unknown profile {profile!r} (expected one of {PROFILES})")
+        raise ValueError(f"unknown profile {profile!r} (expected one of {PROFILES}; "
+                         f"'stock' needs --model-dir)")
     if tiny:
         flags = dict(use_int8_decode=True, use_fused_decode=True) if continuous else {}
         return TTSEngine.tiny(device=device, seed=seed, **flags)
@@ -750,7 +769,7 @@ async def amain(args):
 
     service = TTSService()
     service.load_engines(args.workers, tiny=args.tiny, continuous=args.continuous_batching,
-                         profile=args.profile, device=args.device)
+                         profile=args.profile, device=args.device, model_dir=args.model_dir)
     await service.start_workers()
     cfg = service.engines[0].cfg
     logger.info("serving on %s:%d (%d replica(s), profile %s, num_beams %d, modes %s, "
@@ -787,11 +806,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--workers", type=int, default=1,
                         help="engine replicas, one a card (at most the cards present)")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--model-dir", type=str, default=None,
+                        help="converted model directory (utils.onboard --out)")
     parser.add_argument("--tiny", action="store_true",
                         help="tiny random-weight engine (demo / testing)")
-    parser.add_argument("--profile", type=str, default="serving", choices=PROFILES,
+    parser.add_argument("--profile", type=str, default="serving",
+                        choices=MODEL_DIR_PROFILES,
                         help="'serving' (default): the production profile, "
-                             "beam-3 with int8 KV; 'bench': sampling, one beam")
+                             "beam-3 with int8 KV; 'bench': sampling, one beam; "
+                             "'stock' (with --model-dir): the directory's config "
+                             "as saved")
     parser.add_argument("--continuous-batching", action="store_true",
                         help="slot-based continuous batching: requests join a "
                              "running decode batch mid-flight (needs the fused "
