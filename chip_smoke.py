@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 (`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
 without the slices and without the result line; `--only vocoder` runs the
 vocoder A/B alone on a flagship BigVGAN with random weights, `--only
-batched`, `--only serving` and `--only loading` those phases on engines of
-their own.)
+batched`, `--only serving`, `--only loading` and `--only emotion` those
+phases on engines of their own.)
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
@@ -44,7 +44,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    loader alone at the
    four GEMVs of a layer, beside `torch._weight_int4pack_mm`; the int4 K1
    chain at g128 and g640, pos 300; the int4 K3 chain at beam-3 through a
-   table), K6 (the verify of K = 4 tokens at pos 300 and 1500);
+   table), K6 (the verify of K = 4 tokens at pos 300 and 1500; then its
+   int4 branch, `check_k6_int4`: K7's loader alone at the verify's 4 rows,
+   GEMV4_TOL, and the verify over a g128 int4 pack at the same two
+   positions against the plain verify in the chain's order, host loop and
+   device-only beside the int8 K6);
+3b. the int4 verify path: K6's int4 branch at its op entry (no serving
+   path sends it an int4 pack), 8 calls with the counters from 0;
 4. micro-benchmark path: K12 (`micro_tile`, the int8 tile stream) and K13
    (`micro_int4`, the int4 stream with a carried row), every mode against
    its plain version at D 1280, 16 tiles (K12's dot8i with x past the int8
@@ -70,7 +76,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    (`DeviceLoops(capture=False)`) against the same request replayed, from
    one generator state and an empty cap memory (the 511-code cap hit, the
    1499 retry after `set_state`): every decode's codes, lengths, limit
-   flag, steps and chunks, the CFM mel and the WAV bit-equal;
+   flag, steps and chunks, the CFM mel and the WAV bit-equal; then one
+   request with `typical_sampling=True` at a 512-code cap (K3 once a step
+   its loop executed, the typical warpers inside the replayed chunks), and
+   the same request op by op against it replayed, bit-equal;
 7. batched phase (`run_batched_slice`, the codes cut to a 512 cap; `--only
    batched` runs it alone on a production engine of its own): on the
    production engine `infer_batch` of four requests over two speakers in
@@ -114,9 +123,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    (production profile, `minimal` warm-up) and one POST /tts: its decodes
    bit-equal to the source engine's for the same request, generator state
    and cap memory, its WAV within 2 LSB (K3 and K2 on the path);
+   Then the emotion phase (`run_emotion`; `--only emotion` runs it alone
+   on a production engine of its own): the Qwen LM at Qwen3-0.6B's
+   published widths (f32, random weights from seed 0, a byte-level
+   stand-in tokenizer: the real checkpoint and its tokenizer files are not
+   in the repository), its prefill logits on the card against the CPU's,
+   its 256-token greedy decode replayed against op by op (bit-equal; steps,
+   chunks, host reads, wall), and one `infer(use_emo_text=True, emo_text=...)`
+   on the production engine with that `QwenEmotion`: a WAV and its emotion
+   dict;
 8. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per executed step, K3 never, K2 109 times per vocode, the replayed
-   request bit-equal to the uncaptured one; then the serving phase's
+   request bit-equal to the uncaptured one; one request with
+   `typical_sampling=True` (K1 once a step executed, replayed against op
+   by op, bit-equal); then the serving phase's
    continuous part (`run_continuous_serving`, 8 slots, 16 steps a chunk):
    a greedy `ContinuousBatcher` over 8 requests, one submitted a chunk,
    each request's codes, steps and limit flag bit-equal to `decode()`
@@ -152,14 +172,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    engine print the DiT attention kernels' device time a request).
 12. K5 slice: the bench configuration with `GPTConfig.pallas_decode_attention`
     (the unfused decode step: K5 attention, K4 projections) and
-    `use_fused_vocoder` (stages 2-5 through K10), two POST /tts (three
-    until the loading phase took its share of the time limit) and one
-    profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
+    `use_fused_vocoder` (stages 2-5 through K10), one POST /tts (three
+    until the loading phase, two until the emotion phase took their shares
+    of the time limit) and one profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
     never, K10 4 and K2 37 times a vocode; prints the stage timers beside
-    the bench slice's;
+    the bench slice's (the profiled request at a 64-code cap);
 13. K5 beam request: a second engine on the K5 slice's models in the
-    production profile with `pallas_decode_attention` and a 256-code cap,
-    one request (beam-3 through the eager arm, 255 steps): K5 24 and K4 96
+    production profile with `pallas_decode_attention` and a 128-code cap,
+    one request (beam-3 through the eager arm, 127 steps): K5 24 and K4 96
     times a beam step, K3 and K1 never;
 14. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
@@ -195,10 +215,10 @@ vocoder flag.
 The third-to-last stdout line repeats the card's name and power limit; the
 second-to-last is the kernel JSON: under "kernels" every kernel, each with
 its launch count from the path that runs it (K3 and K2 from the production
-slice, K1 from the bench slice, K6 and K7 from the spec slice, K8 and K9
-from the DiT slice, K11 from its engine, K5, K4 and K10 from the K5 slice,
-K12 and K13 from the micro-benchmark path; `launches_by_path` has all
-twelve paths, "loading" the onboarding (gates and bench), the server's
+slice, K1 from the bench slice, K6 and K7 from the spec slice, K6's int4
+branch from its op entry (`verify_int4`), K8 and K9 from the DiT slice,
+K11 from its engine, K5, K4 and K10 from the K5 slice, K12 and K13 from
+the micro-benchmark path; `launches_by_path` has all thirteen paths, "loading" the onboarding (gates and bench), the server's
 warm-up and the served request (not the source engine's comparison
 request), "batched" the batched phase's two warm `infer_batch` runs,
 "grouped" the serving burst, "continuous" the greedy batcher's and the
@@ -1088,6 +1108,7 @@ def check_k6(torch, dev, results):
         cases.append({"k": K, "pos": pos, "t_max": t_max, "splits": splits,
                       "split_t": split_t, "ms": ms, "device_ms": dev_ms,
                       "plain_ms": plain_ms, **bnd})
+    check_k6_int4(torch, dev, results, cases)
     results.append({
         "name": "fused_decode_verify", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
@@ -1100,6 +1121,134 @@ def check_k6(torch, dev, results):
         "edge_cases": edges,
         "spec_round_profile": {k: v for k, v in profile_spec_round(torch, dev).items()
                                if k != "by_kernel"}})
+
+
+# K6 over an int4 pack: the verify's own shapes and the spec slice's positions
+K6_INT4_PLAN = (("pos 300", 512, 300), ("pos 1500", 1792, 1500))
+K6_INT4_K = 4
+K6_INT4_CALLS = 8
+# the int4 verify's hidden rows: the bare loader holds GEMV4_TOL, the chain
+# 8.85e-4 of max|ref| at pos 300 and 8.56e-4 at pos 1500 (H100, 700 W), the
+# bf16 roundings flipped through 24 layers; its kv rows keep DECODE_TOL
+# (bf16 outputs: one rounding step near max|ref| is ~4e-3 of it)
+K6_INT4_HIDDEN_TOL = 3e-3
+
+
+def check_k6_int4(torch, dev, results, int8_cases):
+    """K6's int4 branch: the verify of K = 4 tokens over a random g128 int4
+    pack at the flagship widths (every GEMV of the chain K7's loader over
+    the 4 rows), bf16 cache, pos 300 / Tmax 512 and pos 1500 / Tmax 1792,
+    against the plain verify summed as the chain sums it
+    (`fused_decode_verify_split_plain`).  Hidden rows within
+    K6_INT4_HIDDEN_TOL of max|ref|: through 24 layers the f32 sums in
+    another order (tensor-core group sums, warp reductions) flip single bf16
+    roundings of the activations, as in every chain check; the kv rows
+    (bf16) within DECODE_TOL.
+    The loader alone at the verify's 4 rows, each of a layer's four bare
+    GEMVs, within GEMV4_TOL of `int4_gemv_plain`.  Two calls bit-equal;
+    host loop and device-only beside the int8 K6 at the same shapes."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack, _, g = random_trunk_int4(torch, dev, 8, 128)
+    L, _, D, half = pack.w.shape
+    H, K = 20, K6_INT4_K
+    gsz = D // pack.gscales.shape[-1]
+    gemv_err = 0.0
+    for name, t0, n_tiles, n_kt in (("qkv", 0, 3, 1), ("proj", 3, 1, 1), ("fc", 4, 4, 1),
+                                    ("fc2", 8, 1, 4)):
+        if n_kt == 1:
+            w = pack.w[0, t0:t0 + n_tiles].reshape(1, n_tiles * D, half).contiguous()
+            gs = pack.gscales[0, t0:t0 + n_tiles].reshape(1, n_tiles * D, -1).contiguous()
+        else:
+            w, gs = pack.w[0, t0:t0 + 4].contiguous(), pack.gscales[0, t0:t0 + 4].contiguous()
+        x = torch.randn(K, n_kt * D, generator=g, device=dev)
+        bias = torch.zeros(w.shape[1], device=dev)
+        out, again = fd.int4_gemv(x, w, gs, bias), fd.int4_gemv(x, w, gs, bias)
+        ref = fd.int4_gemv_plain(x, w, gs, bias)
+        err, scale = max_err(torch, out, ref), float(ref.abs().max())
+        print(f"K6 int4: K7 {name} bare at {K} rows ({n_kt * D} -> {w.shape[1]}, g{gsz}): "
+              f"max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol {GEMV4_TOL} * max|ref|); "
+              f"two calls bit-equal {torch.equal(out, again)}")
+        if not torch.equal(out, again) or not err <= GEMV4_TOL * scale:
+            fail(f"K6 int4: K7 {name} at {K} rows disagrees with its plain version")
+        gemv_err = max(gemv_err, err)
+    cases, worst = [], 0.0
+    for (name, t_max, pos), c8 in zip(K6_INT4_PLAN, int8_cases):
+        cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.zeros((t_max, 1), device=dev)
+        bias[70:82] = -1e30
+        x = torch.randn(K, D, generator=g, device=dev) * 0.5
+
+        def run(fn):
+            return fn(x, pack, cache, bias, pos, H)
+        out, again = run(fd.fused_decode_verify), run(fd.fused_decode_verify)
+        torch.cuda.synchronize()
+        ref = run(fd.fused_decode_verify_split_plain)
+        split_t, splits = fd.verify_splits(pos, H, t_max)
+        tag = (f"K6 int4 verify ({name}) K={K} pos={pos} Tmax={t_max} g{gsz}, {splits} "
+               f"splits of {split_t}")
+        if not all(bool(torch.isfinite(v.float()).all()) for v in out):
+            fail(f"{tag}: non-finite output")
+        if not all(torch.equal(u, v) for u, v in zip(out, again)):
+            fail(f"{tag}: two calls differ")
+        for part, a, r, tol in (("hidden", out[0], ref[0], K6_INT4_HIDDEN_TOL),
+                                ("kv_new", out[1], ref[1], DECODE_TOL)):
+            err, scale = max_err(torch, a, r), float(r.float().abs().max())
+            print(f"{tag} {part}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol "
+                  f"{tol} * max|ref|, {err / scale:.3g} of it); two calls bit-equal")
+            if not err <= tol * scale:
+                fail(f"{tag} {part} disagrees with the plain version")
+            worst = max(worst, err)
+        ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify), 20)
+        dev_ms = device_time_ms(torch, lambda: run(fd.fused_decode_verify), CHAIN_ITERS)
+        plain_ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify_split_plain), 3)
+        bnd = decode_step_bound(torch, pack, None, cache, None, bias, pos, rows=K,
+                                verify=True)
+        print(f"{tag} L={L} D={D} H={H}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), "
+              f"{plain_ms:.4f} ms plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+              f"int8 K6 same shapes {c8['ms']:.4f} ms ({c8['device_ms']:.4f} device-only), "
+              f"bound {c8['bound_ms']:.4f}")
+        cases.append({"k": K, "pos": pos, "t_max": t_max, "group": gsz, "splits": splits,
+                      "split_t": split_t, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "int8_ms": c8["ms"], "int8_device_ms": c8["device_ms"], **bnd})
+    results.append({
+        "name": "fused_decode_verify_int4", "route": "cuda",
+        "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "voice_tts_tpu/ops/fused_decode.py:1322",
+        "max_abs_err": worst, "k7_gemv_max_abs_err": gemv_err,
+        "ms": cases[0]["ms"], "device_ms": cases[0]["device_ms"],
+        "plain_ms": cases[0]["plain_ms"], "bound_ms": cases[0]["bound_ms"],
+        "bound_by": cases[0]["bound_by"], "library_ms": None,
+        "ms_of": "one K = 4 verify over the g128 int4 pack, bf16 KV, pos 300, Tmax 512; "
+                 "launches from its op entry (`verify_int4` path)",
+        "cases": cases})
+
+
+def run_verify_int4_path(torch, dev, counters):
+    """K6's int4 branch at its op entry (no serving path sends an int4 pack
+    to the verify, as in the JAX package): K6_INT4_CALLS verifies of K = 4
+    tokens at pos 300 over a random g128 int4 pack, with the counters from
+    0: one `fused_decode_verify` and one `fused_decode_int4` (the K7 chain)
+    a call, so every verify of the path ran over the int4 pack."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    pack, _, g = random_trunk_int4(torch, dev, 8, 128)
+    L, _, D, _ = pack.w.shape
+    name, t_max, pos = K6_INT4_PLAN[0]
+    cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.zeros((t_max, 1), device=dev)
+    x = torch.randn(K6_INT4_K, D, generator=g, device=dev) * 0.5
+    counters.reset()
+    for _ in range(K6_INT4_CALLS):
+        y, _ = fd.fused_decode_verify(x, pack, cache, bias, pos, 20)
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    print(f"[verify_int4] {K6_INT4_CALLS} int4 verifies ({name}): launches {launches}")
+    if (launches["fused_decode_verify"] != K6_INT4_CALLS
+            or launches["fused_decode_int4"] != K6_INT4_CALLS
+            or not bool(torch.isfinite(y).all())):
+        fail("[verify_int4] the int4 verify did not launch once a call")
+    return launches
 
 
 # the (D, F) of a GPT layer's four int8 products on the unfused decode step
@@ -2514,18 +2663,18 @@ def http(port: int, method: str, path: str, body: bytes = None, timeout=900):
         conn.close()
 
 
-def profile_request(torch, engine, prompt: bytes, text: str):
-    """One more warm request under the CUDA profiler: device busy time
-    (the union of the kernels' spans; their summed time beside it) against
-    the host wall clock, top kernels, and the
-    DiT attention kernels' device time (K9 / K11, where the request ran
-    them)."""
+def profile_request(torch, engine, prompt: bytes, text: str, **gen_kw):
+    """One more warm request (with the generation overrides `gen_kw`) under
+    the CUDA profiler: device busy time (the union of the kernels' spans;
+    their summed time beside it) against the host wall clock, top kernels,
+    and the DiT attention kernels' device time (K9 / K11, where the request
+    ran them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.infer(prompt, text)
+        engine.infer(prompt, text, **gen_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from voice_tts_tpu_torch.scripts.decode_host_time import busy_seconds
@@ -2735,6 +2884,181 @@ def compare_with_uncaptured(torch, dev, engine, tag, prompt, text, runs=("graphs
     return {name: recs[name][2] for name in names}
 
 
+def run_typical(torch, dev, counters, engine, tag, kernel, **gen_kw):
+    """One request on `engine` with `typical_sampling=True` (the full-vocab
+    warpers, their stable sorts and the draw inside the replayed chunks):
+    `kernel` once a step its device loop executed, with the counters from 0;
+    then the same request with the loops op by op against it replayed,
+    bit-equal."""
+    prompt, text = tone_prompt(5.0, 22050), "欢迎大家来体验这个语音合成系统谢谢大家."
+    kw = dict(typical_sampling=True, **gen_kw)
+    counters.reset()
+    t0 = time.perf_counter()
+    res = engine.infer(prompt, text, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, m = counters.snapshot(), dict(engine.last_metrics)
+    print(f"[{tag}] typical request ({json.dumps(kw)}): {res.wav.size} samples, wall "
+          f"{wall:.3f} s (capture {m.get('capture_time', 0.0):.3f} s), gpt_gen_time "
+          f"{m['gpt_gen_time']:.4f} s, {m['decode_steps']} steps, {m['decode_chunks']} "
+          f"chunks; launches {launches}")
+    if res.wav.size == 0:
+        fail(f"[{tag}] the typical request returned no audio")
+    check_decode_launches(tag, launches, [m], kernel)
+    walls = compare_with_uncaptured(torch, dev, engine, tag, prompt, text,
+                                    call=lambda: engine.infer(prompt, text, **kw))
+    return {"wall_s": wall, "steps": m["decode_steps"], "chunks": m["decode_chunks"],
+            "launches": launches[kernel], "walls": walls}
+
+
+# Qwen3-0.6B's published widths (Hugging Face `Qwen/Qwen3-0.6B` config.json)
+QWEN3_06B = dict(vocab_size=151936, hidden_size=1024, num_layers=28, num_heads=16,
+                 num_kv_heads=8, head_dim=128, intermediate_size=3072,
+                 rope_theta=1000000.0, rms_eps=1e-6, qkv_bias=False, qk_norm=True,
+                 tie_embeddings=True)
+# f32 on both devices (the card's matmuls in full f32, TF32 off): sums in
+# another order through 28 layers and a 1024-wide tied head, 1.9e-6 of
+# max|ref| (H100, 700 W); the same prefill with TF32 on must exceed it
+QWEN_PREFILL_TOL = 1e-5
+EMO_TEXT = "今天终于见到你了，我真的太开心了！"
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for the Qwen tokenizer (its files are not in
+    the repository): the chat template as Qwen's, ids the UTF-8 bytes, eos
+    Qwen's `<|im_end|>` id, decode the ids' low bytes."""
+
+    eos_token_id = 151645
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True,
+                            enable_thinking=True):
+        text = "".join(f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+                       for m in messages)
+        return text + ("<|im_start|>assistant\n" if add_generation_prompt else "")
+
+    def __call__(self, text):
+        return {"input_ids": list(text.encode("utf-8"))}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(i % 256 for i in ids).decode("utf-8", errors="ignore")
+
+
+def run_emotion(torch, dev, engine):
+    """Text-driven emotion (`--only emotion` runs it alone on a production
+    engine of its own): the Qwen LM at Qwen3-0.6B's published widths in f32,
+    random weights from seed 0, the byte-level stand-in tokenizer.  Its
+    prefill logits on the card against the same module on the CPU
+    (QWEN_PREFILL_TOL), and the same prefill with TF32 matmuls as the
+    control the limit must reject; the 256-token greedy decode replayed (CHUNK steps a
+    graph) against the same decode op by op on the card, bit-equal, with
+    its steps, chunks, host reads and wall time; then one
+    `infer(use_emo_text=True, emo_text=...)` on the production engine with
+    that `QwenEmotion` set, which must return a WAV."""
+    import copy
+
+    import numpy as np
+    from voice_tts_tpu_torch.audio import decode_audio_bytes, encode_wav_int16
+    from voice_tts_tpu_torch.config import QwenEmoConfig
+    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
+    from voice_tts_tpu_torch.engine.qwen_emotion import QwenEmotion
+    from voice_tts_tpu_torch.models.layers import init_weights
+    from voice_tts_tpu_torch.models.qwen import QwenArch, QwenLM, qwen_greedy_decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    arch = QwenArch(**QWEN3_06B)
+    with torch.device(dev):
+        model = QwenLM(arch)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[emotion] Qwen LM at Qwen3-0.6B widths ({json.dumps(QWEN3_06B)}): "
+          f"{n_params} parameters f32, built in {time.perf_counter() - t0:.2f} s")
+    emo = QwenEmotion(QwenEmoConfig(), model, ByteTokenizer())
+    ids = emo._chat_tokens(EMO_TEXT)
+    bucket = 128
+    while bucket < len(ids):
+        bucket *= 2
+    eos = ByteTokenizer.eos_token_id
+    tokens = torch.full((1, bucket), eos, dtype=torch.long)
+    tokens[0, bucket - len(ids):] = torch.tensor(ids)
+    with torch.no_grad():
+        logits, _ = model(tokens.to(dev))
+        cpu_model = copy.deepcopy(model).cpu()
+        ref, _ = cpu_model(tokens)
+    del cpu_model
+    err, scale = max_err(torch, logits.cpu(), ref), float(ref.abs().max())
+    print(f"[emotion] prefill logits ({bucket} tokens, {len(ids)} real) card vs CPU: "
+          f"max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol {QWEN_PREFILL_TOL} * max|ref|)")
+    if not torch.isfinite(logits).all() or not err <= QWEN_PREFILL_TOL * scale:
+        fail("[emotion] the card's prefill logits disagree with the CPU's")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32_logits, _ = model(tokens.to(dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = max_err(torch, tf32_logits.cpu(), ref)
+    del tf32_logits
+    print(f"[emotion] control: the prefill with TF32 matmuls vs CPU: max_abs_err "
+          f"{tf32_err:.4g} ({tf32_err / scale:.3g} of max|ref|, the limit "
+          f"{QWEN_PREFILL_TOL})")
+    if not tf32_err > QWEN_PREFILL_TOL * scale:
+        fail("[emotion] the prefill limit does not tell f32 from TF32")
+    out = {"prefill_max_abs_err": err, "prefill_max_abs_ref": scale,
+           "prefill_tf32_max_abs_err": tf32_err}
+    max_new = emo.cfg.max_new_tokens
+    runs = {}
+    for name, loops in (("uncaptured", DeviceLoops(dev, capture=False)),
+                        ("graphs", DeviceLoops(dev)), ("graphs again", None)):
+        loops = loops or runs["graphs"][1]
+        reads = loops.stats["host_reads"]
+        t1 = time.perf_counter()
+        res = qwen_greedy_decode(model, tokens.to(dev), len(ids), max_new, eos, loops=loops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        runs[name] = (res, loops, wall)
+        print(f"[emotion] qwen_greedy_decode {name}: {res.steps} steps, {res.chunks} "
+              f"chunks, {loops.stats['host_reads'] - reads} host reads, wall {wall:.4f} s "
+              f"({1e3 * wall / max(res.steps, 1):.3f} ms a step), loops "
+              f"{json.dumps(loops.stats)}")
+        out[name] = {"steps": res.steps, "chunks": res.chunks, "wall_s": wall,
+                     "host_reads": loops.stats["host_reads"] - reads}
+    ref_ids = runs["uncaptured"][0].ids
+    for name in ("graphs", "graphs again"):
+        if not torch.equal(runs[name][0].ids, ref_ids):
+            fail(f"[emotion] the replayed decode ({name}) differs from the op-by-op one")
+    if runs["graphs again"][1].stats["graphs"] != 1:
+        fail("[emotion] the second graph decode captured again")
+    print(f"[emotion] replayed decodes bit-equal to the op-by-op one ({max_new} ids)")
+    emo.loops = runs["graphs"][1]
+    engine.qwen_emo = emo
+    prompt = tone_prompt(5.0, 22050)
+    text = "欢迎大家来体验这个语音合成系统谢谢大家."
+    try:
+        t1 = time.perf_counter()
+        res = engine.infer(prompt, text, use_emo_text=True, emo_text=EMO_TEXT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        scores = emo.inference(EMO_TEXT)
+    finally:
+        engine.qwen_emo = None
+    wav, sr = decode_audio_bytes(encode_wav_int16(res.wav, res.sample_rate))
+    print(f"[emotion] infer(use_emo_text=True, emo_text={EMO_TEXT!r}): {wav.size} samples "
+          f"at {sr} Hz, wall {wall:.3f} s, timers "
+          + json.dumps({k: round(v, 4) for k, v in res.metrics.items()})
+          + f"; emotion {json.dumps(scores)}")
+    if sr != 22050 or wav.size == 0 or not np.all(np.isfinite(wav)):
+        fail("[emotion] the text-emotion request returned no valid WAV")
+    out.update({"request_wall_s": wall, "emotion": scores})
+    return out
+
+
+# the production typical request's code cap: random weights never stop, and
+# its uncaptured comparison run steps op by op
+TYPICAL_BEAM_CAP = 512
+
+
 def run_production_slice(torch, dev, counters):
     """The flagship engine in the production profile (the server default):
     beam-3 through K3 with the ancestor table, int8 KV."""
@@ -2761,6 +3085,9 @@ def run_production_slice(torch, dev, counters):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # beam-3 int8 KV with the cap retry (511, then 1499 after set_state)
     compare_with_uncaptured(torch, dev, engine, "serving", prompt, text, retry=True)
+    # typical sampling over K3 at a 512-code cap (511 beam steps)
+    run_typical(torch, dev, counters, engine, "serving typical", "fused_decode_step_batch",
+                max_mel_tokens=TYPICAL_BEAM_CAP)
     return launches, engine
 
 
@@ -3921,6 +4248,7 @@ def run_bench_slice(torch, dev, counters):
     check_decode_launches("bench", launches, metrics, "fused_decode_step")
     check_served_through_graphs("bench", engine, before, metrics)
     compare_with_uncaptured(torch, dev, engine, "bench", prompt, text)
+    run_typical(torch, dev, counters, engine, "bench typical", "fused_decode_step")
     if launches["fused_decode_step_batch"] != 0:
         fail("K3 was launched on the one-beam path")
     if launches["aa_snake_activation"] != 3 * n_act:
@@ -4095,7 +4423,7 @@ def k5_config():
 
 
 def run_k5_slice(torch, dev, counters, bench_metrics):
-    """The K5 slice at the flagship widths: two POST /tts (5 s prompts),
+    """The K5 slice at the flagship widths: one POST /tts (a 5 s prompt),
     each launching K5 24 times and K4 96 times a decode step, K1 and K3
     never, K10 once per fused stage (4) and K2 on the other stages' and the
     post activations (37) a vocode; then one profiled request.  Returns
@@ -4119,7 +4447,7 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
     n_k2 = (plan.count(False) * len(vc.resblock_kernel_sizes) * 2
             * len(vc.resblock_dilation_sizes[0]) + 1)
     launches, _, _, prompt, text, metrics, per_request = serve_requests(
-        torch, engine, "k5", counters, prompts_s=(5.0, 5.0))
+        torch, engine, "k5", counters, prompts_s=(5.0,))
     for i, (m, got) in enumerate(zip(metrics, per_request)):
         steps = m["decode_steps"]
         tag = f"[k5] request #{i}"
@@ -4133,22 +4461,28 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
     print("[k5] stage timers " + json.dumps({
         "k5": {k: [m[k] for m in metrics] for k in keys},
         "bench": {k: [m[k] for m in bench_metrics] for k in keys}}))
-    profile_request(torch, engine, prompt, text)
+    # ~700 launches a step: the trace of the full 255 steps took most of the
+    # phase's time, so the profiled request stops at K5_PROFILE_CODES
+    profile_request(torch, engine, prompt, text, max_mel_tokens=K5_PROFILE_CODES)
     return launches, engine
 
 
+# the K5 slice's profiled request's code cap (256 until the emotion phase
+# took its share of the time limit)
+K5_PROFILE_CODES = 64
 # the K5 beam request's code cap: random weights never stop, and the
 # profile's 1500 would decode 511 + 1499 eager beam steps (115 s of the
-# run's time limit in one measured run, 55.7 ms a step); 256 decodes 255
-# (512 until the loading phase took its share of the time limit)
-K5_BEAM_MAX_CODES = 256
+# run's time limit in one measured run, 55.7 ms a step); 128 decodes 127
+# (512 until the loading phase, 256 until the emotion phase took their
+# shares of the time limit)
+K5_BEAM_MAX_CODES = 128
 
 
 def run_k5_beam(torch, dev, counters, k5_engine):
     """One beam-3 request with K5: a second engine in the production profile
     with `pallas_decode_attention`, on the K5 slice engine's models (the
     int8 runtime GPT is built from its f32 master), its code cap cut to
-    K5_BEAM_MAX_CODES.  Random weights decode to the cap (255 steps), each a
+    K5_BEAM_MAX_CODES.  Random weights decode to the cap (127 steps), each a
     K5 launch per layer and K4 four; K3 and K1 never."""
     from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
 
@@ -4248,7 +4582,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+",
                     choices=list(KERNEL_CHECKS) + ["vocoder", "batched", "serving",
-                                                   "workers", "loading"],
+                                                   "workers", "loading", "emotion"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
                          "the vocoder A/B on a flagship BigVGAN with random weights, "
@@ -4256,7 +4590,8 @@ def main():
                          "`serving` the serving phase on a production and a bench engine "
                          "of its own, `workers` the server's replicas over every card "
                          "(two or more), `loading` the loading phase on a production "
-                         "engine of its own")
+                         "engine of its own, `emotion` the text-emotion phase (the Qwen "
+                         "LM at Qwen3-0.6B widths) on a production engine of its own")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -4291,6 +4626,10 @@ def main():
                 from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
                 run_loading(torch, dev, counters, TTSEngine.random(
                     serving_config(), device=dev, seed=0), card)
+            elif name == "emotion":
+                from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+                run_emotion(torch, dev, TTSEngine.random(serving_config(), device=dev,
+                                                          seed=0))
             else:
                 KERNEL_CHECKS[name](torch, dev, results)
         print(card)
@@ -4311,6 +4650,8 @@ def main():
     torch.cuda.empty_cache()
     by_path = {"micro": run_micro_path(torch, dev, counters, results)}
     lap("micro path")
+    by_path["verify_int4"] = run_verify_int4_path(torch, dev, counters)
+    lap("int4 verify path")
     torch.cuda.empty_cache()
     check_tiny_engine(torch, dev)
     check_tiny_engine_production(torch, dev)
@@ -4328,6 +4669,8 @@ def main():
     lap("grouped serving")
     by_path["loading"] = run_loading(torch, dev, counters, engine, card)
     lap("loading phase")
+    run_emotion(torch, dev, engine)
+    lap("emotion phase")
     vocoder = engine.vocoder
     del engine
     torch.cuda.empty_cache()
@@ -4354,16 +4697,20 @@ def main():
     lap("vocoder A/B")
     # each kernel's launches come from the path that runs it: K3 and K2 from
     # the production slice, K1 from the bench slice, K6 and K7 from the spec
-    # slice, K8 and K9 from the DiT slice, K11 from its engine, K5, K4 and
-    # K10 from the K5 slice
+    # slice, K6's int4 branch from its op entry, K8 and K9 from the DiT
+    # slice, K11 from its engine, K5, K4 and K10 from the K5 slice; K6's
+    # int4 entry reads the K6 counter of its own path
     owner = {"fused_decode_step": "bench", "fused_decode_verify": "spec",
              "fused_decode_int4": "spec", "dit_block_chain": "dit",
              "cfm_attention": "dit", "flash_attention": "flash",
              "decode_attention": "k5", "int8_gemv": "k5", "fused_resblock_stage": "k5",
-             "micro_tile": "micro", "micro_int4": "micro"}
+             "micro_tile": "micro", "micro_int4": "micro",
+             "fused_decode_verify_int4": "verify_int4"}
+    counter = {"fused_decode_verify_int4": "fused_decode_verify"}
     for r in results:
-        r["launches"] = by_path[owner.get(r["name"], "serving")][r["name"]]
-        r["launches_by_path"] = {p: by_path[p][r["name"]] for p in by_path}
+        name = counter.get(r["name"], r["name"])
+        r["launches"] = by_path[owner.get(r["name"], "serving")][name]
+        r["launches_by_path"] = {p: by_path[p][name] for p in by_path}
     print(card)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

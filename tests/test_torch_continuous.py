@@ -241,6 +241,33 @@ def test_slot_reuse_after_harvest(gpts, int8_kv):
     _check_slot(pair, gpts, 1, 1, pair.run_until(1), int8_kv)
 
 
+def test_typical_slots_match_decode(gpts):
+    """Greedy typical sampling in the slots: `admit` and the chunk's step
+    warp through `sample_token`'s typical branch, and each of two
+    staggered slots gives the codes, steps and limit flag of the port's
+    `decode()` of its request alone with the same config."""
+    _, _, _, prt, ppack, reqs = gpts
+    gen = dataclasses.replace(GREEDY, typical_sampling=True, typical_mass=0.5)
+    dtype = prt.conditioning_encoder.after_norm.bias.dtype
+    state = pcont.init_state(CFG.gpt, 2, _t_max(), MAX_NEW, dtype, False)
+    for slot in range(2):
+        cond, emo, text, tlen = reqs[slot]
+        pcont.admit(prt, gen, state, slot, t(cond), t(emo), t(text).long(), t(tlen).long())
+        for _ in range(8):
+            _, status = pcont.run_chunk(prt, ppack, gen, state, None, CHUNK)
+            if status[1, slot]:
+                break
+    for slot in range(2):
+        while not status[1, slot]:
+            _, status = pcont.run_chunk(prt, ppack, gen, state, None, CHUNK)
+        cond, emo, text, tlen = reqs[slot]
+        ref = pdecode.decode(prt, gen, t(cond), t(emo), t(text).long(), t(tlen).long(),
+                             MAX_NEW, fused_pack=ppack)
+        np.testing.assert_array_equal(state.codes[slot].numpy(), ref.codes[0].numpy())
+        assert int(status[3, slot]) == int(ref.lengths[0])
+        assert bool(status[2, slot]) == bool(ref.hit_limit[0])
+
+
 def test_idle_slot_and_chunk_counts(gpts):
     """An idle slot (pos 0) beside a running one stays idle and finite; on
     the CPU the chunk runs K3's plain version, which counts no launch."""
@@ -382,6 +409,35 @@ def test_batcher_fails_a_bad_request_alone(engines):
     batcher.stop()
     assert isinstance(bad[0][0], Exception)
     assert not isinstance(good[0][0], Exception) and good[0][0].wav.size > 0
+
+
+def test_batcher_takes_text_emotion(engines):
+    """`use_emo_text` in the batcher: with no Qwen emotion model it fails
+    that request alone (JAX's RuntimeError); with one, the request's
+    conditioning is that of `emo_vector` = the model's scores for
+    `emo_text`, and it completes with audio."""
+    from test_torch_qwen import port_emotion
+
+    _, peng = engines
+    batcher = pcont.ContinuousBatcher(peng, chunk_steps=4, generation_kwargs=GEN_KW)
+    req = {"spk_audio_prompt": prompt_wav(), "text": "hi.", "use_emo_text": True,
+           "emo_text": "so happy"}
+    refused = batcher.submit(dict(req))
+    batcher._prep_pending()
+    assert isinstance(refused[0][0], RuntimeError)
+    peng.qwen_emo = port_emotion()
+    try:
+        vec = list(peng.qwen_emo.inference("so happy").values())
+        done = batcher.submit(dict(req))
+        batcher.submit({"spk_audio_prompt": prompt_wav(), "text": "hi.", "emo_vector": vec})
+        batcher._prep_pending()
+        a, b = batcher._seg_queue[-2:]
+        assert torch.equal(a["emovec"], b["emovec"]) and a["ids"] == b["ids"]
+        batcher.run()
+        batcher.stop()
+    finally:
+        peng.qwen_emo = None
+    assert not isinstance(done[0][0], Exception) and done[0][0].wav.size > 0
 
 
 def test_batcher_refusals():

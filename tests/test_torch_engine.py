@@ -17,6 +17,7 @@ from voice_tts_tpu.engine import post as jax_post
 from voice_tts_tpu.models.gpt.decode import decode as jax_decode
 from voice_tts_tpu_torch.audio import encode_wav_int16
 from voice_tts_tpu_torch.engine.engine import TTSEngine
+from voice_tts_tpu_torch.engine.qwen_emotion import parse_emotion_response
 from voice_tts_tpu_torch.models.gpt.decode import decode as port_decode
 from voice_tts_tpu_torch.serving.http import Request
 
@@ -184,18 +185,60 @@ def test_stream_return_returns_the_generator(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"use_emo_text": True}, NotImplementedError),
-    ({"use_emo_text": True, "emo_text": "happy"}, NotImplementedError),
+    ({"use_emo_text": True}, RuntimeError),
+    ({"use_emo_text": True, "emo_text": "happy"}, RuntimeError),
     ({"no_such_keyword": 1}, TypeError),
     ({"do_sample": False, "top_q": 0.5}, TypeError),
 ])
 def test_infer_keyword_raises(engines, kwargs, error):
-    """The unported keyword (`use_emo_text`: the Qwen emotion model) and any
-    keyword that is not a GenerationConfig field raise before any work,
-    instead of being dropped."""
-    _, peng = engines
+    """`use_emo_text` with no Qwen emotion model set raises JAX's
+    RuntimeError, and any keyword that is not a GenerationConfig field
+    raises TypeError, before any work, instead of being dropped."""
+    jeng, peng = engines
+    assert jeng.qwen_emo is None and peng.qwen_emo is None
     with pytest.raises(error):
         peng.infer(prompt_wav(), TEXT, **kwargs)
+    if error is RuntimeError:
+        with pytest.raises(RuntimeError, match="Qwen emotion model"):
+            jeng.infer(prompt_wav(), TEXT, **kwargs)
+
+
+def test_infer_with_text_emotion_matches_jax(engines):
+    """`infer(use_emo_text=True)` with one tiny Qwen3 `QwenEmotion` set on
+    each engine (the same weights and stub tokenizer): the emotion comes
+    from `emo_text` (the emotion audio dropped, `emo_alpha` scaling the
+    scores), the same emotion dict, and the WAV within 8 LSB of the JAX
+    engine's with its CFM noise shared (the bound of
+    `test_infer_wav_matches_with_shared_noise`)."""
+    from test_torch_qwen import emotion_pair, tiny_models
+
+    jeng, peng = engines
+    jq, pq = emotion_pair(tiny_models("qwen3"))
+    wav = prompt_wav()
+    kw = dict(emo_audio_prompt=wav, emo_alpha=0.8, use_emo_text=True,
+              emo_text="今天真开心", do_sample=False)
+    jeng.qwen_emo, peng.qwen_emo = jq, pq
+    noise = peng.__dict__.get("_draw_noise")
+    try:
+        rng0 = jeng._rng
+        ref = jeng.infer(wav, TEXT, **kw)
+        r1, _ = jax.random.split(rng0)
+        _, sub_s = jax.random.split(r1)
+        peng._draw_noise = lambda shape: torch.from_numpy(
+            np.asarray(jax.random.normal(sub_s, tuple(shape))))
+        out = peng.infer(wav, TEXT, **kw)
+    finally:
+        jeng.qwen_emo = peng.qwen_emo = None
+        if noise is None:
+            del peng._draw_noise
+        else:
+            peng._draw_noise = noise
+    emo = pq.inference(kw["emo_text"])
+    assert emo == jq.inference(kw["emo_text"])
+    assert emo != parse_emotion_response("{}", "")          # not the calm fallback
+    assert out.wav.shape == ref.wav.shape and out.wav.size > 0
+    diff = np.abs(out.wav.astype(np.int32) - ref.wav.astype(np.int32)).max()
+    assert diff <= 8, diff
 
 
 @pytest.mark.parametrize("body", [

@@ -225,12 +225,50 @@ def test_infer_generator_streams_infer_segments(greedy, quick):
 
 
 def test_infer_generator_checks_keywords(greedy):
-    """The generator's keywords are checked when it is made: the Qwen
-    emotion model and unknown keywords raise before any work."""
-    with pytest.raises(NotImplementedError):
+    """The generator's keywords are checked when it is made:
+    `use_emo_text` with no Qwen emotion model (JAX's RuntimeError) and
+    unknown keywords raise before any work."""
+    assert greedy.qwen_emo is None
+    with pytest.raises(RuntimeError, match="Qwen emotion model"):
         greedy.infer_generator(tone(220.0), "hi.", use_emo_text=True)
     with pytest.raises(TypeError):
         greedy.infer(tone(220.0), "hi.", stream_return=True, top_q=0.5)
+
+
+def test_text_emotion_on_infer_stream_and_batch(greedy):
+    """With a Qwen emotion model set, `infer`, `infer_generator` and
+    `infer_batch` take `use_emo_text`: each gives the WAV of the same call
+    with `emo_vector` = the model's scores for `emo_text` (the text when
+    none), from the same generator state and cap memory."""
+    from test_torch_qwen import port_emotion
+
+    eng, prompt = greedy, tone(220.0)
+    eng.qwen_emo = port_emotion()
+    try:
+        vec = list(eng.qwen_emo.inference("so happy").values())
+        own = list(eng.qwen_emo.inference("hi.").values())
+
+        def same(call, kw_text, kw_vec):
+            state, hint = eng.generator.get_state(), dict(eng._cap_hint)
+            a = call(**kw_text)
+            eng.generator.set_state(state)
+            eng._cap_hint = hint
+            b = call(**kw_vec)
+            return a, b
+
+        a, b = same(lambda **kw: eng.infer(prompt, "hi.", **kw).wav,
+                    {"use_emo_text": True, "emo_text": "so happy"}, {"emo_vector": vec})
+        assert a.size > 0 and np.array_equal(a, b)
+        a, b = same(lambda **kw: np.concatenate(list(eng.infer_generator(prompt, "hi.", **kw))),
+                    {"use_emo_text": True}, {"emo_vector": own})
+        assert np.array_equal(a, b)
+        a, b = same(lambda **kw: eng.infer_batch([{"spk_audio_prompt": prompt,
+                                                   "text": "hi.", **kw}])[0].wav,
+                    {"use_emo_text": True, "emo_text": "so happy", "emo_alpha": 0.5},
+                    {"emo_vector": vec, "emo_alpha": 0.5})
+        assert np.array_equal(a, b)
+    finally:
+        eng.qwen_emo = None
 
 
 @pytest.mark.parametrize("key", ["do_sample", "num_beams", "spk_audio", "stream_return"])

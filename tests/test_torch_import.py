@@ -1,6 +1,8 @@
-"""The PyTorch port imports without jax, flax or pydantic (the GPU
-machine has none of them) and without the JAX package itself: it keeps its
-own copies of `config`, `logging` and `text`."""
+"""The PyTorch port imports without jax, flax, pydantic or `transformers`
+(the GPU machine has none of them; the Qwen emotion model imports
+`transformers` only inside `QwenEmotion.from_pretrained`) and without the
+JAX package itself: it keeps its own copies of `config`, `logging` and
+`text`."""
 
 import subprocess
 import sys
@@ -10,7 +12,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = """
 import sys
-for blocked in ("jax", "flax", "pydantic", "voice_tts_tpu"):
+for blocked in ("jax", "flax", "pydantic", "voice_tts_tpu", "transformers"):
     sys.modules[blocked] = None
 import voice_tts_tpu_torch
 import voice_tts_tpu_torch.cli
@@ -41,10 +43,12 @@ import voice_tts_tpu_torch.utils.onboard
 import voice_tts_tpu_torch.utils.quality_gate
 import voice_tts_tpu_torch.utils.profiling
 import voice_tts_tpu_torch.models.gpt.cond_encoder
+import voice_tts_tpu_torch.models.qwen
+import voice_tts_tpu_torch.engine.qwen_emotion
 import published_layout
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic",
-                                    "voice_tts_tpu")
+                                    "voice_tts_tpu", "transformers")
              and sys.modules[m] is not None)
 assert not bad, bad
 print("ok")

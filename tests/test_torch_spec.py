@@ -149,9 +149,15 @@ def test_verify_refuses_what_it_does_not_take(trunk):
     cache, bias, x = _verify_inputs(4, 10)
     with pytest.raises(ValueError, match="2 <= K <= 8"):
         pfd.fused_decode_verify(t(x[:1]), ppack, t(cache), t(bias), 10, H)
+    # an int4 pack is taken; int4_expand=True is refused at the engine's
+    # config check, the one place the scheme is chosen
     p4 = pfd.pack_gpt_int4(flatten_params(_trunk_tree()), L)
-    with pytest.raises(TypeError, match="int8 pack"):
-        pfd.fused_decode_verify(t(x), p4, t(cache), t(bias), 10, H)
+    y4, kv4 = pfd.fused_decode_verify(t(x), p4, t(cache).to(torch.bfloat16), t(bias), 10, H)
+    assert y4.shape == (K, D) and kv4.shape == (L, 2, K, D)
+    with pytest.raises(ValueError, match="TPU-only"):
+        pfd.check_int4_expand(True)
+    with pytest.raises(TypeError, match="trunk pack"):
+        pfd.fused_decode_verify(t(x), p4.w, t(cache), t(bias), 10, H)
     with pytest.raises(ValueError, match="unsupported device"):
         pfd.fused_decode_verify(torch.empty(K, D, device="meta"), ppack,
                                 t(cache), t(bias), 10, H)

@@ -4,8 +4,9 @@ split-prefix verify attention (`verify_splits`, the plain twin
 `fused_decode_verify_split_plain`).  The planners at every path shape; the
 twins against the plain versions and the JAX package (`_dot_one_tile`, the
 int4 K1 / K3 steps and `fused_decode_verify`, Pallas in interpret mode) at
-L=2, D=256, H=4, Tmax=256; then (on a card only) the CUDA kernels at the
-planner shapes, two calls bit-equal."""
+L=2, D=256, H=4, Tmax=256, K6's int4 branch (the verify over an int4
+pack) too; then (on a card only) the CUDA kernels at the planner shapes,
+two calls bit-equal."""
 
 import numpy as np
 import pytest
@@ -311,6 +312,30 @@ def test_split_verify_matches_plain_and_jax(int8_packs, name):
     _close(twin[1], jkv, tol=KV_TOL)
 
 
+def test_int4_verify_matches_jax(int4_packs):
+    """K6's int4 branch: the verify of K = 4 tokens over an int4 pack (g64)
+    at pos 77, summed as the CUDA chain sums it (the split prefix, K7's fc2
+    order) and plainly, against JAX's `fused_decode_verify` with
+    `pack_gpt_int4`'s pack in interpret mode: hidden rows within 1e-3 of
+    max|ref|, the bf16 kv rows within KV_TOL; the wrapper on CPU tensors is
+    the plain version."""
+    jpack, _, ppack, _ = int4_packs
+    x, cache, bias, pos = _verify_case("pos77_three_splits")
+    args = (torch.from_numpy(x), ppack, torch.from_numpy(cache).to(torch.bfloat16),
+            torch.from_numpy(bias), pos, H)
+    twin = pfd.fused_decode_verify_split_plain(*args)
+    plain = pfd.fused_decode_verify(*args)
+    for a, b in zip(plain, pfd.fused_decode_verify_plain(*args)):
+        assert torch.equal(a, b)
+    _close(twin[0], plain[0].numpy())
+    _close(twin[1], plain[1].float().numpy(), tol=KV_TOL)
+    jy, jkv = jfd.fused_decode_verify(jnp.asarray(x), jpack, jnp.asarray(cache, jnp.bfloat16),
+                                      jnp.asarray(bias), pos, H, interpret=True)
+    for out in (twin, plain):
+        _close(out[0], jy)
+        _close(out[1], jkv, tol=KV_TOL)
+
+
 def test_split_attention_tail_is_causal():
     """`_split_attention` with a K-token tail against one softmax over the
     prefix and the tokens each row may see, at split widths that cut inside
@@ -394,6 +419,28 @@ def test_verify_kernel_matches_plain_on_card(int8_packs, cuda_device, name):
             pos, H)
     out, again = pfd.fused_decode_verify(*args), pfd.fused_decode_verify(*args)
     ref = pfd.fused_decode_verify_plain(*args)
+    for a, a2, r, tol in zip(out, again, ref, (1e-3, KV_TOL)):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, a2)
+        assert float((a.float() - r.float()).abs().max()) <= tol * float(r.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_int4_verify_kernel_matches_plain_on_card(int4_packs, cuda_device):
+    """K6 over the int4 pack on the card (K7's loader in the verify chain)
+    against the split plain verify on the same inputs (tolerances as on the
+    CPU), finite, two calls bit-equal, counted as an int4 verify."""
+    from voice_tts_tpu_torch.ops.counters import LAUNCHES
+
+    _, _, ppack, _ = int4_packs
+    dev = cuda_device
+    x, cache, bias, pos = _verify_case("pos77_three_splits")
+    args = (torch.from_numpy(x).to(dev), pfd.FusedDecodePackInt4(*(t.to(dev) for t in ppack)),
+            torch.from_numpy(cache).to(dev, torch.bfloat16), torch.from_numpy(bias).to(dev),
+            pos, H)
+    before = {k: LAUNCHES[k] for k in ("fused_decode_verify", "fused_decode_int4")}
+    out, again = pfd.fused_decode_verify(*args), pfd.fused_decode_verify(*args)
+    assert all(LAUNCHES[k] == n + 2 for k, n in before.items())
+    ref = pfd.fused_decode_verify_split_plain(*args)
     for a, a2, r, tol in zip(out, again, ref, (1e-3, KV_TOL)):
         assert torch.isfinite(a.float()).all() and torch.equal(a, a2)
         assert float((a.float() - r.float()).abs().max()) <= tol * float(r.float().abs().max())

@@ -123,6 +123,15 @@
 // shared memory and combines them in split order, then the causal tail:
 // no launch of its own, deterministic.  200 blocks at pos 300, 320 at pos
 // 1500 (the unsplit kernel launched 80).
+//
+// K6 over an int4 pack (`fused_decode.py:1322` with `FusedDecodePackInt4`):
+// the same chain, every trunk GEMV K7's `dq_gemv4` over the K rows (its
+// LN prologue and epilogues, up to 12 rows, grids from `plan_int4_gemv`),
+// `verify_split` unchanged.  Bound: 236 MB of nibble pairs plus 14.7 MB of
+// g128 scales, once for all K rows, and the bf16 prefix: about 0.08 ms at
+// pos 300.  The group sums on the tensor cores are not sequential IEEE f32
+// sums, so it matches its plain version within a tolerance, and two calls
+// are bit-equal.
 #include <algorithm>
 #include <type_traits>
 

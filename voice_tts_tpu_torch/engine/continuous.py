@@ -314,15 +314,14 @@ class ContinuousBatcher:
         for entry in pending:
             req = entry["req"]
             try:
-                if req.get("use_emo_text", False):
-                    raise NotImplementedError("use_emo_text=True needs the Qwen emotion "
-                                              "model, which is not ported")
                 with self._engine_lock, GATE.shared():
                     spk, emovec, segments = self.engine._prepare(
                         req["spk_audio_prompt"], req.get("emo_audio_prompt"),
                         req.get("emo_alpha", 1.0), req.get("emo_vector"),
                         req.get("use_random", False), req["text"],
-                        req.get("max_text_tokens_per_segment", 120))
+                        req.get("max_text_tokens_per_segment", 120),
+                        use_emo_text=req.get("use_emo_text", False),
+                        emo_text=req.get("emo_text"))
             except Exception as e:  # noqa: BLE001 - this request only
                 self._complete(entry, e)
                 continue

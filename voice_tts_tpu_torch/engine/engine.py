@@ -75,9 +75,11 @@ default arm (one conditioning latent).
 Engine flags accepted without effect here: `merge_decode_stages` (a grid
 setting of the Mosaic kernels, which the CUDA chain does not have), and
 `fuse_pipeline` / `fuse_synthesis` / `cfm_unroll` (graph and dispatch
-settings of the JAX engine).  Left out: the Qwen text emotion model
-(`infer(use_emo_text=True)` raises), and `tensor_parallel > 1`
-(constructing with it raises).
+settings of the JAX engine).  Text-driven emotion
+(`infer(use_emo_text=True)`) runs the Qwen emotion model the caller sets
+as `engine.qwen_emo` (`engine/qwen_emotion.py`), as in JAX; without one
+it raises RuntimeError.  Left out: `tensor_parallel > 1` (constructing
+with it raises).
 """
 
 from __future__ import annotations
@@ -439,6 +441,7 @@ class TTSEngine:
                                                np.float32), device=dev)
         self.emo_matrix = extras.get("emo_matrix")
         self.spk_matrix = extras.get("spk_matrix")
+        self.qwen_emo = None  # optional QwenEmotion (text-driven emotion)
 
         self.prompt_samples_16k = int(e.max_prompt_seconds * self.SR_COND)
         self.prompt_samples_22k = int(e.max_prompt_seconds * self.SR_MEL)
@@ -759,12 +762,27 @@ class TTSEngine:
             now = max(now, min(n, full))
         self._cap_hint[bucket] = max(now, int(self._cap_hint.get(bucket, 0) * 0.95))
 
+    def _check_emo_text(self, use_emo_text: bool) -> None:
+        if use_emo_text and self.qwen_emo is None:
+            raise RuntimeError(
+                "text-driven emotion requires the Qwen emotion model: "
+                "set engine.qwen_emo = QwenEmotion.from_pretrained(dir)")
+
     def _prepare(self, spk_audio_prompt, emo_audio_prompt, emo_alpha,
                  emo_vector, use_random, text, max_text_tokens_per_segment,
-                 quick_streaming_tokens: int = 0):
+                 quick_streaming_tokens: int = 0, *, use_emo_text: bool = False,
+                 emo_text: Optional[str] = None):
         """Emotion-source resolution + conditioning + segmentation; the
         first ~`quick_streaming_tokens` tokens stay in smaller unmerged
-        segments (the JAX `_prepare`'s knob of the same name)."""
+        segments (the JAX `_prepare`'s knob of the same name).  With
+        `use_emo_text` the emotion comes from `qwen_emo.inference(emo_text,
+        or the text)`: its scores become `emo_vector` and the emotion audio
+        is dropped."""
+        if use_emo_text:
+            self._check_emo_text(use_emo_text)
+            emo_dict = self.qwen_emo.inference(emo_text if emo_text is not None else text)
+            logger.info("detected emotion vectors from text: %s", emo_dict)
+            emo_vector = list(emo_dict.values())
         if emo_vector is not None:
             emo_audio_prompt = None
             scale = max(0.0, min(1.0, emo_alpha))
@@ -816,17 +834,17 @@ class TTSEngine:
         segment's int16 waveform, each followed by the silence gap but the
         last.  `quick_streaming_tokens` keeps the first ~N tokens in smaller
         unmerged segments (sooner first audio).  The keywords are checked
-        here (`use_emo_text=True` and unknown keywords raise); the
-        conditioning and the segments run as the generator is read."""
-        if use_emo_text:
-            raise NotImplementedError(
-                "use_emo_text=True needs the Qwen emotion model, which is not ported")
+        here (unknown keywords raise, and `use_emo_text=True` without
+        `qwen_emo`); the conditioning and the segments run as the generator
+        is read."""
+        self._check_emo_text(use_emo_text)
         gen = self._generation_config(generation_kwargs)
 
         def segments():
             spk, emovec, segs = self._prepare(
                 spk_audio_prompt, emo_audio_prompt, emo_alpha, emo_vector, use_random,
-                text, max_text_tokens_per_segment, quick_streaming_tokens)
+                text, max_text_tokens_per_segment, quick_streaming_tokens,
+                use_emo_text=use_emo_text, emo_text=emo_text)
             timers = self._new_timers()
             sil = np.zeros(int(self.cfg.engine.sample_rate * interval_silence / 1000.0),
                            dtype=np.int16)
@@ -853,23 +871,21 @@ class TTSEngine:
         segments; `emo_text` is read only with `use_emo_text`, and `verbose`
         is accepted.  A multi-segment text decodes its segments together
         through the batched job path when `_should_batch_segments` says so.
-        `use_emo_text=True` (the Qwen emotion model) is not ported and
-        raises; so does a keyword that is neither one of these nor a
-        GenerationConfig field."""
+        `use_emo_text=True` takes the emotion from `qwen_emo` (RuntimeError
+        without one); a keyword that is neither one of these nor a
+        GenerationConfig field raises TypeError."""
         if stream_return:
             return self.infer_generator(
                 spk_audio_prompt, text, emo_audio_prompt, emo_alpha, emo_vector,
                 use_emo_text, emo_text, use_random, interval_silence, verbose,
                 max_text_tokens_per_segment, more_segment_before, **generation_kwargs)
-        if use_emo_text:
-            raise NotImplementedError(
-                "use_emo_text=True needs the Qwen emotion model, which is not ported")
         gen = self._generation_config(generation_kwargs)
         start = time.perf_counter()
         cfg = self.cfg
         spk, emovec, segments = self._prepare(
             spk_audio_prompt, emo_audio_prompt, emo_alpha, emo_vector,
-            use_random, text, max_text_tokens_per_segment, more_segment_before)
+            use_random, text, max_text_tokens_per_segment, more_segment_before,
+            use_emo_text=use_emo_text, emo_text=emo_text)
         timers = self._new_timers(prepare_time=time.perf_counter() - start)
         captured = self.loops.stats["capture_s"] if self.loops is not None else 0.0
         if self._should_batch_segments(segments, gen):
@@ -923,9 +939,7 @@ class TTSEngine:
                 raise TypeError(f"infer_batch() request {i} has unexpected key(s) "
                                 f"{unknown}: requests decode with the engine's "
                                 "GenerationConfig")
-        if any(req.get("use_emo_text", False) for req in requests):
-            raise NotImplementedError(
-                "use_emo_text=True needs the Qwen emotion model, which is not ported")
+        self._check_emo_text(any(req.get("use_emo_text", False) for req in requests))
         # one batched conditioning forward for the group's new speakers
         self._speaker_conditioning_batch([req["spk_audio_prompt"] for req in requests])
         prepared, jobs = [], []
@@ -936,7 +950,8 @@ class TTSEngine:
                 req.get("emo_alpha", 1.0), req.get("emo_vector"),
                 req.get("use_random", False), req["text"],
                 req.get("max_text_tokens_per_segment", 120),
-                req.get("more_segment_before", req.get("quick_streaming_tokens", 0)))
+                req.get("more_segment_before", req.get("quick_streaming_tokens", 0)),
+                use_emo_text=req.get("use_emo_text", False), emo_text=req.get("emo_text"))
             prepared.append(req)
             jobs += [{"req": ri, "seg": si, "tokens": seg, "spk": spk, "emovec": emovec}
                      for si, seg in enumerate(segments)]

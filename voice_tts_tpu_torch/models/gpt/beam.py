@@ -53,7 +53,9 @@ It runs as the one-request arm does, a device loop keyed by (R, K, the
 cap).  `beam_decode_batch` is its plain arm (no pack, or K > 4): one eager
 `beam_decode` a request over the same streams.
 
-Left out here: typical sampling (raises).
+Typical sampling keeps the full-vocab pipeline on every arm
+(`_process_scores`, 2 tokens kept; sampled, a Gumbel top-k over the K * V
+flat scores), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,7 +69,10 @@ from voice_tts_tpu_torch.engine import device_loop
 from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
                                                    apply_repetition_penalty,
-                                                   generation_key, prefill_rows)
+                                                   apply_top_k, apply_top_p,
+                                                   apply_typical, generation_key,
+                                                   prefill_rows)
+from voice_tts_tpu_torch.models.gpt.decode import log_softmax as _log_softmax
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, MAX_ROWS_TABLE,
@@ -122,19 +127,18 @@ def topk_first(x: torch.Tensor, k: int):
     return torch.gather(x, -1, idx), idx
 
 
-def _log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.log_softmax`, written as it is: x - max - log(sum(exp))."""
-    shifted = x - x.amax(dim=-1, keepdim=True)
-    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
-
-
 def _process_scores(logprobs, presence, gen: GenerationConfig):
-    """Repetition penalty on the log-probs.  The JAX version's other branches
-    (typical sampling, and the warpers it applies only together with typical
-    sampling) are not ported: typical sampling raises."""
+    """The full-vocab warpers on the log-probs (JAX `_process_scores`):
+    repetition penalty, typical filtering with 2 tokens kept, and when
+    sampling temperature, top-k and top-p."""
+    s = apply_repetition_penalty(logprobs, presence, gen.repetition_penalty)
     if gen.typical_sampling:
-        raise NotImplementedError("typical sampling is not ported")
-    return apply_repetition_penalty(logprobs, presence, gen.repetition_penalty)
+        s = apply_typical(s, gen.typical_mass, min_tokens_to_keep=2)
+    if gen.do_sample:
+        if gen.temperature != 1.0:
+            s = s / gen.temperature
+        s = apply_top_p(apply_top_k(s, gen.top_k), gen.top_p)
+    return s
 
 
 def warp_candidate_space(s: torch.Tensor, top_k: int, top_p: float, n_keep: int):
@@ -165,6 +169,17 @@ def _length_penalize(sum_logprobs, length, length_penalty: float):
     return sum_logprobs / torch.pow(n.float(), length_penalty)
 
 
+def _gumbel_candidates(flat: torch.Tensor, uniform: Uniform, n_keep: int):
+    """Multinomial without replacement over the flat scores: a Gumbel top-k
+    of their log-softmax with `uniform`'s values, the drawn entries sorted
+    by score, descending (stable).  Returns (scores, flat indices)."""
+    g = _log_softmax(flat) - torch.log(-torch.log(uniform(tuple(flat.shape))))
+    _, idx = topk_first(g, n_keep)
+    cand_scores = flat[idx]
+    order = torch.argsort(cand_scores, descending=True, stable=True)
+    return cand_scores[order], idx[order]
+
+
 def _candidates(logits, presence, beam_scores, uniform: Optional[Uniform],
                 gen: GenerationConfig, k: int, vocab: int):
     """2K candidates sorted by score: (scores (2K,), beams (2K,), tokens (2K,)).
@@ -173,9 +188,13 @@ def _candidates(logits, presence, beam_scores, uniform: Optional[Uniform],
     logprobs = _log_softmax(logits.float())
     n_keep = 2 * k
     if not gen.do_sample or gen.typical_sampling:
+        # the full-vocab pipeline (greedy, or typical sampling)
         processed = _process_scores(logprobs, presence, gen)
         flat = (processed + beam_scores[:, None]).reshape(-1)
-        cand_scores, idx = topk_first(flat, n_keep)
+        if gen.do_sample:
+            cand_scores, idx = _gumbel_candidates(flat, uniform, n_keep)
+        else:
+            cand_scores, idx = topk_first(flat, n_keep)
         return cand_scores, idx // vocab, idx % vocab
     s = apply_repetition_penalty(logprobs, presence, gen.repetition_penalty)
     if gen.temperature != 1.0:
@@ -183,11 +202,7 @@ def _candidates(logits, presence, beam_scores, uniform: Optional[Uniform],
     top_vals, top_idx = warp_candidate_space(s, gen.top_k, gen.top_p, n_keep)
     nk = top_vals.shape[-1]
     flat = (top_vals + beam_scores[:, None]).reshape(-1)
-    g = _log_softmax(flat) - torch.log(-torch.log(uniform(tuple(flat.shape))))
-    _, idx = topk_first(g, n_keep)
-    cand_scores = flat[idx]
-    order = torch.argsort(cand_scores, descending=True, stable=True)
-    idx, cand_scores = idx[order], cand_scores[order]
+    cand_scores, idx = _gumbel_candidates(flat, uniform, n_keep)
     beams = idx // nk
     return cand_scores, beams, top_idx[beams, idx % nk]
 

@@ -35,7 +35,9 @@ loader), verifies all K in one int8 pass (`fused_decode_verify`, K6) and
 keeps the target's distribution by rejection sampling over the warped
 distributions (`speculative_accept`).
 
-Left out here: typical sampling.
+Typical sampling (`gen.typical_sampling`) runs the full-vocab warper
+pipeline (`process_logits`, `apply_typical`) on every arm, its sorts on the
+device, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -91,12 +93,93 @@ def apply_repetition_penalty(logits, presence, penalty: float):
     return torch.where(presence, penalized, logits)
 
 
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.log_softmax`, written as it is: x - max - log(sum(exp))."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softmax`, written as it is: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _mask_sorted(logits: torch.Tensor, order: torch.Tensor,
+                 remove_sorted: torch.Tensor) -> torch.Tensor:
+    """Entries whose rank in `order` is flagged in `remove_sorted` go to
+    float-min (the rank of an entry is the argsort of the order: the order
+    scattered back)."""
+    remove = torch.empty_like(remove_sorted).scatter_(-1, order, remove_sorted)
+    return torch.where(remove, torch.finfo(logits.dtype).min, logits)
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Full-vocab top-k (JAX `apply_top_k`): below the k-th largest value
+    goes to float-min."""
+    if k <= 0:
+        return logits
+    thresh = torch.topk(logits, min(k, logits.shape[-1]), dim=-1).values[..., -1:]
+    return torch.where(logits < thresh, torch.finfo(logits.dtype).min, logits)
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """HF TopPLogitsWarper (JAX `apply_top_p`): ascending stable sort, remove
+    while the cumulative probability is <= 1 - p, keep >= 1 token."""
+    if p >= 1.0:
+        return logits
+    order = torch.argsort(logits, dim=-1, stable=True)
+    cum = torch.cumsum(_softmax(torch.gather(logits, -1, order)), dim=-1)
+    remove_sorted = cum <= (1.0 - p)
+    remove_sorted[..., -1] = False
+    return _mask_sorted(logits, order, remove_sorted)
+
+
+def apply_typical(logits: torch.Tensor, mass: float,
+                  min_tokens_to_keep: int = 1) -> torch.Tensor:
+    """Entropy-typical filtering (JAX `apply_typical`, HF
+    TypicalLogitsWarper): the tokens sorted by |-log p - H| (stable, as
+    `jnp.argsort`), the most typical kept while their cumulative
+    probability stays under `mass`, at least `min_tokens_to_keep`; the rest
+    go to float-min.  Sorts on the device: no host read."""
+    norm = log_softmax(logits)
+    p = torch.exp(norm)
+    ent = -(norm * p).sum(dim=-1, keepdim=True)
+    shifted = (-norm - ent).abs()
+    order = torch.argsort(shifted, dim=-1, stable=True)
+    cum = torch.cumsum(torch.gather(p, -1, order), dim=-1)
+    last_ind = (cum < mass).sum(dim=-1, keepdim=True).clamp(min=min_tokens_to_keep - 1)
+    rank = torch.arange(logits.shape[-1], device=logits.device)
+    return _mask_sorted(logits, order, rank > last_ind)
+
+
+def process_logits(logits: torch.Tensor, presence: torch.Tensor,
+                   gen: GenerationConfig) -> torch.Tensor:
+    """The full-vocab warper pipeline (JAX `process_logits`): repetition
+    penalty -> typical filtering (2 tokens kept under beams) -> when
+    sampling, temperature -> top-k -> top-p."""
+    logits = apply_repetition_penalty(logits, presence, gen.repetition_penalty)
+    if gen.typical_sampling:
+        logits = apply_typical(logits, gen.typical_mass, 2 if gen.num_beams > 1 else 1)
+    if gen.do_sample:
+        if gen.temperature != 1.0:
+            logits = logits / gen.temperature
+        logits = apply_top_p(apply_top_k(logits, gen.top_k), gen.top_p)
+    return logits
+
+
 def sample_token(logits: torch.Tensor, presence: torch.Tensor,
                  gen: GenerationConfig,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One sampling step: (B, V) logits -> (B,) token ids."""
+    """One sampling step: (B, V) logits -> (B,) token ids.  Top-p runs in
+    the descending top-k candidate space (no full-vocab sort); typical
+    sampling keeps the full-vocab pipeline (`process_logits`), as in JAX."""
     if gen.typical_sampling:
-        raise NotImplementedError("typical sampling is not ported")
+        warped = process_logits(logits, presence, gen)
+        if gen.do_sample:
+            return torch.multinomial(torch.softmax(warped, dim=-1), 1,
+                                     generator=generator)[:, 0]
+        return torch.argmax(warped, dim=-1)
     logits = apply_repetition_penalty(logits, presence, gen.repetition_penalty)
     if not gen.do_sample:
         return torch.argmax(logits, dim=-1)
@@ -304,10 +387,13 @@ def warped_logprobs(logits: torch.Tensor, presence: torch.Tensor,
     repetition penalty -> temperature -> top-k -> top-p inside the top-k
     candidates, scattered back with -inf (not `finfo.min`: rejection
     sampling needs true zeros outside the support).  Greedy: the
-    log-softmax of the penalized logits."""
-    if gen.typical_sampling:
-        raise NotImplementedError("typical sampling is not ported")
+    log-softmax of the penalized logits.  Typical sampling: the log-softmax
+    of `process_logits` of the penalized logits (masked entries at
+    float-min), which penalizes them a second time, as JAX's
+    `warped_logprobs` does."""
     logits = apply_repetition_penalty(logits.float(), presence, gen.repetition_penalty)
+    if gen.typical_sampling:
+        return log_softmax(process_logits(logits, presence, gen))
     if gen.do_sample:
         if gen.temperature != 1.0:
             logits = logits / gen.temperature
@@ -386,8 +472,6 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
     kk = k_spec
     if not 2 <= kk <= 8:
         raise ValueError(f"k_spec must be in 2..8, got {kk}")
-    if gen.typical_sampling:
-        raise NotImplementedError("typical sampling is not ported")
     dev = text_tokens.device
     p = n_cond_latents(cfg) + 2 + bl + 2
     t_max = p + 1 + max_new + kk          # drafts may overhang max_new

@@ -605,7 +605,7 @@ def fused_decode_step_batch_split_plain(x, pack: Pack, kv_cache, bias,
                              beam_src, readout_pack, BLOCK_T)
 
 
-def _verify_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int, heads: int,
+def _verify_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int,
                   split_t: Optional[int]):
     n_layers, _, _, _, d = kv_cache.shape
     kk = x.shape[0]
@@ -636,25 +636,26 @@ def _verify_plain(x, pack: FusedDecodePack, kv_cache, bias, pos: int, heads: int
                               v.reshape(kk, heads, hd)))
         return ctx.reshape(kk, d)
 
-    xs = _trunk_plain(x.float().reshape(kk, d), pack, kv_new, attend)
+    xs = _trunk_plain(x.float().reshape(kk, d), pack, kv_new, attend,
+                      kernel_order=split_t is not None)
     return xs, kv_new
 
 
-def fused_decode_verify_plain(x, pack: FusedDecodePack, kv_cache, bias,
-                              pos: int, heads: int):
+def fused_decode_verify_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int):
     """Plain PyTorch version; see `fused_decode_verify`.  Row j attends the
     committed prefix [0, pos) under the bias, then rows i <= j of the K
-    current tokens with their unrounded f32 k/v (JAX `_attend_verify`)."""
+    current tokens with their unrounded f32 k/v (JAX `_attend_verify`).
+    An int4 pack's products are `_dot4`'s (JAX's default scheme)."""
     return _verify_plain(x, pack, kv_cache, bias, pos, heads, None)
 
 
-def fused_decode_verify_split_plain(x, pack: FusedDecodePack, kv_cache, bias,
-                                    pos: int, heads: int):
+def fused_decode_verify_split_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int):
     """The plain verify with the CUDA verify attention's arithmetic: the
     committed prefix in the splits of `verify_splits`, each split's softmax
     partials of every row combined in split order, then the row's causal
-    tail (`_split_attention`); the same function as
-    `fused_decode_verify_plain`, summed another way."""
+    tail (`_split_attention`), and an int4 pack's fc2 summed as K7 sums it
+    (`int4_gemv_plain`); the same function as `fused_decode_verify_plain`,
+    summed another way."""
     split_t, _ = verify_splits(pos, heads, kv_cache.shape[3])
     return _verify_plain(x, pack, kv_cache, bias, pos, heads, split_t)
 
@@ -1006,12 +1007,16 @@ def fused_decode_step_batch(x: torch.Tensor, pack: Pack,
                                          kv_scales, beam_src, readout_pack)
 
 
-def fused_decode_verify(x: torch.Tensor, pack: FusedDecodePack,
+def fused_decode_verify(x: torch.Tensor, pack: Pack,
                         kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
                         heads: int):
     """The speculative verify step, K6: K = 2..8 tokens of ONE sequence in
-    one pass over the int8 trunk.
+    one pass over the trunk.
 
+    pack the int8 trunk (`pack_gpt`), or the int4 one (`pack_gpt_int4`):
+    then every GEMV of the chain is K7's int4 loader over the K rows (JAX's
+    `FusedDecodePackInt4` branch, its default dequant scheme) and each
+    launch also counts under `fused_decode_int4`, as an int4 K1 / K3 chain.
     x (K, D) embeddings of the tokens at positions pos .. pos + K - 1;
     kv_cache TIME-MAJOR (L, 2, 1, Tmax, D) bf16, Tmax % 256 == 0 (positions
     [0, pos) are the committed history); bias (Tmax, 1) f32 additive mask.
@@ -1023,9 +1028,10 @@ def fused_decode_verify(x: torch.Tensor, pack: FusedDecodePack,
     kk = x.shape[0]
     if not 2 <= kk <= 8:
         raise ValueError(f"fused_decode_verify: 2 <= K <= 8 tokens, got {kk}")
-    if not isinstance(pack, FusedDecodePack):
-        raise TypeError("fused_decode_verify: the verify pass takes the int8 "
-                        f"pack (FusedDecodePack), got {type(pack).__name__}")
+    int4 = isinstance(pack, FusedDecodePackInt4)
+    if not (int4 or isinstance(pack, FusedDecodePack)):
+        raise TypeError("fused_decode_verify: the verify pass takes a trunk pack "
+                        f"(FusedDecodePack, FusedDecodePackInt4), got {type(pack).__name__}")
     t_max = kv_cache.shape[3]
     if bias.shape != (t_max, 1):
         raise ValueError(f"fused_decode_verify: bias must be {(t_max, 1)}, "

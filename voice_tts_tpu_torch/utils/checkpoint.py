@@ -405,6 +405,36 @@ def convert_s2mel(sd: Mapping[str, Any], num_sampling_ratios: int = 2) -> State:
     return convert(sd, s2mel_renamer(num_sampling_ratios))
 
 
+# ---------------------------------------------------------------------------
+# Qwen2 / Qwen3 causal LM (the emotion classifier, `models/qwen.py`)
+# ---------------------------------------------------------------------------
+
+def qwen_renamer() -> Renamer:
+    r = Renamer()
+    r.rule(r"^model\.embed_tokens\.weight$", r"embed_tokens.weight")
+    r.rule(r"^model\.layers\.(\d+)\.input_layernorm\.weight$",
+           r"layer_\1.input_layernorm.weight")
+    r.rule(r"^model\.layers\.(\d+)\.post_attention_layernorm\.weight$",
+           r"layer_\1.post_attention_layernorm.weight")
+    r.rule(r"^model\.layers\.(\d+)\.self_attn\.([qkvo]_proj)\.(weight|bias)$",
+           r"layer_\1.\2.\3")
+    r.rule(r"^model\.layers\.(\d+)\.self_attn\.([qk]_norm)\.weight$",
+           r"layer_\1.\2.weight")
+    r.rule(r"^model\.layers\.(\d+)\.mlp\.(gate_proj|up_proj|down_proj)\.weight$",
+           r"layer_\1.\2.weight")
+    r.rule(r"^model\.norm\.weight$", r"norm.weight")
+    r.rule(r"^lm_head\.weight$", r"lm_head.weight")
+    r.rule(r"^model\.rotary_emb\..*", None)
+    return r
+
+
+def convert_qwen(sd: Mapping[str, Any]) -> State:
+    """A Hugging Face Qwen2 / Qwen3 state -> `QwenLM`'s (the JAX
+    `convert_qwen`; a tied model's copy of the head stays, and
+    `models.qwen.load_qwen_state` drops it)."""
+    return convert(sd, qwen_renamer())
+
+
 def family_renamer(family: str, cfg) -> Renamer:
     """The renamer of one model family at `cfg` (a `TTSConfig`)."""
     if family == "gpt":
