@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 without the slices and without the result line; `--only vocoder` runs the
 vocoder A/B alone on a flagship BigVGAN with random weights, `--only
 batched`, `--only serving`, `--only loading` and `--only emotion` those
-phases on engines of their own.)
+phases on engines of their own; `--only tp_phase` the tp phase and train
+step below on one card, `--only tp`, on two cards or more, tensor-parallel
+engines and a train step over the cards.)
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
@@ -183,7 +185,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
     times a beam step, K3 and K1 never;
 14. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
-    fused variants, each timed, with its difference from the module path.
+    fused variants, each timed, with its difference from the module path;
+15. tp phase (`run_tp_phase`): the production configuration's GPT (random
+    weights, seed 0), f32 and its bf16 runtime copy, split by `shard_gpt`
+    over `[cuda:0] * tp` at tp 2 and 4: the plan's split leaves, every
+    shard on its device, the teacher-forced latent of one request (200
+    positions) against the unsharded copy of its dtype, a greedy bf16
+    decode of 64 codes (the prefix that agrees with the unsharded decode,
+    the teacher-forced logits, ms a step); no hand kernel launches;
+16. train step (`run_train_phase`): one `train_step` of the f32 flagship
+    GPT at batch 2 x (64 text, 256 codes) on a dp 1 x tp 4 mesh of
+    `[cuda:0] * 4` against the unsharded step: the loss, every leaf's
+    gradient, the step's wall and peak memory; no hand kernel launches.
+    `--only tp` (`run_tp_cards`, two cards or more): the production engine
+    with `tensor_parallel` 2 and 4 (where four cards are there), each
+    shard on its own card, two POST /tts at a 128-code cap (K2 109 a
+    vocode, no decode kernel) and an `infer_batch` of two, then one train
+    step over every card (dp 2 x tp 2 on four).
 
 The kernel phase also holds K9 and K11 (bf16 on the tensor cores, f32 on
 the CUDA cores; every row at T 65 and 130 with lens 0, 1, 63, 64, 65 and T
@@ -218,11 +236,12 @@ its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K6's int4
 branch from its op entry (`verify_int4`), K8 and K9 from the DiT slice,
 K11 from its engine, K5, K4 and K10 from the K5 slice, K12 and K13 from
-the micro-benchmark path; `launches_by_path` has all thirteen paths, "loading" the onboarding (gates and bench), the server's
-warm-up and the served request (not the source engine's comparison
-request), "batched" the batched phase's two warm `infer_batch` runs,
-"grouped" the serving burst, "continuous" the greedy batcher's and the
-Poisson run's chunks),
+the micro-benchmark path; `launches_by_path` has all fifteen paths,
+"loading" the onboarding (gates and bench), the server's warm-up and the
+served request (not the source engine's comparison request), "batched"
+the batched phase's two warm `infer_batch` runs, "grouped" the serving
+burst, "continuous" the greedy batcher's and the Poisson run's chunks,
+"tp" the tp phase and "train" the train step (0 for every kernel)),
 its largest error against the plain version, both times, its bound
 and `library_ms` (null where no one PyTorch call computes the function: K1,
 K2, K3, K6, K8, K10, K12, K13; the K12 and K13 entries time one mode a
@@ -237,6 +256,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -4232,6 +4252,298 @@ def run_workers(torch, counters, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the sharded GPT and the training step
+# ---------------------------------------------------------------------------
+
+# the tp phase: one request's text and codes (200 positions), the greedy
+# decode's codes; the train step's batch (rows, text, codes, conditioning
+# frames)
+TP_TEXT, TP_CODES, TP_DECODE = 96, 104, 64
+TRAIN_BATCH, TRAIN_TEXT, TRAIN_CODES, TRAIN_COND = 2, 64, 256, 150
+# f32 (TF32 off): the sharded latent and the loss against the unsharded,
+# relative to the largest magnitude, and each leaf's gradient relative to
+# its largest (summation order only)
+TP_F32_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# the code cap of the --only tp requests
+TP_SERVE_CAP = 128
+
+
+def flagship_gpt(torch, dev, seed: int = 0):
+    """The production configuration's GPT, the f32 master, random weights
+    from `seed` at the JAX initialisers' scales (`init_weights`)."""
+    from voice_tts_tpu_torch.engine.engine import serving_config
+    from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
+    from voice_tts_tpu_torch.models.layers import init_weights
+
+    with torch.device(dev):
+        gpt = UnifiedVoice(serving_config().gpt)
+    init_weights(gpt, torch.Generator(device=dev).manual_seed(seed))
+    return gpt.eval().requires_grad_(False)
+
+
+def rel_err(torch, out, ref) -> float:
+    """max |out - ref| over max |ref|."""
+    return max_err(torch, out, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def check_shards(tag, model, devices) -> int:
+    """Every split leaf of a sharded GPT holds shard i on devices[i], and
+    every other leaf lies on devices[0]; returns the split leaves' count."""
+    from voice_tts_tpu_torch.parallel.tp import shard_devices
+
+    want = [str(d) for d in devices]
+    held = shard_devices(model)
+    wrong = {k: v for k, v in held.items() if v != want}
+    whole = sorted(n for n, p in model.named_parameters()
+                   if "_shards." not in n and str(p.device) != want[0])
+    if not held or wrong or whole:
+        fail(f"[{tag}] shards off their devices: {dict(list(wrong.items())[:4])}, whole "
+             f"leaves off {want[0]}: {whole[:4]}")
+    return len(held)
+
+
+def run_tp_phase(torch, dev, counters):
+    """The sharded GPT at flagship widths on one card (`--only tp_phase`
+    runs it alone, with the train step): the production configuration's
+    GPT (random weights, seed 0) and its bf16 runtime copy, each split by
+    `shard_gpt` over `make_mesh(("tp",), devices=[cuda:0] * tp)` at tp 2
+    and 4.  Prints the plan's split leaves; the teacher-forced latent of
+    one request (96 text + 104 code positions) against the unsharded copy
+    of the same dtype (f32 within TP_F32_TOL of max |ref|; bf16 within
+    twice the unsharded bf16 copy's own distance from the f32 master); a
+    greedy bf16 decode of TP_DECODE codes through the unfused step: the
+    prefix over which its codes agree with the unsharded decode's, and the
+    teacher-forced logits along the unsharded codes (bound as the latent);
+    ms a step.  No hand kernel runs: the counters must stay 0."""
+    import copy
+    import dataclasses
+
+    from voice_tts_tpu_torch.engine.engine import serving_config
+    from voice_tts_tpu_torch.models.gpt.decode import decode
+    from voice_tts_tpu_torch.parallel import make_mesh, shard_gpt, sharding_plan
+    from voice_tts_tpu_torch.parallel.mesh import sharded_leaves
+
+    master = flagship_gpt(torch, dev)
+    rt = copy.deepcopy(master).to(torch.bfloat16)      # the runtime copy (use_fp16)
+    c = master.cfg
+    g = torch.Generator(device=dev).manual_seed(1)
+    cond = torch.randn(1, c.condition_num_latent, c.model_dim, generator=g, device=dev) * 0.1
+    emo = torch.randn(1, c.model_dim, generator=g, device=dev) * 0.1
+    text = torch.randint(3, c.number_text_tokens - 10, (1, TP_TEXT), generator=g, device=dev)
+    lens = torch.tensor([TP_TEXT], device=dev)
+    codes = torch.randint(0, c.start_mel_token, (1, TP_CODES), generator=g, device=dev)
+    clen = torch.tensor([TP_CODES], device=dev)
+    gen = dataclasses.replace(serving_config().generation, do_sample=False, num_beams=1)
+
+    def latent(m, codes, clen):
+        with torch.no_grad():
+            return m(cond, emo, text, lens, codes, clen)
+
+    def logits(m, res):
+        with torch.no_grad():
+            return m.mel_head(latent(m, res.codes, res.lengths).float())
+
+    def timed_decode(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = decode(m, gen, cond, emo, text, lens, TP_DECODE)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0) / max(res.steps, 1)
+
+    counters.reset()
+    ref32, ref16 = latent(master, codes, clen), latent(rt, codes, clen)
+    base = rel_err(torch, ref16, ref32)
+    ref, ref_ms = timed_decode(rt)
+    ref_logits = logits(rt, ref)
+    base_logits = rel_err(torch, ref_logits, logits(master, ref))
+    print(f"[tp] flagship GPT ({c.layers} x {c.model_dim}, {c.heads} heads, mel vocab "
+          f"{c.number_mel_codes}, text vocab {c.number_text_tokens * c.types + 1}): the bf16 "
+          f"copy against the f32 master: latent {base:.3e}, logits {base_logits:.3e} of "
+          f"max |ref|; unsharded greedy decode {ref.steps} steps, {ref_ms:.3f} ms a step")
+    total = len(master.state_dict())
+    for tp in (2, 4):
+        mesh = make_mesh(("tp",), devices=[dev] * tp)
+        plan = sharded_leaves(sharding_plan(master.state_dict(), mesh))
+        folded = sorted({re.sub(r"(h|layer|ff)_\d+", r"\1_*", k) for k in plan})
+        print(f"[tp] tp {tp}: {len(plan)} of {total} leaves split: {folded}")
+        sharded = shard_gpt(master, mesh)
+        check_shards(f"tp {tp} f32", sharded, [dev] * tp)
+        e32 = rel_err(torch, latent(sharded, codes, clen), ref32)
+        del sharded
+        sharded = shard_gpt(rt, mesh)
+        n_split = check_shards(f"tp {tp} bf16", sharded, [dev] * tp)
+        e16 = rel_err(torch, latent(sharded, codes, clen), ref16)
+        out, ms = timed_decode(sharded)
+        diff = (out.codes != ref.codes).nonzero()
+        prefix = int(diff[0, 1]) if len(diff) else TP_DECODE
+        e_logits = rel_err(torch, logits(sharded, ref), ref_logits)
+        print(f"[tp] tp {tp} ({n_split} split leaves held, every shard on {dev}): latent "
+              f"f32 {e32:.3e}, bf16 {e16:.3e} of max |ref|; greedy bf16 decode of "
+              f"{TP_DECODE} codes agrees with the unsharded over its first {prefix}; "
+              f"teacher-forced logits {e_logits:.3e}; {ms:.3f} ms a step")
+        if e32 > TP_F32_TOL or e16 > 2 * base or e_logits > 2 * base_logits:
+            fail(f"[tp] tp {tp}: the sharded GPT strays from the unsharded")
+        del sharded
+    launches = counters.snapshot()
+    if any(launches.values()):
+        fail(f"[tp] a hand kernel ran in the tp phase: {launches}")
+    del master, rt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_batch(torch, c, dev):
+    """TRAIN_BATCH rows of conditioning features, text and codes (one row
+    padded short) for the flagship GPT, from seed 2."""
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def ints(hi, n):
+        return torch.randint(3, hi, (TRAIN_BATCH, n), generator=g, device=dev)
+    return {"spk_cond": torch.randn(TRAIN_BATCH, TRAIN_COND, c.condition_module.input_size,
+                                    generator=g, device=dev),
+            "emo_cond": torch.randn(TRAIN_BATCH, TRAIN_COND,
+                                    c.emo_condition_module.input_size, generator=g,
+                                    device=dev),
+            "text": ints(c.number_text_tokens - 10, TRAIN_TEXT),
+            "text_len": torch.tensor([TRAIN_TEXT, TRAIN_TEXT - 11], device=dev),
+            "codes": ints(c.start_mel_token, TRAIN_CODES),
+            "code_len": torch.tensor([TRAIN_CODES, TRAIN_CODES - 37], device=dev)}
+
+
+def run_train_phase(torch, counters, devices, shape, tag="train"):
+    """One `train_step` of the f32 flagship GPT (AdamW at optax.adamw(1e-4)'s
+    settings) on a dp x tp mesh of `devices` (`shape`), against the
+    unsharded step on devices[0]: the loss within TP_F32_TOL, every leaf's
+    gradient within TRAIN_GRAD_TOL of its largest, the dp replicas equal
+    after the step (a leaf's scale: its largest gradient, at least 1e-3 of
+    the largest of all); the step's wall (cold, then a second step warm) and
+    each device's peak memory.  No hand kernel runs."""
+    from voice_tts_tpu_torch.parallel import gathered_state, make_mesh, make_train_step
+
+    lead = devices[0]
+    cards = sorted({str(d) for d in devices})
+    master = flagship_gpt(torch, lead)
+    batch = train_batch(torch, master.cfg, lead)
+
+    def adamw(ps):
+        return torch.optim.AdamW(ps, lr=1e-4, weight_decay=1e-4)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def step_on(mesh):
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        init_state, step = make_train_step(master, adamw, mesh)
+        state = init_state()
+        walls = []
+        for i in range(2):
+            sync()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                first = float(loss), gathered_state(state["replicas"][0], grad=True)
+        peaks = {d: round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 3) for d in cards}
+        return first, walls, peaks, state
+
+    counters.reset()
+    (ref_loss, ref_grads), ref_walls, ref_peaks, state = step_on(
+        make_mesh(("dp", "tp"), shape=(1, 1), devices=[lead]))
+    del state
+    mesh = make_mesh(("dp", "tp"), shape=shape, devices=devices)
+    (loss, grads), walls, peaks, state = step_on(mesh)
+    # a leaf whose gradient is zero in exact arithmetic (the attention's key
+    # biases: a softmax ignores a constant) holds only rounding, so each
+    # leaf's scale is its largest gradient or 1e-3 of the largest of all
+    top = max(float(v.abs().max()) for v in ref_grads.values())
+    worst = max((max_err(torch, grads[k].to(lead), v)
+                 / max(float(v.abs().max()), 1e-3 * top), k) for k, v in ref_grads.items())
+    reps = state["replicas"]
+    first = gathered_state(reps[0])
+    equal = all(all(torch.equal(v.to(lead), first[k]) for k, v in gathered_state(r).items())
+                for r in reps[1:])
+    launches = counters.snapshot()
+    print(f"[{tag}] one train_step of the f32 flagship GPT, batch {TRAIN_BATCH} x (text "
+          f"{TRAIN_TEXT}, codes {TRAIN_CODES}, conditioning {TRAIN_COND} frames), dp x tp "
+          f"{mesh.shape} over {[str(d) for d in devices]}: loss {loss:.6f} against the "
+          f"unsharded {ref_loss:.6f}; worst gradient leaf {worst[1]} at {worst[0]:.3e} of "
+          f"its max; dp replicas equal after the step: {equal}; step wall cold / warm "
+          f"{walls[0]:.4f} / {walls[1]:.4f} s (unsharded {ref_walls[0]:.4f} / "
+          f"{ref_walls[1]:.4f} s); peak memory GiB {peaks} (unsharded {ref_peaks}); "
+          f"hand-kernel launches {({k: v for k, v in launches.items() if v})}")
+    if (abs(loss - ref_loss) > TP_F32_TOL * max(1.0, abs(ref_loss))
+            or worst[0] > TRAIN_GRAD_TOL or not equal):
+        fail(f"[{tag}] the sharded step strays from the unsharded")
+    if any(launches.values()):
+        fail(f"[{tag}] a hand kernel ran in the train step: {launches}")
+    del state, reps, first, grads, ref_grads, master
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_tp_cards(torch, counters, cards):
+    """`--only tp`, on two cards or more: the production engine (random
+    weights, seed 0, codes cut to TP_SERVE_CAP) with `tensor_parallel` 2,
+    and 4 where four cards are there: each split leaf's shard i on cuda:i,
+    every other leaf on cuda:0, no decode pack; two POST /tts through the
+    queued service (beam-3 on the eager arm over the sharded GPT: K2 109
+    times a vocode, no decode kernel) and one `infer_batch` of two
+    requests; then one train step over every card (`run_train_phase`, dp 2
+    where four cards are there).  `cards`: the machine's cards, in order."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+    from voice_tts_tpu_torch.parallel.tp import TPStack
+
+    n = len(cards)
+    if n < 2:
+        fail(f"[tp] --only tp needs two cards or more; found {n}")
+    by_path = {}
+    for tp in (2, 4):
+        if tp > n:
+            print(f"[tp] tensor_parallel={tp}: the machine has {n} cards")
+            continue
+        cfg = serving_config()
+        cfg.engine.tensor_parallel = tp
+        cfg.generation.max_mel_tokens = TP_SERVE_CAP
+        t0 = time.perf_counter()
+        engine = TTSEngine.random(cfg, device=cards[0], seed=0)
+        devices = cards[:tp]
+        n_split = check_shards(f"tp {tp} engine", engine.gpt_rt, devices)
+        if (engine.device != devices[0] or not isinstance(engine.gpt_rt.gpt, TPStack)
+                or engine.fused_pack is not None):
+            fail(f"[tp] tensor_parallel={tp}: engine on {engine.device}, no TP trunk, or a "
+                 "decode pack")
+        print(f"[tp] tensor_parallel={tp} engine built in {time.perf_counter() - t0:.2f} s: "
+              f"{n_split} split leaves, shard i on {[str(d) for d in devices]}[i], the rest "
+              f"on {devices[0]}; memory GiB "
+              + json.dumps({str(d): round(torch.cuda.memory_allocated(d) / 2 ** 30, 3)
+                            for d in devices}))
+        launches, steps, n_act, prompt, text, metrics, _ = serve_requests(
+            torch, engine, "serving", counters, prompts_s=(5.0, 5.0))
+        decode_kernels = sum(launches[k] for k in ("fused_decode_step",
+                                                   "fused_decode_step_batch", "int8_gemv"))
+        print(f"[tp] tp {tp}: {steps} beam steps over {len(metrics)} requests, "
+              f"gpt_gen_time a step {[round(1e3 * m['gpt_gen_time'] / m['decode_steps'], 3) for m in metrics]} ms")
+        if launches["aa_snake_activation"] != n_act * len(metrics) or decode_kernels:
+            fail(f"[tp] tp {tp}: K2 not {n_act} a vocode, or a decode kernel ran")
+        out = engine.infer_batch([{"spk_audio_prompt": prompt, "text": text},
+                                  {"spk_audio_prompt": speaker_prompt(260.0),
+                                   "text": SERVE_TEXTS[1]}])
+        if len(out) != 2 or any(r.wav.size == 0 for r in out):
+            fail(f"[tp] tp {tp}: infer_batch returned no audio")
+        print(f"[tp] tp {tp}: infer_batch of 2 requests: {[r.wav.size for r in out]} samples, "
+              f"gpt_gen_time {engine.last_metrics.get('gpt_gen_time', 0.0):.4f} s")
+        by_path[f"tp{tp}"] = launches
+        del engine, out
+        torch.cuda.empty_cache()
+    by_path["train"] = run_train_phase(torch, counters, cards,
+                                       (2, n // 2) if n >= 4 else (1, n), "train cards")
+    return by_path
+
+
 def run_bench_slice(torch, dev, counters):
     """The flagship engine in the bench configuration (`--profile bench`):
     sampling, one beam through K1."""
@@ -4582,7 +4894,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+",
                     choices=list(KERNEL_CHECKS) + ["vocoder", "batched", "serving",
-                                                   "workers", "loading", "emotion"],
+                                                   "workers", "loading", "emotion",
+                                                   "tp", "tp_phase"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
                          "the vocoder A/B on a flagship BigVGAN with random weights, "
@@ -4591,7 +4904,10 @@ def main():
                          "of its own, `workers` the server's replicas over every card "
                          "(two or more), `loading` the loading phase on a production "
                          "engine of its own, `emotion` the text-emotion phase (the Qwen "
-                         "LM at Qwen3-0.6B widths) on a production engine of its own")
+                         "LM at Qwen3-0.6B widths) on a production engine of its own, "
+                         "`tp_phase` the main run's tp phase and train step on one card, "
+                         "`tp` tensor-parallel engines and a train step over the cards "
+                         "(two or more)")
     args = ap.parse_args()
 
     torch, card = device_check()
@@ -4626,6 +4942,14 @@ def main():
                 from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
                 run_loading(torch, dev, counters, TTSEngine.random(
                     serving_config(), device=dev, seed=0), card)
+            elif name == "tp_phase":
+                print("launches " + json.dumps({
+                    "tp": run_tp_phase(torch, dev, counters),
+                    "train": run_train_phase(torch, counters, [dev] * 4, (1, 4))}))
+            elif name == "tp":
+                print("launches " + json.dumps(run_tp_cards(
+                    torch, counters, [torch.device("cuda", i)
+                                      for i in range(torch.cuda.device_count())])))
             elif name == "emotion":
                 from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
                 run_emotion(torch, dev, TTSEngine.random(serving_config(), device=dev,
@@ -4695,6 +5019,12 @@ def main():
     torch.cuda.empty_cache()
     vocoder_ab(torch, dev, vocoder)
     lap("vocoder A/B")
+    del vocoder
+    torch.cuda.empty_cache()
+    by_path["tp"] = run_tp_phase(torch, dev, counters)
+    lap("tp phase")
+    by_path["train"] = run_train_phase(torch, counters, [dev] * 4, (1, 4))
+    lap("train step")
     # each kernel's launches come from the path that runs it: K3 and K2 from
     # the production slice, K1 from the bench slice, K6 and K7 from the spec
     # slice, K6's int4 branch from its op entry, K8 and K9 from the DiT

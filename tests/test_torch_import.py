@@ -45,6 +45,10 @@ import voice_tts_tpu_torch.utils.profiling
 import voice_tts_tpu_torch.models.gpt.cond_encoder
 import voice_tts_tpu_torch.models.qwen
 import voice_tts_tpu_torch.engine.qwen_emotion
+import voice_tts_tpu_torch.parallel
+import voice_tts_tpu_torch.parallel.mesh
+import voice_tts_tpu_torch.parallel.tp
+import voice_tts_tpu_torch.parallel.training
 import published_layout
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pydantic",

@@ -335,8 +335,17 @@ def test_engine_serves_with_flag(base_engine, variant, monkeypatch):
 
 
 def test_engine_refuses_tensor_parallel(base_engine):
-    with pytest.raises(ValueError, match="tensor_parallel"):
-        engine_with(base_engine, tensor_parallel=2)
+    """`tensor_parallel` is no longer refused: the engine builds on the CPU
+    with the trunk split over two shards, the fused and int8 decode off (no
+    decode pack), and serves a request (the refusal left, more shards than
+    cards, is held in tests/test_torch_parallel.py)."""
+    from voice_tts_tpu_torch.parallel.tp import TPStack
+
+    eng = engine_with(base_engine, tensor_parallel=2)
+    assert eng.tp_mesh.shape == {"tp": 2} and isinstance(eng.gpt_rt.gpt, TPStack)
+    assert eng.fused_pack is None and eng.readout_pack is None
+    assert eng.gpt_rt.gpt.h_0.qkv_w_shards[0].shape[1] == 3 * eng.cfg.gpt.model_dim // 2
+    assert eng.infer(tone(), "hello world.", do_sample=False).wav.size > 0
 
 
 # ---------------------------------------------------------------------------

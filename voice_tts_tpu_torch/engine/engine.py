@@ -78,8 +78,15 @@ setting of the Mosaic kernels, which the CUDA chain does not have), and
 settings of the JAX engine).  Text-driven emotion
 (`infer(use_emo_text=True)`) runs the Qwen emotion model the caller sets
 as `engine.qwen_emo` (`engine/qwen_emotion.py`), as in JAX; without one
-it raises RuntimeError.  Left out: `tensor_parallel > 1` (constructing
-with it raises).
+it raises RuntimeError.
+
+`tensor_parallel = N > 1` splits the GPT runtime copy (bf16 under
+`use_fp16`, else the f32 master) over N devices from the engine's on
+(`parallel.shard_gpt`, megatron-style, the collectives on the engine's
+device); the int8 and fused decode are off, so every decode takes the
+unfused step (with K5 on each shard's heads under
+`pallas_decode_attention`), and the conditioning reads the unsharded f32
+master, as in the JAX engine.  The s2mel and the vocoder stay whole.
 """
 
 from __future__ import annotations
@@ -128,6 +135,7 @@ from voice_tts_tpu_torch.ops.fused_decode import (check_int4_expand, pack_gpt,
 from voice_tts_tpu_torch.ops.fused_vocoder import (bigvgan_fused_apply,
                                                    fused_stage_plan,
                                                    pack_fused_stages)
+from voice_tts_tpu_torch.parallel import make_mesh, shard_gpt
 from voice_tts_tpu_torch.text import SentencePieceBPE, TextNormalizer, sp_model
 from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
 from voice_tts_tpu_torch.utils.artifacts import load_artifacts, split_matrix_groups
@@ -214,6 +222,19 @@ def use_device(device) -> None:
     dev = None if device is None else torch.device(device)
     if dev is not None and dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
+
+
+def tp_devices(device: torch.device, tp: int) -> List[torch.device]:
+    """The `tp` devices of a tensor-parallel engine on `device`: cuda:i ..
+    cuda:i + tp - 1 from the engine's card on (fewer cards raise
+    ValueError), or the CPU `tp` times (the CPU tests' stand-in mesh)."""
+    if device.type != "cuda":
+        return [device] * tp
+    first = device.index if device.index is not None else torch.cuda.current_device()
+    avail = torch.cuda.device_count() - first
+    if avail < tp:
+        raise ValueError(f"tensor_parallel={tp} but only {avail} devices")
+    return [torch.device("cuda", first + i) for i in range(tp)]
 
 
 def apply_bench_profile(cfg: TTSConfig) -> TTSConfig:
@@ -323,9 +344,16 @@ class TTSEngine:
     def __init__(self, cfg: TTSConfig, models: Dict[str, torch.nn.Module],
                  tokenizer, extras: Optional[Dict] = None, device="cuda"):
         e = cfg.engine
+        dev = resolve_device(device)
+        # megatron-style TP of the GPT runtime copy over `tensor_parallel`
+        # devices from `device` on (the JAX engine's "tp" mesh), the engine
+        # on the first; the fused and int8 decode are one-card paths, off
+        # under TP as in JAX
+        self.tp_mesh = None
         if e.tensor_parallel > 1:
-            raise ValueError("engine flags not ported to PyTorch yet: ['tensor_parallel']")
-        self.device = dev = resolve_device(device)
+            self.tp_mesh = make_mesh(("tp",), devices=tp_devices(dev, e.tensor_parallel))
+            dev = self.tp_mesh.devices[0]
+        self.device = dev
         # the JAX f32 paths are full f32; cuDNN convolutions default to TF32
         # (about three decimal digits), so turn TF32 off for matmuls and convs
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -347,7 +375,7 @@ class TTSEngine:
         # the decode packs, int4 ones from the f32 master, are built here,
         # before `release_master_trees` drops it
         self.fused_pack = self.readout_pack = self.spec_draft_pack = None
-        if e.use_int8_decode:
+        if e.use_int8_decode and self.tp_mesh is None:
             master = self.gpt.state_dict()
             state = quantize_gpt_state(master)
             self.gpt_rt = UnifiedVoice(cfg.gpt, int8=True).to(dev)
@@ -382,17 +410,20 @@ class TTSEngine:
             self.gpt_rt.to(torch.bfloat16)
         else:
             self.gpt_rt = self.gpt
+        if self.tp_mesh is not None:
+            self.gpt_rt = shard_gpt(self.gpt_rt, self.tp_mesh)
         self.gpt_rt.eval().requires_grad_(False)
 
         # cold-prompt conditioning: bf16 copies of w2v-bert, RepCodec and
         # CAMPPlus, and the bf16 runtime GPT for the conformer-perceiver
-        # (it never touches the int8 trunk); RepCodec's f32 master stays for
-        # the s2mel codebook lookup
+        # (it never touches the int8 trunk; under TP the unsharded f32
+        # master, as in JAX); RepCodec's f32 master stays for the s2mel
+        # codebook lookup
         if e.use_bf16_conditioning:
             self.w2v_rt, self.repcodec_rt, self.campplus_rt = (
                 copy.deepcopy(m).to(torch.bfloat16)
                 for m in (self.w2v, self.repcodec, self.campplus))
-            self.cond_gpt = self.gpt_rt
+            self.cond_gpt = self.gpt_rt if self.tp_mesh is None else self.gpt
         else:
             self.w2v_rt, self.repcodec_rt, self.campplus_rt = (
                 self.w2v, self.repcodec, self.campplus)
@@ -426,7 +457,9 @@ class TTSEngine:
         if e.release_master_trees:
             # inference never reads the f32 GPT / w2v-bert masters once the
             # runtime copies exist; dropping them frees their device memory
-            self.models["gpt"] = self.gpt = self.gpt_rt
+            # (under TP the conditioning reads the GPT master: it stays)
+            if self.tp_mesh is None:
+                self.models["gpt"] = self.gpt = self.gpt_rt
             if e.use_bf16_conditioning:
                 self.models["w2v"] = self.w2v = self.w2v_rt
 
@@ -479,7 +512,10 @@ class TTSEngine:
         w2v-bert statistics; the generator continues on the new device from
         a seed drawn from the old one, the device loops become the new
         device's (none on the CPU), and the speaker and emotion caches are
-        cleared.  A CUDA engine refuses to move to the CPU."""
+        cleared.  A CUDA engine refuses to move to the CPU.  A no-op under
+        tensor parallelism (the GPT lies on its mesh), as in JAX."""
+        if self.tp_mesh is not None:
+            return self
         dev = resolve_device(device)
         if self.device.type == "cuda" and dev.type != "cuda":
             raise ValueError(f"to_device: a CUDA engine does not move to {dev}")

@@ -97,6 +97,58 @@ class Conv1DGPT(nn.Module):
         return (y * self.scale.float() + b).to(x.dtype)
 
 
+def attend(qkv: torch.Tensor, kv, cache_index: int, attn_mask: torch.Tensor,
+           heads: int, pallas_attention: bool = False) -> torch.Tensor:
+    """Multi-head attention of a block from its fused projection `qkv` (B,
+    S, 3 * heads * hd) = [q | k | v]: writes K/V into `kv` (as
+    `GPT2Block.forward` takes it) and returns the context (B, S, heads *
+    hd).  The tensor-parallel block calls it on each shard's heads."""
+    b, s, _ = qkv.shape
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    d = q.shape[-1]
+    h, hd = heads, d // heads
+    q = q.reshape(b, s, h, hd).transpose(1, 2)               # (B,H,S,hd)
+    k = k.reshape(b, s, h, hd).permute(0, 2, 3, 1)           # (B,H,hd,S)
+    v = v.reshape(b, s, h, hd).permute(0, 2, 3, 1)
+    int8_kv = isinstance(kv, tuple)
+    if int8_kv:
+        kv_q, kv_s = kv
+        for i, t in enumerate((k, v)):
+            q_i, s_i = _quantize_kv(t)
+            kv_q[i, :, :, :, cache_index:cache_index + s] = q_i
+            kv_s[i, :, :, cache_index:cache_index + s] = s_i
+        k_all, v_all = kv_q[0], kv_q[1]
+    elif kv is not None:
+        kv[0, :, :, :, cache_index:cache_index + s] = k.to(kv.dtype)
+        kv[1, :, :, :, cache_index:cache_index + s] = v.to(kv.dtype)
+        k_all, v_all = kv[0], kv[1]
+    else:
+        k_all, v_all = k, v
+    if (pallas_attention and kv is not None and not int8_kv and s == 1
+            and k_all.shape[3] % BLOCK_T == 0):
+        # K5: reads only the live prefix [0, cache_index]
+        bias = torch.where(attn_mask[:, 0, :], 0.0, -1e30).float()
+        return decode_attention(q[:, :, 0, :], k_all, v_all, bias,
+                                cache_index + 1).reshape(b, s, d)
+    # f32 scores / softmax regardless of the compute dtype; an int8 cache is
+    # cast to the compute dtype before each product (exact: |q| <= 127), its
+    # k dequant rides on the scores and its v dequant on the probabilities
+    k_dot = k_all.to(q.dtype) if int8_kv else k_all
+    scores = q.float() @ k_dot.float()
+    if int8_kv:
+        scores = scores * kv_s[0][:, :, None, :]
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(attn_mask[:, None, :, :], scores,
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    if int8_kv:
+        probs = probs * kv_s[1][:, :, None, :]
+    v_dot = v_all.to(q.dtype) if int8_kv else v_all
+    probs = probs.to(v_dot.dtype)
+    ctx = (probs.float() @ v_dot.float().transpose(-1, -2)).to(v_dot.dtype)
+    return ctx.transpose(1, 2).reshape(b, s, d)
+
+
 class GPT2Block(nn.Module):
     def __init__(self, dim: int, heads: int, int8: bool = False,
                  pallas_attention: bool = False):
@@ -117,53 +169,10 @@ class GPT2Block(nn.Module):
         With a cache, K/V of the current block are written at
         [cache_index, cache_index + S) (in place, quantized for an int8
         pair) and attention spans the whole cache.  Returns (hidden, kv)."""
-        b, s, d = x.shape
-        h, hd = self.heads, d // self.heads
         res = x
         y = self.ln_1(x)
-        q, k, v = torch.chunk(self.attn_c_attn(y), 3, dim=-1)
-        q = q.reshape(b, s, h, hd).transpose(1, 2)               # (B,H,S,hd)
-        k = k.reshape(b, s, h, hd).permute(0, 2, 3, 1)           # (B,H,hd,S)
-        v = v.reshape(b, s, h, hd).permute(0, 2, 3, 1)
-        int8_kv = isinstance(kv, tuple)
-        if int8_kv:
-            kv_q, kv_s = kv
-            for i, t in enumerate((k, v)):
-                q_i, s_i = _quantize_kv(t)
-                kv_q[i, :, :, :, cache_index:cache_index + s] = q_i
-                kv_s[i, :, :, cache_index:cache_index + s] = s_i
-            k_all, v_all = kv_q[0], kv_q[1]
-        elif kv is not None:
-            kv[0, :, :, :, cache_index:cache_index + s] = k.to(kv.dtype)
-            kv[1, :, :, :, cache_index:cache_index + s] = v.to(kv.dtype)
-            k_all, v_all = kv[0], kv[1]
-        else:
-            k_all, v_all = k, v
-        if (self.pallas_attention and kv is not None and not int8_kv and s == 1
-                and k_all.shape[3] % BLOCK_T == 0):
-            # K5: reads only the live prefix [0, cache_index]
-            bias = torch.where(attn_mask[:, 0, :], 0.0, -1e30).float()
-            ctx = decode_attention(q[:, :, 0, :], k_all, v_all, bias,
-                                   cache_index + 1).reshape(b, s, d)
-        else:
-            # f32 scores / softmax regardless of the compute dtype; an int8
-            # cache is cast to the compute dtype before each product (exact:
-            # |q| <= 127), its k dequant rides on the scores and its v
-            # dequant on the probabilities
-            k_dot = k_all.to(q.dtype) if int8_kv else k_all
-            scores = q.float() @ k_dot.float()
-            if int8_kv:
-                scores = scores * kv_s[0][:, :, None, :]
-            scores = scores / math.sqrt(hd)
-            scores = torch.where(attn_mask[:, None, :, :], scores,
-                                 torch.finfo(torch.float32).min)
-            probs = torch.softmax(scores, dim=-1)
-            if int8_kv:
-                probs = probs * kv_s[1][:, :, None, :]
-            v_dot = v_all.to(q.dtype) if int8_kv else v_all
-            probs = probs.to(v_dot.dtype)
-            ctx = (probs.float() @ v_dot.float().transpose(-1, -2)).to(v_dot.dtype)
-            ctx = ctx.transpose(1, 2).reshape(b, s, d)
+        ctx = attend(self.attn_c_attn(y), kv, cache_index, attn_mask, self.heads,
+                     self.pallas_attention)
         x = res + self.attn_c_proj(ctx)
         res = x
         y = self.ln_2(x)
@@ -171,6 +180,27 @@ class GPT2Block(nn.Module):
         y = gelu_new(y)
         y = self.mlp_c_proj(y)
         return res + y, kv
+
+
+def attention_mask(embeds: torch.Tensor, kv_cache, cache_index: int,
+                   valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, S, L) attendable keys of a stack's forward: causal over the S
+    new rows at [cache_index, cache_index + S) of a cache of length L (or
+    over the rows alone without a cache), and `valid_mask` (B, L)."""
+    b, s, _ = embeds.shape
+    dev = embeds.device
+    if kv_cache is not None:
+        cache = kv_cache.kv if isinstance(kv_cache, QuantKVCache) else kv_cache
+        t_max = cache.shape[5]
+        pos = torch.arange(t_max, device=dev)[None, None, :]
+        q_pos = cache_index + torch.arange(s, device=dev)[None, :, None]
+        mask = (pos <= q_pos).expand(b, s, t_max)
+    else:
+        t_max = s
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None].expand(b, s, s)
+    if valid_mask is not None:
+        mask = mask & valid_mask[:, None, :t_max]
+    return mask
 
 
 class GPT2Stack(nn.Module):
@@ -190,19 +220,8 @@ class GPT2Stack(nn.Module):
         """embeds (B, S, D) -> (hidden (B, S, D), cache).  `kv_cache` (a
         float tensor or a `QuantKVCache`) is updated in place.  valid_mask
         (B, L): attendable key positions."""
-        b, s, _ = embeds.shape
-        dev = embeds.device
         int8_kv = isinstance(kv_cache, QuantKVCache)
-        if kv_cache is not None:
-            t_max = (kv_cache.kv if int8_kv else kv_cache).shape[5]
-            pos = torch.arange(t_max, device=dev)[None, None, :]
-            q_pos = cache_index + torch.arange(s, device=dev)[None, :, None]
-            mask = (pos <= q_pos).expand(b, s, t_max)
-        else:
-            t_max = s
-            mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None].expand(b, s, s)
-        if valid_mask is not None:
-            mask = mask & valid_mask[:, None, :t_max]
+        mask = attention_mask(embeds, kv_cache, cache_index, valid_mask)
         x = embeds
         for i in range(self.layers):
             if kv_cache is None:
