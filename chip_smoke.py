@@ -46,11 +46,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    loader alone at the
    four GEMVs of a layer, beside `torch._weight_int4pack_mm`; the int4 K1
    chain at g128 and g640, pos 300; the int4 K3 chain at beam-3 through a
-   table), K6 (the verify of K = 4 tokens at pos 300 and 1500; then its
-   int4 branch, `check_k6_int4`: K7's loader alone at the verify's 4 rows,
+   table), K6 (the verify of K = 4 tokens at pos 300 and 1500; every case
+   again with the position in device memory, the spec loop's form: the
+   plan fixed for the cache, against the plain verify; then its int4
+   branch, `check_k6_int4`: K7's loader alone at the verify's 4 rows,
    GEMV4_TOL, and the verify over a g128 int4 pack at the same two
    positions against the plain verify in the chain's order, host loop and
-   device-only beside the int8 K6);
+   device-only beside the int8 K6, and at a device position);
 3b. the int4 verify path: K6's int4 branch at its op entry (no serving
    path sends it an int4 pack), 8 calls with the counters from 0;
 4. micro-benchmark path: K12 (`micro_tile`, the int8 tile stream) and K13
@@ -155,10 +157,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    200, under the profiler: latency, throughput, occupied slots, host
    reads a request, idle share, graphs the traffic captured;
 9. spec slice: the bench configuration with `spec_decode_k = 4` (int4
-   drafts, one int8 verify a round), three POST /tts and one profiled: K6
-   once per round, three int4 K1 chains (K1 and K7) per round, K3 never,
-   K2 109 times per vocode; prints the acceptance rate, the codes per round
-   and the stage times beside the bench slice's.
+   drafts, one int8 verify a round, CHUNK // 4 rounds a replayed chunk),
+   three POST /tts and one profiled: K6 once per executed round, three
+   int4 K1 chains (K1 and K7) per executed round, K3 never, K2 109 times
+   per vocode, one host read before each decode's first chunk and one
+   after each; then the request op by op against it replayed, bit-equal;
+   prints the acceptance rate, the codes per round and the stage times
+   beside the bench slice's.
 10. DiT slice: the bench configuration with `use_bf16_s2mel`, the K8 trunk
    (`fused_blocks`) and K9 attention (`fused_attention`): a 2.5 s prompt
    twice (T 704: K8 once per velocity evaluation, 25 a request, no K9) and
@@ -176,13 +181,17 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
     (the unfused decode step: K5 attention, K4 projections) and
     `use_fused_vocoder` (stages 2-5 through K10), one POST /tts (three
     until the loading phase, two until the emotion phase took their shares
-    of the time limit) and one profiled: per request K5 24 and K4 96 times a decode step, K1 and K3
-    never, K10 4 and K2 37 times a vocode; prints the stage timers beside
-    the bench slice's (the profiled request at a 64-code cap);
+    of the time limit) and one profiled: per request K5 24 and K4 96 times
+    a decode step its device loop executed (the unfused step replayed, its
+    position on the device), K1 and K3 never, K10 4 and K2 37 times a
+    vocode, one host read a chunk; the request op by op against it
+    replayed, bit-equal; prints the stage timers beside the bench slice's
+    (the profiled request at a 64-code cap);
 13. K5 beam request: a second engine on the K5 slice's models in the
     production profile with `pallas_decode_attention` and a 128-code cap,
-    one request (beam-3 through the eager arm, 127 steps): K5 24 and K4 96
-    times a beam step, K3 and K1 never;
+    one request (beam-3 through the eager arm's device loop, 127 steps):
+    K5 24 and K4 96 times a beam step executed, K3 and K1 never; then the
+    request op by op against it replayed, bit-equal;
 14. vocoder A/B: the production slice's BigVGAN vocodes one mel at 448 and
     2656 frames through the module path, packed, shared-activation and
     fused variants, each timed, with its difference from the module path;
@@ -200,8 +209,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
     `--only tp` (`run_tp_cards`, two cards or more): the production engine
     with `tensor_parallel` 2 and 4 (where four cards are there), each
     shard on its own card, two POST /tts at a 128-code cap (K2 109 a
-    vocode, no decode kernel) and an `infer_batch` of two, then one train
-    step over every card (dp 2 x tp 2 on four).
+    vocode, no decode kernel; the eager beam's device loop op by op, one
+    host read a chunk, no graph) and an `infer_batch` of two, then one
+    train step over every card (dp 2 x tp 2 on four).
 
 The kernel phase also holds K9 and K11 (bf16 on the tensor cores, f32 on
 the CUDA cores; every row at T 65 and 130 with lens 0, 1, 63, 64, 65 and T
@@ -218,7 +228,10 @@ K5 (bf16 and f32; B 1, Tmax 512, length 343 and B 3, Tmax 2048, length
 1571, host loop and device-only at the planner's split and at every split
 width, beside `F.scaled_dot_product_attention` on the live prefix; then
 lengths 1, 31, 32, 33, a split under the -1e30 bias, length = Tmax, a
-split boundary at B 3 and a fully masked row, two calls bit-equal), and
+split boundary at B 3 and a fully masked row, two calls bit-equal; then
+all of them with the length in device memory, the unfused step's form:
+against the plain version, bit-equal to the host length at the fixed
+plan's width, the flagship shapes timed), and
 K10 (the four fused stages of the flagship BigVGAN at 448 and 2656
 frames, host loop and device-only, two calls bit-equal, the prologue and
 the MMA loop also timed alone, the bound as three TF32 passes and in f32,
@@ -1065,6 +1078,63 @@ def profile_spec_round(torch, dev):
     return out
 
 
+def k6_device_pos(torch, dev, g, pack, plan, ref_fn, hidden_tol, label, timed=()):
+    """K6 with its position in device memory (a spec loop's round: the grid
+    the plan fixed for the cache, `verify_plan`, the splits past the
+    position only arriving) at each (name, K, Tmax, pos, pad span) of
+    `plan` against `ref_fn` at the same position: finite, two calls
+    bit-equal, hidden rows within `hidden_tol` and the kv rows within
+    DECODE_TOL of max|ref|; the cases named in `timed` timed in a host loop
+    and device-only.  Returns (worst error, the timed cases)."""
+    from voice_tts_tpu_torch.ops import fused_decode as fd
+
+    L, _, D = pack.w.shape[:3]
+    H, worst, cases = 20, 0.0, []
+    for name, K, t_max, pos, (lo, hi) in plan:
+        cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.zeros((t_max, 1), device=dev)
+        bias[lo:hi] = -1e30
+        x = torch.randn(K, D, generator=g, device=dev) * 0.5
+        dpos = torch.tensor(pos, device=dev)
+
+        def run(fn):
+            return fn(x, pack, cache, bias, dpos, H)
+        out, again = run(fd.fused_decode_verify), run(fd.fused_decode_verify)
+        torch.cuda.synchronize()
+        ref = run(ref_fn)
+        split_t, splits = fd.verify_plan(dpos, H, t_max, K)
+        tag = (f"K6 {label} at a device position ({name}) K={K} pos={pos} Tmax={t_max}, "
+               f"fixed plan {splits} splits of {split_t}")
+        if not all(bool(torch.isfinite(v.float()).all()) for v in out):
+            fail(f"{tag}: non-finite output")
+        if not all(torch.equal(u, v) for u, v in zip(out, again)):
+            fail(f"{tag}: two calls differ")
+        for part, a, r, tol in (("hidden", out[0], ref[0], hidden_tol),
+                                ("kv_new", out[1], ref[1], DECODE_TOL)):
+            err, scale = max_err(torch, a, r), float(r.float().abs().max())
+            print(f"{tag} {part}: max_abs_err {err:.4g} (max|ref| {scale:.4g}, tol {tol} * "
+                  f"max|ref|); two calls bit-equal")
+            if not err <= tol * scale:
+                fail(f"{tag} {part} disagrees with the plain version")
+            worst = max(worst, err)
+        if name in timed:
+            ms = cuda_time_ms(torch, lambda: run(fd.fused_decode_verify), 20)
+            dev_ms = device_time_ms(torch, lambda: run(fd.fused_decode_verify), CHAIN_ITERS)
+            print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only)")
+            cases.append({"k": K, "pos": pos, "t_max": t_max, "splits": splits,
+                          "split_t": split_t, "ms": ms, "device_ms": dev_ms})
+    return worst, cases
+
+
+# K6's cases: name: (K, Tmax, pos, prompt-pad span under -1e30)
+K6_PLAN = [("pos 300", 4, 512, 300, (70, 82)), ("pos 1500", 4, 1792, 1500, (70, 82)),
+           ("empty prefix", 4, 512, 0, (70, 82)),
+           ("split edge", 4, 512, 320, (70, 82)),
+           ("K 2", 2, 512, 300, (70, 82)), ("K 8", 8, 1792, 1500, (70, 82)),
+           ("pos + K = Tmax", 4, 512, 508, (70, 82)),
+           ("split under the bias", 4, 512, 300, (64, 96))]
+
+
 def check_k6(torch, dev, results):
     """K6, the speculative verify: K = 4 tokens of one sequence through the
     int8 trunk, bf16 cache, at pos 300 / Tmax 512 and pos 1500 / Tmax 1792,
@@ -1072,22 +1142,17 @@ def check_k6(torch, dev, results):
     (checked, not timed): an empty prefix (pos 0), a prefix ending on a
     split edge, K = 2 and K = 8, pos + K = Tmax, and a split wholly under
     the -1e30 bias.  Each finite, two calls bit-equal, hidden rows and the
-    bf16 kv rows within DECODE_TOL of the plain version; then one spec round
-    of kernels profiled."""
+    bf16 kv rows within DECODE_TOL of the plain version; then every case
+    again with the position in device memory (`k6_device_pos`, the spec
+    loop's form), the first two timed; then one spec round of kernels
+    profiled."""
     from voice_tts_tpu_torch.ops import fused_decode as fd
 
     pack, _, g = random_trunk(torch, dev, 8)
     L, _, _, D = pack.w.shape
     H = 20
-    # name: (K, Tmax, pos, prompt-pad span under -1e30)
-    plan = [("pos 300", 4, 512, 300, (70, 82)), ("pos 1500", 4, 1792, 1500, (70, 82)),
-            ("empty prefix", 4, 512, 0, (70, 82)),
-            ("split edge", 4, 512, 320, (70, 82)),
-            ("K 2", 2, 512, 300, (70, 82)), ("K 8", 8, 1792, 1500, (70, 82)),
-            ("pos + K = Tmax", 4, 512, 508, (70, 82)),
-            ("split under the bias", 4, 512, 300, (64, 96))]
     cases, edges, worst = [], [], 0.0
-    for name, K, t_max, pos, (lo, hi) in plan:
+    for name, K, t_max, pos, (lo, hi) in K6_PLAN:
         cache = torch.randn(L, 2, 1, t_max, D, generator=g, device=dev).to(torch.bfloat16)
         bias = torch.zeros((t_max, 1), device=dev)
         bias[lo:hi] = -1e30
@@ -1128,12 +1193,16 @@ def check_k6(torch, dev, results):
         cases.append({"k": K, "pos": pos, "t_max": t_max, "splits": splits,
                       "split_t": split_t, "ms": ms, "device_ms": dev_ms,
                       "plain_ms": plain_ms, **bnd})
+    dev_worst, dev_cases = k6_device_pos(torch, dev, g, pack, K6_PLAN,
+                                         fd.fused_decode_verify_plain, DECODE_TOL, "verify",
+                                         timed=("pos 300", "pos 1500"))
     check_k6_int4(torch, dev, results, cases)
     results.append({
         "name": "fused_decode_verify", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:1322",
-        "max_abs_err": worst, "ms": cases[0]["ms"], "device_ms": cases[0]["device_ms"],
+        "max_abs_err": max(worst, dev_worst), "ms": cases[0]["ms"],
+        "device_ms": cases[0]["device_ms"], "device_pos_cases": dev_cases,
         "plain_ms": cases[0]["plain_ms"],
         "bound_ms": cases[0]["bound_ms"], "bound_by": cases[0]["bound_by"],
         "library_ms": None,
@@ -1231,11 +1300,18 @@ def check_k6_int4(torch, dev, results, int8_cases):
         cases.append({"k": K, "pos": pos, "t_max": t_max, "group": gsz, "splits": splits,
                       "split_t": split_t, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                       "int8_ms": c8["ms"], "int8_device_ms": c8["device_ms"], **bnd})
+    # the position in device memory, at the same two shapes and the edges
+    dev_worst, dev_cases = k6_device_pos(
+        torch, dev, g, pack, [c for c in K6_PLAN if c[0] in
+                              ("pos 300", "pos 1500", "empty prefix", "pos + K = Tmax")],
+        fd.fused_decode_verify_split_plain, K6_INT4_HIDDEN_TOL, "int4 verify",
+        timed=("pos 300", "pos 1500"))
     results.append({
         "name": "fused_decode_verify_int4", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/fused_decode.cu",
         "replaces": "voice_tts_tpu/ops/fused_decode.py:1322",
-        "max_abs_err": worst, "k7_gemv_max_abs_err": gemv_err,
+        "max_abs_err": max(worst, dev_worst), "k7_gemv_max_abs_err": gemv_err,
+        "device_pos_cases": dev_cases,
         "ms": cases[0]["ms"], "device_ms": cases[0]["device_ms"],
         "plain_ms": cases[0]["plain_ms"], "bound_ms": cases[0]["bound_ms"],
         "bound_by": cases[0]["bound_by"], "library_ms": None,
@@ -1882,14 +1958,60 @@ def k5_edges(torch, dev, g):
                 fail(f"{tag}: two calls differ")
 
 
+def k5_device_length(torch, dev, g, timed):
+    """K5 with its length in device memory (the unfused step of a device
+    loop: the grid the fixed plan of the cache, `plan_decode_splits(b, h,
+    Tmax)`, the splits past the length only arriving) at K5_EDGES and the
+    flagship shapes, bf16 and f32: against the plain version at the same
+    tensor length (masked), bit-equal to the host-int form at the fixed
+    plan's split width, two calls bit-equal; the flagship shapes in `timed`
+    ((b, Tmax, length)) timed in a host loop and device-only.  Returns
+    (worst error, the timed cases)."""
+    from voice_tts_tpu_torch.ops import decode_attention as k5
+
+    worst, cases = 0.0, []
+    shapes = list(K5_EDGES) + [(b, t_max, length, [(40, 52)] * b)
+                               for b, t_max, length in timed]
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = K5_F32_TOL if dtype == torch.float32 else K5_BF16_TOL
+        for b, t_max, length, masked in shapes:
+            q, k, v, bias = k5_inputs(torch, dev, g, dtype, b, t_max, masked)
+            dlen = torch.tensor(length, device=dev)
+            width, splits = k5._split_plan(b, 20, t_max, dlen)
+            out = k5.decode_attention(q, k, v, bias, dlen)
+            again = k5.decode_attention(q, k, v, bias, dlen)
+            host = k5.decode_attention_cuda(q, k, v, bias, length, split_t=width)
+            torch.cuda.synchronize()
+            ref = k5.decode_attention_plain(q, k, v, bias, dlen)
+            err, scale = max_err(torch, out, ref), float(ref.float().abs().max())
+            tag = (f"K5 at a device length {str(dtype).split('.')[-1]} B={b} Tmax={t_max} "
+                   f"length={length} masked={masked}, fixed plan {splits} splits of {width}")
+            print(f"{tag}: max_abs_err {err:.4g} (max|ref| {scale:.4g}); bit-equal to the "
+                  f"host length at that width {torch.equal(out, host)}")
+            if not torch.isfinite(out.float()).all() or not err <= tol * scale:
+                fail(f"{tag} disagrees with the plain version")
+            if not torch.equal(out, again) or not torch.equal(out, host):
+                fail(f"{tag}: two calls differ, or differ from the host length's")
+            worst = max(worst, err)
+            if (b, t_max, length) in timed:
+                ms = cuda_time_ms(torch, lambda: k5.decode_attention(q, k, v, bias, dlen), 50)
+                dev_ms = device_time_ms(torch, lambda: k5.decode_attention(q, k, v, bias, dlen),
+                                        50)
+                print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only)")
+                cases.append({"dtype": str(dtype).split(".")[-1], "b": b, "t_max": t_max,
+                              "length": length, "split_t": width, "splits": splits,
+                              "ms": ms, "device_ms": dev_ms})
+    return worst, cases
+
+
 def check_k5(torch, dev, results):
     """K5 at the flagged decode paths' shapes (GPT 20 heads of 64): B 1, Tmax
     512, length 343 (the bench configuration with the flag) and B 3, Tmax
     2048, length 1571 (beam-3 in the production profile with the flag), bf16
     and f32, timed in a host loop and device-only, beside
     `F.scaled_dot_product_attention` on the same live prefix with the bias
-    as its additive mask; then the edges (`k5_edges`).  The headline is
-    bf16 at B 1."""
+    as its additive mask; then the edges (`k5_edges`); then the length in
+    device memory (`k5_device_length`).  The headline is bf16 at B 1."""
     import torch.nn.functional as F
     from voice_tts_tpu_torch.ops import decode_attention as k5
 
@@ -1951,12 +2073,14 @@ def check_k5(torch, dev, results):
                           "plain_ms": plain_ms, "library_ms": lib_ms,
                           "library_device_ms": lib_dev_ms, "max_abs_err": err, **bnd})
     k5_edges(torch, dev, g)
+    dev_worst, dev_cases = k5_device_length(torch, dev, g, ((1, 512, 343), (3, 2048, 1571)))
     head = cases[0]
     results.append({
         "name": "decode_attention", "route": "cuda",
         "source": "voice_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "voice_tts_tpu/ops/decode_attention.py:104",
-        "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": head["ms"],
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [dev_worst]),
+        "ms": head["ms"], "device_length_cases": dev_cases,
         "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "library_device_ms": head["library_device_ms"],
@@ -2422,22 +2546,31 @@ def check_tiny_engine_production(torch, dev, counters=None, gpt=None):
     tag = "tiny engine (production, beam-3" + (", K5)" if gpt else ")")
     _compare_wavs(tag, ref, out, WAV_TOL)
     if gpt:
-        _check_k5_launches(tag, counters.snapshot(), gpu, out.metrics["decode_steps"],
-                           k4_per_step=0)
+        _check_k5_launches(tag, counters.snapshot(), gpu, [out.metrics], k4_per_step=0)
 
 
-def _check_k5_launches(tag, got, engine, steps, k4_per_step):
-    """K5 once per layer and decode step, K4 `k4_per_step` times per layer
-    and step, K1 and K3 never."""
+def _check_k5_launches(tag, got, engine, metrics, k4_per_step):
+    """K5 once per layer and decode step its device loop executed, K4
+    `k4_per_step` times per layer and executed step, K1 and K3 never: each
+    decode of `metrics` (the requests' metrics) runs its chunks of CHUNK
+    steps, at most CHUNK - 1 of them after the stop, so executed = chunks x
+    CHUNK >= decode steps > executed - decodes x CHUNK."""
+    from voice_tts_tpu_torch.engine.device_loop import CHUNK
+
     layers = engine.cfg.gpt.layers
+    steps = sum(m["decode_steps"] for m in metrics)
+    executed = CHUNK * sum(m["decode_chunks"] for m in metrics)
+    runs = sum(m["decode_runs"] for m in metrics)
     print(f"{tag} launches: K5 {got['decode_attention']}, K4 {got['int8_gemv']} for "
-          f"{steps} steps x {layers} layers; K1 {got['fused_decode_step']}, K3 "
+          f"{executed} executed steps ({steps} decode steps in {runs} decodes) x "
+          f"{layers} layers; K1 {got['fused_decode_step']}, K3 "
           f"{got['fused_decode_step_batch']}")
-    if (steps == 0 or got["decode_attention"] != layers * steps
-            or got["int8_gemv"] != k4_per_step * layers * steps
+    if (steps == 0 or not executed >= steps > executed - runs * CHUNK
+            or got["decode_attention"] != layers * executed
+            or got["int8_gemv"] != k4_per_step * layers * executed
             or got["fused_decode_step"] or got["fused_decode_step_batch"]):
-        fail(f"{tag}: K5 not once per layer and step, K4 not {k4_per_step} times, "
-             f"or K1 / K3 ran")
+        fail(f"{tag}: K5 not once per layer and executed step, K4 not {k4_per_step} "
+             f"times, or K1 / K3 ran")
 
 
 # the tiny K5 pairs decode with the f32 GPT: the int8 + bf16 runtime copy's
@@ -2466,7 +2599,7 @@ def check_tiny_engine_k5(torch, dev, counters):
     torch.cuda.synchronize()
     _compare_wavs("tiny engine (num_beams 1, K5)", ref, out, WAV_TOL)
     _check_k5_launches("tiny engine (num_beams 1, K5)", counters.snapshot(), gpu,
-                       out.metrics["decode_steps"], k4_per_step=0)
+                       [out.metrics], k4_per_step=0)
     check_tiny_engine_production(torch, dev, counters, gpt=flag)
 
 
@@ -2522,6 +2655,7 @@ def check_tiny_engine_k5_int8(torch, dev, counters):
     agreeing codes give WAVs beyond WAV_TOL, or if the logits stray further
     with K5 than K5_INT8_RATIO times as far as with the einsum attention."""
     import numpy as np
+    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
 
     prompt = tone_prompt(1.0, 16000)
     stray = {}
@@ -2529,6 +2663,8 @@ def check_tiny_engine_k5_int8(torch, dev, counters):
             ("K5", {"pallas_decode_attention": True}, TINY_BENCH_FLAGS),
             ("einsum", None, {**TINY_BENCH_FLAGS, "use_fused_decode": False})):
         cpu, gpu = _tiny_pair(torch, dev, gpt=gpt, **flags)
+        # the recorder reads each step's code on the host: the loop op by op
+        gpu.loops = DeviceLoops(dev, capture=False)
         ref, logits_c, codes_c = _greedy_record(torch, cpu, prompt)
         counters.reset()
         out, _, codes_g = _greedy_record(torch, gpu, prompt)
@@ -2823,7 +2959,7 @@ def _recorded_decodes(call):
 
     decodes = []
     originals = {f: getattr(eng_mod, f) for f in ("beam_decode", "gpt_decode",
-                                                  "beam_decode_fused_batch")}
+                                                  "beam_decode_fused_batch", "spec_decode")}
 
     def wrap(fn):
         def recorded(*a, **kw):
@@ -4319,6 +4455,7 @@ def run_tp_phase(torch, dev, counters):
     import copy
     import dataclasses
 
+    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
     from voice_tts_tpu_torch.engine.engine import serving_config
     from voice_tts_tpu_torch.models.gpt.decode import decode
     from voice_tts_tpu_torch.parallel import make_mesh, shard_gpt, sharding_plan
@@ -4345,9 +4482,11 @@ def run_tp_phase(torch, dev, counters):
             return m.mel_head(latent(m, res.codes, res.lengths).float())
 
     def timed_decode(m):
+        # op by op on both sides (a sharded cache's loop never captures)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = decode(m, gen, cond, emo, text, lens, TP_DECODE)
+        res = decode(m, gen, cond, emo, text, lens, TP_DECODE,
+                     loops=DeviceLoops(dev, capture=False))
         torch.cuda.synchronize()
         return res, 1e3 * (time.perf_counter() - t0) / max(res.steps, 1)
 
@@ -4521,10 +4660,21 @@ def run_tp_cards(torch, counters, cards):
               f"on {devices[0]}; memory GiB "
               + json.dumps({str(d): round(torch.cuda.memory_allocated(d) / 2 ** 30, 3)
                             for d in devices}))
+        before = dict(engine.loops.stats)
         launches, steps, n_act, prompt, text, metrics, _ = serve_requests(
             torch, engine, "serving", counters, prompts_s=(5.0, 5.0))
         decode_kernels = sum(launches[k] for k in ("fused_decode_step",
                                                    "fused_decode_step_batch", "int8_gemv"))
+        # the eager beam's device loop op by op (one graph cannot span cards):
+        # one host read before each decode's first chunk and one after each
+        delta = {k: engine.loops.stats[k] - before[k] for k in before}
+        chunks = sum(m["decode_chunks"] for m in metrics)
+        runs = sum(m["decode_runs"] for m in metrics)
+        print(f"[tp] tp {tp}: loops {json.dumps(delta)}; {chunks} chunks in {runs} decodes")
+        if (engine.loops.capture or delta["graphs"] or delta["replays"]
+                or delta["host_reads"] != chunks + runs):
+            fail(f"[tp] tp {tp}: the loops captured, or read the host other than once a "
+                 "chunk")
         print(f"[tp] tp {tp}: {steps} beam steps over {len(metrics)} requests, "
               f"gpt_gen_time a step {[round(1e3 * m['gpt_gen_time'] / m['decode_steps'], 3) for m in metrics]} ms")
         if launches["aa_snake_activation"] != n_act * len(metrics) or decode_kernels:
@@ -4571,7 +4721,10 @@ def run_bench_slice(torch, dev, counters):
 def run_spec_slice(torch, dev, counters, bench_metrics):
     """The bench configuration with self-speculative decode, K = 4: each
     round three int4 draft steps (K1 chains with the int4 loader, K7), one
-    int8 verify of the four tokens (K6), then the acceptance step."""
+    int8 verify of the four tokens (K6, its position on the device), then
+    the acceptance step, CHUNK // K rounds a replayed chunk; then the same
+    request op by op against it replayed, bit-equal."""
+    from voice_tts_tpu_torch.engine.device_loop import CHUNK
     from voice_tts_tpu_torch.engine.engine import TTSEngine, bench_config
 
     cfg = bench_config()
@@ -4581,14 +4734,24 @@ def run_spec_slice(torch, dev, counters, bench_metrics):
     torch.cuda.synchronize()
     print(f"[spec] engine build: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    before = dict(engine.loops.stats)
     launches, steps, n_act, prompt, text, metrics, _ = serve_requests(torch, engine,
                                                                       "spec", counters)
+    check_served_through_graphs("spec", engine, before, metrics)
     rounds = sum(m["spec_rounds"] for m in metrics)
     accepted = sum(m["spec_accepted"] for m in metrics)
-    if rounds == 0 or launches["fused_decode_verify"] != rounds:
-        fail("K6 was not launched once per speculative round")
-    if (launches["fused_decode_int4"] != 3 * rounds
-            or launches["fused_decode_step"] != 3 * rounds):
+    # each decode runs its chunks of SPEC_CHUNK rounds, at most SPEC_CHUNK - 1
+    # of them after the stop
+    per = CHUNK // cfg.engine.spec_decode_k
+    executed = per * sum(m["decode_chunks"] for m in metrics)
+    runs = sum(m["decode_runs"] for m in metrics)
+    print(f"[spec] K6 {launches['fused_decode_verify']} launches for {executed} executed "
+          f"rounds ({rounds} rounds in {runs} decodes, {per} a chunk)")
+    if (rounds == 0 or launches["fused_decode_verify"] != executed
+            or not executed >= rounds > executed - runs * per):
+        fail("K6 was not launched once per executed speculative round")
+    if (launches["fused_decode_int4"] != 3 * executed
+            or launches["fused_decode_step"] != 3 * executed):
         fail("the int4 K1 chain (K1 with K7) was not launched three times a round")
     if launches["fused_decode_step_batch"] != 0:
         fail("K3 was launched on the speculative path")
@@ -4604,6 +4767,9 @@ def run_spec_slice(torch, dev, counters, bench_metrics):
         "bench_gpt_gen_time": [m["gpt_gen_time"] for m in bench_metrics],
         "bench_rtf": [m["rtf"] for m in bench_metrics],
         "bench_decode_steps": [m["decode_steps"] for m in bench_metrics]}))
+    walls = compare_with_uncaptured(torch, dev, engine, "spec", prompt, text)
+    print(f"[spec] the request's wall op by op {walls['uncaptured']:.3f} s, replayed "
+          f"{walls['graphs']:.3f} s")
     prof = profile_request(torch, engine, prompt, text)
     n = prof["metrics"]["spec_rounds"]
 
@@ -4758,12 +4924,13 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
     n_k10 = sum(plan)
     n_k2 = (plan.count(False) * len(vc.resblock_kernel_sizes) * 2
             * len(vc.resblock_dilation_sizes[0]) + 1)
+    before = dict(engine.loops.stats)
     launches, _, _, prompt, text, metrics, per_request = serve_requests(
         torch, engine, "k5", counters, prompts_s=(5.0,))
+    check_served_through_graphs("k5", engine, before, metrics)
     for i, (m, got) in enumerate(zip(metrics, per_request)):
-        steps = m["decode_steps"]
         tag = f"[k5] request #{i}"
-        _check_k5_launches(tag, got, engine, steps, k4_per_step=4)
+        _check_k5_launches(tag, got, engine, [m], k4_per_step=4)
         print(f"{tag}: K10 {got['fused_resblock_stage']} (want {n_k10}), K2 "
               f"{got['aa_snake_activation']} (want {n_k2})")
         if got["fused_resblock_stage"] != n_k10 or got["aa_snake_activation"] != n_k2:
@@ -4773,6 +4940,10 @@ def run_k5_slice(torch, dev, counters, bench_metrics):
     print("[k5] stage timers " + json.dumps({
         "k5": {k: [m[k] for m in metrics] for k in keys},
         "bench": {k: [m[k] for m in bench_metrics] for k in keys}}))
+    # the unfused step's replayed chunks against the same request op by op
+    walls = compare_with_uncaptured(torch, dev, engine, "k5", prompt, text)
+    print(f"[k5] the request's wall op by op {walls['uncaptured']:.3f} s, replayed "
+          f"{walls['graphs']:.3f} s")
     # ~700 launches a step: the trace of the full 255 steps took most of the
     # phase's time, so the profiled request stops at K5_PROFILE_CODES
     profile_request(torch, engine, prompt, text, max_mel_tokens=K5_PROFILE_CODES)
@@ -4805,12 +4976,19 @@ def run_k5_beam(torch, dev, counters, k5_engine):
               "w2v_std": k5_engine.w2v_std.cpu().numpy(),
               "emo_matrix": k5_engine.emo_matrix, "spk_matrix": k5_engine.spk_matrix}
     engine = TTSEngine(cfg, dict(k5_engine.models), k5_engine.tokenizer, extras, dev)
-    launches, steps, _, _, _, metrics, _ = serve_requests(torch, engine, "k5_beam",
-                                                          counters, prompts_s=(5.0,))
+    before = dict(engine.loops.stats)
+    launches, steps, _, prompt, text, metrics, _ = serve_requests(
+        torch, engine, "k5_beam", counters, prompts_s=(5.0,))
     m = metrics[0]
-    _check_k5_launches("[k5_beam] request #0", launches, engine, steps, k4_per_step=4)
+    _check_k5_launches("[k5_beam] request #0", launches, engine, metrics, k4_per_step=4)
+    check_served_through_graphs("k5_beam", engine, before, metrics)
     print(f"[k5_beam] {steps} beam steps, gpt_gen_time {m['gpt_gen_time']:.4f} s "
-          f"({1e3 * m['gpt_gen_time'] / steps:.3f} ms a step), rtf {m['rtf']:.4f}")
+          f"({1e3 * m['gpt_gen_time'] / steps:.3f} ms a step), rtf {m['rtf']:.4f}; "
+          f"{m['decode_chunks']} chunks, {m['decode_chunks'] + m['decode_runs']} host reads")
+    # the eager beam's replayed chunks against the same request op by op
+    walls = compare_with_uncaptured(torch, dev, engine, "k5_beam", prompt, text)
+    print(f"[k5_beam] the request's wall op by op {walls['uncaptured']:.3f} s, replayed "
+          f"{walls['graphs']:.3f} s")
     return launches
 
 

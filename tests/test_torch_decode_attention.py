@@ -108,19 +108,30 @@ def port_gpt_config(jax_cfg, **changes):
 
 @pytest.fixture(scope="module")
 def tiny_gpt():
-    """The JAX f32 parameters of a UnifiedVoice at tests/test_gpt.py's TINY
-    widths, the port's f32 and int8-runtime modules with the flag on and
-    off (the same weights), and numpy decode inputs; the text fills 28 of
-    TINY's 32 text positions, so the prefill (37 rows) is not a K4 product."""
-    c = TINY
+    return make_tiny_gpt()
+
+
+def init_params(c, seed: int = 0):
+    """The JAX f32 parameters of a UnifiedVoice of config `c`, as numpy."""
     model = JUV(c)
     params = jax.jit(lambda key: model.init(
         key, jnp.zeros((1, 6, c.condition_module.input_size)),
         jnp.zeros((1, 6, c.emo_condition_module.input_size)),
         jnp.zeros((1, 8), jnp.int32), jnp.asarray([8]),
         jnp.zeros((1, 6), jnp.int32), jnp.asarray([6]),
-        method=JUV.init_all))(jax.random.PRNGKey(0))
-    params = jax.tree.map(np.asarray, params)
+        method=JUV.init_all))(jax.random.PRNGKey(seed))
+    return jax.tree.map(np.asarray, params)
+
+
+def make_tiny_gpt(params=None):
+    """The JAX f32 parameters of a UnifiedVoice at tests/test_gpt.py's TINY
+    widths, the port's f32 and int8-runtime modules with the flag on and
+    off (the same weights), and numpy decode inputs; the text fills 28 of
+    TINY's 32 text positions, so the prefill (37 rows) is not a K4 product.
+    `params` replaces the seeded ones (`tests/test_torch_host_loops.py`)."""
+    c = TINY
+    if params is None:
+        params = init_params(c)
     ports = {}
     for flag in (False, True):
         pc = port_gpt_config(c, pallas_decode_attention=flag)
@@ -236,10 +247,12 @@ def test_gating_counts(tiny_gpt, monkeypatch):
                       readout_pack=pack_readout(state), int8_kv=True)
     assert res.steps >= 5
     assert not fused_calls
-    assert len(k5_calls) == layers * res.steps
+    executed = res.chunks * CHUNK
+    assert executed >= res.steps > executed - CHUNK
+    assert len(k5_calls) == layers * executed
     assert all(a[1].dtype == torch.bfloat16 and a[1].shape[-1] % 512 == 0
                for a in k5_calls)
-    assert len(k4_calls) == 4 * layers * res.steps
+    assert len(k4_calls) == 4 * layers * executed
     # without the flag the same call takes the fused step and no K5
     k5_calls.clear()
     res = port_decode(int8[False], inputs, 12, fused_pack=pack_gpt(state, layers),

@@ -54,17 +54,23 @@ def test_tiny_profile_times_each_chain_call(profile, capsys):
 
 def test_tiny_spec_profile_times_drafts_and_verifies(capsys):
     """The spec profile (spec decode, K = 4): each request counts three
-    timed int4 K1 draft chains and one K6 verify chain a round, both with a
-    positive host time, and both functions are put back."""
+    timed int4 K1 draft chains and one K6 verify chain a round its device
+    loop executes (CHUNK // 4 rounds a chunk, at most that less one after
+    the stop), both with a positive host time, and both functions are put
+    back."""
     before = decode.fused_decode_step, decode.fused_decode_verify
     rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
                         "--profiles", "spec"])
     assert (decode.fused_decode_step, decode.fused_decode_verify) == before
     assert [r["request"] for r in rows] == [0, 1]
     for r in rows:
+        per = device_loop.CHUNK // 4
+        executed = r["decode_chunks"] * per
         assert r["profile"] == "spec" and r["spec_rounds"] > 0
-        assert r["chain_calls"] == 3 * r["spec_rounds"]
-        assert r["verify_calls"] == r["spec_rounds"]
+        assert executed >= r["spec_rounds"] > executed - r["decode_runs"] * per
+        assert r["chain_calls"] == 3 * executed
+        assert r["verify_calls"] == executed
+        assert r["host_reads"] == r["decode_chunks"] + r["decode_runs"]
         assert 0 < r["chain_host_ms_median"] and 0 < r["verify_host_ms_median"]
         assert 0 <= r["spec_accepted"] <= 3 * r["spec_rounds"]
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
@@ -109,15 +115,18 @@ def test_tiny_dit_profile_times_each_k8_call(capsys):
 
 def test_tiny_k5_profile_times_each_k5_call(capsys):
     """The k5 profile (`pallas_decode_attention`): each request times one K5
-    call a layer and decode step, and the decode step gets K5 back."""
+    call a layer and decode step its device loop executes, and the decode
+    step gets K5 back."""
     before = gpt2.decode_attention
     rows = script.main(["--tiny", "--device", "cpu", "--requests", "1",
                         "--profiles", "k5"])
     assert gpt2.decode_attention is before
     layers = tiny_config().gpt.layers
     for r in rows:
+        executed = r["decode_chunks"] * device_loop.CHUNK
         assert r["profile"] == "k5" and r["decode_steps"] > 0
-        assert r["chain_calls"] == layers * r["decode_steps"]
+        assert executed >= r["decode_steps"] > executed - r["decode_runs"] * device_loop.CHUNK
+        assert r["chain_calls"] == layers * executed
         assert 0 < r["chain_host_ms_median"] and r["gpt_gen_time"] > 0
 
 

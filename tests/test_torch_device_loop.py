@@ -11,7 +11,8 @@ at N 1 / 4, inside a chunk at N 3 / 16); the chunked greedy `beam_decode`
 (int8 KV, ancestor table) against JAX's fused beam, the search `done`
 after 25 steps (inside a chunk at N 3 / 4 / 16) and the limit at 12 steps
 (a boundary at N 3 / 4); the sampled beam with injected uniforms against
-the port's own host loop (the K3 step with a physical reorder); the cache
+the port's own reorder arm (the K3 step with a physical reorder) at one
+step a chunk; the cache
 writers, `embed_decode_token` and the K1 / K3 plain steps with a device
 position bit-equal to the int form; and the host reads counted, one before
 the first chunk and one after each.
@@ -104,10 +105,16 @@ def _port_gpt(params):
 
 @pytest.fixture(scope="module")
 def gpts():
+    return make_gpts()
+
+
+def make_gpts():
     """One tiny GPT two ways: as initialised (its greedy one-beam decode
     runs to the limit) and with the stop token's bias raised by STOP_BUMP
     (its greedy beam-3 search ends); for each the JAX int8 runtime tree
-    with its packs and the port's module with its packs; and the inputs."""
+    with its packs and the port's module with its packs; and the inputs
+    (the JAX module first).  `tests/test_torch_host_loops.py` builds its
+    own from here."""
     c = CFG.gpt
     model = JUV(JaxTTSConfig.from_dict(CFG.to_dict()).gpt)
     params = jax.jit(lambda k: model.init(
@@ -220,9 +227,10 @@ class JaxUniforms:
 def test_chunked_sampled_beam_matches_host_loop(gpts, chunk):
     """Beam sampling with injected uniforms (JAX's draws): the chunked K3
     arm at each N gives the codes, lengths, limit flag and steps of the K3
-    step in a host loop with a physical cache reorder (one host read a
-    step), the uniforms drawn in the same order.  (Held against the port's
-    host loop: the port's candidates equal JAX's bit for bit on the same
+    step with a physical cache reorder one step a chunk (the reorder arm's
+    device loop at N 1, one host read a step, which replaced its host
+    loop), the uniforms drawn in the same order.  (Held against the port's
+    reorder arm: the port's candidates equal JAX's bit for bit on the same
     logits, but the trunk's sums in another order move the logits enough
     for this seed's sampled path to leave JAX's at the fourth code, in the
     port before the device loops too.)"""
@@ -230,12 +238,12 @@ def test_chunked_sampled_beam_matches_host_loop(gpts, chunk):
     prt, pack, ro = trees["stop"][3:]
     kw = dict(fused_pack=pack, readout_pack=ro, int8_kv=True)
     ref = pbeam.beam_decode(prt, SAMPLE, *_port_args(inputs), 20,
-                            uniform=JaxUniforms(), ancestor_table=False, **kw)
+                            uniform=JaxUniforms(), ancestor_table=False, chunk=1, **kw)
     out = pbeam.beam_decode(prt, SAMPLE, *_port_args(inputs), 20,
                             uniform=JaxUniforms(), chunk=chunk, **kw)
     for a, b in zip(out[:3], ref[:3]):
         assert torch.equal(a, b)
-    assert out.steps == ref.steps == 19 and ref.chunks == 0
+    assert out.steps == ref.steps == 19 and ref.chunks == 19
     assert out.chunks == -(-19 // chunk)
 
 

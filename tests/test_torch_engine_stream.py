@@ -169,7 +169,7 @@ def _segments(*lens):
     (dict(pack=False, fused_batch=False), (20, 1), 1, True),
     (dict(pack=True, fused_batch=True), (20, 20), 1, True),
     (dict(pack=True, fused_batch=True), (100, 10), 1, False),
-    (dict(pack=True, fused_batch=False), (20, 20, 20, 20, 20), 1, False),
+    (dict(pack=True, fused_batch=False), (20, 20, 20), 1, False),
     (dict(pack=True, fused_batch=False), (20,) * 40, 1, True),
 ], ids=["flag_off", "one_segment", "beams_batch", "eager_either_way",
         "k3_beats_k1_on_equal_segments", "k1_beats_k3_on_a_long_one",
@@ -177,7 +177,8 @@ def _segments(*lens):
 def test_should_batch_segments(router, lens, beams, expect):
     """The routing of a multi-segment request, the JAX rule with the card's
     step times: beams always batch; otherwise the batched decode's step
-    time on the longest segment against the sequential one's on the sum."""
+    time on the longest segment against the sequential one's on the sum
+    (the eager step, 4.8x K1's, loses on 3 equal segments and wins on 40)."""
     gen = GenerationConfig(num_beams=beams)
     assert TTSEngine._should_batch_segments(_router(**router), _segments(*lens), gen) is expect
 

@@ -22,6 +22,7 @@ from voice_tts_tpu.models.gpt.gpt2 import QuantKVCache as JaxQuantKVCache
 from voice_tts_tpu.models.gpt.unified_voice import UnifiedVoice as JUV
 from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.config import TTSConfig as PortTTSConfig
+from voice_tts_tpu_torch.engine.device_loop import CHUNK
 from voice_tts_tpu_torch.models.gpt import decode as pdecode
 from voice_tts_tpu_torch.models.gpt.gpt2 import QuantKVCache, _quantize_kv
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
@@ -165,7 +166,9 @@ def test_int8_kv_step_logits_match_jax(tiny):
 def test_int8_kv_flag_selects_cache(tiny, monkeypatch, int8_kv):
     """Without a pack, `int8_kv=True` decodes every step over a
     `QuantKVCache` and `int8_kv=False` over a float cache of the model's
-    dtype, so the new branch is not always taken."""
+    dtype, so the new branch is not always taken: each step its device
+    loop executes (CHUNK a chunk, at most CHUNK - 1 of them after the
+    stop)."""
     _, _, port, inputs = tiny
     seen = []
     step = port.decode_step
@@ -175,7 +178,9 @@ def test_int8_kv_flag_selects_cache(tiny, monkeypatch, int8_kv):
         return step(token, i, index, valid, cache)
     monkeypatch.setattr(port, "decode_step", spy)
     res = port_decode(port, inputs, int8_kv=int8_kv)
-    assert len(seen) == res.steps >= 5
+    executed = res.chunks * CHUNK
+    assert len(seen) == executed and executed >= res.steps > executed - CHUNK
+    assert res.steps >= 5
     if int8_kv:
         assert all(isinstance(c, QuantKVCache) and c.kv.dtype == torch.int8
                    for c in seen)

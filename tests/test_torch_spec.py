@@ -77,6 +77,12 @@ def _trunk_tree(seed=0):
 
 @pytest.fixture(scope="module")
 def trunk():
+    return make_trunk()
+
+
+def make_trunk():
+    """The JAX and the port's int8 packs of one L 2, D 256 trunk (also
+    built by `tests/test_torch_host_loops.py`)."""
     tree = _trunk_tree()
     jpack = jfd.pack_gpt(quantize_gpt_params(jax.tree.map(jnp.asarray, tree)), L)
     return jpack, pfd.pack_gpt(quantize_gpt_state(flatten_params(tree)), L)
@@ -250,9 +256,14 @@ JAX_CFG = JaxTTSConfig.from_dict(CFG.to_dict())
 
 @pytest.fixture(scope="module")
 def gpts():
+    return make_gpts()
+
+
+def make_gpts():
     """One tiny GPT: the JAX int8 runtime tree, its int8 pack and the int4
     pack of its f32 master; the port's int8 runtime module and packs made
-    from the same f32 weights; numpy inputs."""
+    from the same f32 weights; numpy inputs (also built by
+    `tests/test_torch_host_loops.py`)."""
     c = CFG.gpt
     model = JUV(JAX_CFG.gpt)
     params = jax.jit(lambda k: model.init(

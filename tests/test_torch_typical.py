@@ -3,12 +3,12 @@ typical branches of `sample_token`, `warped_logprobs` and the beam
 candidates) against the JAX package: the filter on seeded logits with
 planted ties at 1 and 2 tokens kept; a step's candidates with JAX's
 uniforms injected; and whole greedy typical decodes of a tiny int8 GPT on
-every decode arm (the K1 device loop and the unfused loop, beam-3 over K3
+every decode arm (the K1 and the unfused device loops, beam-3 over K3
 and eager, `spec_decode` with its double penalty, the request-batched beam
 and the batched K3 decode) against JAX's loops (Pallas in interpret mode),
 with a typical mass small enough that the codes differ from plain greedy.
-Sampled, the chunked loops give the codes of the host loop (K3 beam, with
-JAX's uniforms) and of one chunk a step (K1, one seeded generator)."""
+Sampled, the chunked loops give the codes of one step a chunk (the K3 beam
+against its reorder arm, with JAX's uniforms; K1, one seeded generator)."""
 
 import dataclasses
 import functools
@@ -216,7 +216,7 @@ def _same(out, ref):
 @pytest.mark.parametrize("arm", ["k1", "unfused"])
 def test_greedy_typical_decode_matches_jax(gpts, arm):
     """One-beam greedy typical decode: the K1 device loop (fused pack,
-    folded readout) and the unfused host loop give JAX's codes, and they
+    folded readout) and the unfused device loop give JAX's codes, and they
     are not plain greedy's."""
     g = gpts
     kw = dict(fused_pack=g["pack"], readout_pack=g["ro"]) if arm == "k1" else {}
@@ -227,7 +227,7 @@ def test_greedy_typical_decode_matches_jax(gpts, arm):
     _same(out, ref)
     plain = pdecode.decode(g["prt"], _plain(GREEDY), *_args(g), MAX_NEW, **kw)
     assert not torch.equal(plain.codes, out.codes)
-    assert out.chunks == (1 if arm == "k1" else 0)
+    assert out.chunks == 1
 
 
 def _plain(gen):
@@ -336,13 +336,14 @@ class JaxUniforms:
 
 def test_sampled_typical_loops_match_host_loops(gpts):
     """Sampled typical: the chunked K3 beam gives the codes of the K3 step
-    in a host loop with a physical reorder (JAX's uniforms injected in both,
-    drawn in the same order); the chunked K1 decode gives the codes of one
-    step a chunk (one seeded generator), all in the vocabulary."""
+    with a physical reorder one step a chunk (the reorder arm's device loop,
+    which replaced its host loop; JAX's uniforms injected in both, drawn in
+    the same order); the chunked K1 decode gives the codes of one step a
+    chunk (one seeded generator), all in the vocabulary."""
     g = gpts
     kw = dict(fused_pack=g["pack"], readout_pack=g["ro"], int8_kv=True)
     ref = pbeam.beam_decode(g["prt"], BEAM_SAMPLE, *_args(g), MAX_NEW,
-                            uniform=JaxUniforms(), ancestor_table=False, **kw)
+                            uniform=JaxUniforms(), ancestor_table=False, chunk=1, **kw)
     out = pbeam.beam_decode(g["prt"], BEAM_SAMPLE, *_args(g), MAX_NEW,
                             uniform=JaxUniforms(), chunk=4, **kw)
     for a, b in zip(out[:3], ref[:3]):

@@ -122,7 +122,11 @@
 // the last block of a head to arrive stages every split's partials in
 // shared memory and combines them in split order, then the causal tail:
 // no launch of its own, deterministic.  200 blocks at pos 300, 320 at pos
-// 1500 (the unsplit kernel launched 80).
+// 1500 (the unsplit kernel launched 80).  In a device loop the position
+// is an int in device memory (JAX's `pos0 = p + s.step` from the loop
+// state): the grid is then a fixed plan for the cache (`verify_plan`), a
+// block whose split starts at or past the position only arrives, and the
+// combine takes the live splits alone, as the host-int form does.
 //
 // K6 over an int4 pack (`fused_decode.py:1322` with `FusedDecodePackInt4`):
 // the same chain, every trunk GEMV K7's `dq_gemv4` over the K rows (its
@@ -835,7 +839,8 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
 verify_split_kernel(const float* __restrict__ qkv,
                     const __nv_bfloat16* __restrict__ cache_k,
                     const __nv_bfloat16* __restrict__ cache_v,
-                    const float* __restrict__ bias, int pos, int kk, int d, int hd,
+                    const float* __restrict__ bias, int pos_arg,
+                    const int* __restrict__ pos_dev, int t_max, int kk, int d, int hd,
                     float q_scale, int split_t, float* __restrict__ ctx,
                     __nv_bfloat16* __restrict__ kv_new, float* __restrict__ work,
                     int* __restrict__ arrivals) {
@@ -854,6 +859,9 @@ verify_split_kernel(const float* __restrict__ qkv,
   const int lpr = hd / 8, rows = 32 / lpr;
   const int g = lane / lpr, sub = lane % lpr;
   const size_t row3 = (size_t)3 * d;         // one qkv row
+  // a device position is clamped to [0, t_max - kk]: no read past the cache
+  const int pos = pos_dev != nullptr ? min(max(__ldg(pos_dev), 0), t_max - kk) : pos_arg;
+  const int n_live = max(1, (pos + split_t - 1) / split_t);   // splits with work
   const int c0 = sp * split_t;
   const int n = max(0, min(split_t, pos - c0));
 
@@ -959,17 +967,19 @@ verify_split_kernel(const float* __restrict__ qkv,
 
   const int stride = hd + 2;                 // one row's (o, m, l)
   float* mine = work + ((size_t)h * n_splits + sp) * kk * stride;
-  for (int i = tid; i < kk * hd; i += blockDim.x) {
-    const int j = i / hd, c = i % hd;
-    float a = 0.0f;
-    if (n > 0) {
-      for (int w = 0; w < ATT_WARPS; ++w) a += part[((size_t)w * kk + j) * hd + c];
+  if (sp < n_live) {                         // a split past the position only arrives
+    for (int i = tid; i < kk * hd; i += blockDim.x) {
+      const int j = i / hd, c = i % hd;
+      float a = 0.0f;
+      if (n > 0) {
+        for (int w = 0; w < ATT_WARPS; ++w) a += part[((size_t)w * kk + j) * hd + c];
+      }
+      mine[j * stride + c] = a;
     }
-    mine[j * stride + c] = a;
-  }
-  if (tid < kk) {
-    mine[tid * stride + hd] = n > 0 ? ml[tid][0] : -INFINITY;
-    mine[tid * stride + hd + 1] = n > 0 ? ml[tid][1] : 0.0f;
+    if (tid < kk) {
+      mine[tid * stride + hd] = n > 0 ? ml[tid][0] : -INFINITY;
+      mine[tid * stride + hd + 1] = n > 0 ? ml[tid][1] : 0.0f;
+    }
   }
   __threadfence();                           // the partials before the count
   __syncthreads();
@@ -985,7 +995,7 @@ verify_split_kernel(const float* __restrict__ qkv,
   const size_t split_stride = (size_t)kk * stride;
   float* all = reinterpret_cast<float*>(smem);   // [n_splits][kk][hd + 2]
   const float* mine_all = work + (size_t)h * n_splits * split_stride;
-  for (int i = tid; i < n_splits * (int)split_stride; i += blockDim.x) {
+  for (int i = tid; i < n_live * (int)split_stride; i += blockDim.x) {
     all[i] = __ldcg(mine_all + i);
   }
   float* s_tail = part;                      // [kk][kk]
@@ -1007,7 +1017,7 @@ verify_split_kernel(const float* __restrict__ qkv,
     const int j = e / hd, c = e % hd;
     const float* oj = all + (size_t)j * stride;
     float m_run = oj[hd], l_run = oj[hd + 1], a = oj[c];
-    for (int s = 1; s < n_splits; ++s) {
+    for (int s = 1; s < n_live; ++s) {
       const float* os = oj + s * split_stride;
       const float ms = os[hd];
       const float m_new = fmaxf(m_run, ms);
@@ -1112,13 +1122,14 @@ cudaError_t launch_gemv(const GemvArgs& a, int cpw, cudaStream_t stream) {
 template <int KMAX>
 int launch_verify(dim3 grid, size_t smem, cudaStream_t s, const float* qkv,
                   const __nv_bfloat16* ck, const __nv_bfloat16* cv, const float* bias,
-                  int pos, int nrows, int d, int hd, float q_scale, int split_t, float* ctx,
-                  __nv_bfloat16* kvn, float* work, int* arrivals) {
+                  int pos, const int* pos_dev, int t_max, int nrows, int d, int hd,
+                  float q_scale, int split_t, float* ctx, __nv_bfloat16* kvn, float* work,
+                  int* arrivals) {
   const cudaError_t e = vtt::allow_dynamic_smem((const void*)verify_split_kernel<KMAX>, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)vtt::launch_pdl(verify_split_kernel<KMAX>, grid, dim3(ATT_WARPS * 32), smem, s,
-                              qkv, ck, cv, bias, pos, nrows, d, hd, q_scale, split_t, ctx, kvn,
-                              work, arrivals);
+                              qkv, ck, cv, bias, pos, pos_dev, t_max, nrows, d, hd, q_scale,
+                              split_t, ctx, kvn, work, arrivals);
 }
 
 int launch_gemv_epi(const GemvArgs& a, int epilogue, int cpw, cudaStream_t s) {
@@ -1189,22 +1200,27 @@ VTT_EXPORT int vtt_dq_gemv4(const float* x, const float* ln_w, const float* ln_b
 
 // K6's attention of one layer for 1 <= nrows <= 8 rows of one sequence at
 // positions pos .. pos + nrows - 1; see verify_split_kernel.  bf16 cache,
-// hd as in vtt_decode_attend.  The prefix [0, pos) in n_splits splits of
-// split_t positions (`verify_splits`): 1 <= split_t <= VERIFY_MAX_SPLIT,
-// n_splits * split_t >= pos, at least one split; work: (heads, n_splits,
-// nrows, hd + 2) f32 scratch; arrivals: (heads,) int32, zero before the
-// first launch and left zero by each.
+// hd as in vtt_decode_attend.  pos is the host int `pos` when pos_dev is
+// null, else the int at pos_dev, read on the device and clamped to [0,
+// t_max - nrows].  The prefix [0, pos) in n_splits splits of split_t
+// positions (`verify_splits`, or `verify_plan` for a device position):
+// 1 <= split_t <= VERIFY_MAX_SPLIT, n_splits * split_t >= pos (>= t_max -
+// nrows for a device position), at least one split; work: (heads,
+// n_splits, nrows, hd + 2) f32 scratch; arrivals: (heads,) int32, zero
+// before the first launch and left zero by each.
 VTT_EXPORT int vtt_verify_attend(const float* qkv, const void* cache_k,
                                  const void* cache_v, const float* bias,
-                                 int pos, int nrows, int t_max, int d,
-                                 int heads, float q_scale, float* ctx,
+                                 int pos, const int* pos_dev, int nrows, int t_max,
+                                 int d, int heads, float q_scale, float* ctx,
                                  void* kv_new, float* work, int split_t,
                                  int n_splits, int* arrivals, void* stream) {
   const int hd = d / heads;
+  const long long cover = (long long)n_splits * split_t;
   if (d % heads != 0 || hd % 8 != 0 || 32 % (hd / 8) != 0 || nrows < 1
-      || nrows > MAX_VERIFY || pos < 0 || pos + nrows > t_max || split_t < 1
+      || nrows > MAX_VERIFY || nrows > t_max || split_t < 1
       || split_t > VERIFY_MAX_SPLIT || n_splits < 1
-      || (long long)n_splits * split_t < pos) {
+      || (pos_dev == nullptr && (pos < 0 || pos + nrows > t_max || cover < pos))
+      || (pos_dev != nullptr && cover < t_max - nrows)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = verify_kv_bytes(split_t, hd, n_splits, nrows)
@@ -1216,11 +1232,11 @@ VTT_EXPORT int vtt_verify_attend(const float* qkv, const void* cache_k,
   const auto* cv = static_cast<const __nv_bfloat16*>(cache_v);
   auto* kvn = static_cast<__nv_bfloat16*>(kv_new);
   if (nrows <= 4) {
-    return launch_verify<4>(grid, smem, s, qkv, ck, cv, bias, pos, nrows, d, hd, q_scale,
-                            split_t, ctx, kvn, work, arrivals);
+    return launch_verify<4>(grid, smem, s, qkv, ck, cv, bias, pos, pos_dev, t_max, nrows, d,
+                            hd, q_scale, split_t, ctx, kvn, work, arrivals);
   }
-  return launch_verify<MAX_VERIFY>(grid, smem, s, qkv, ck, cv, bias, pos, nrows, d, hd,
-                                   q_scale, split_t, ctx, kvn, work, arrivals);
+  return launch_verify<MAX_VERIFY>(grid, smem, s, qkv, ck, cv, bias, pos, pos_dev, t_max,
+                                   nrows, d, hd, q_scale, split_t, ctx, kvn, work, arrivals);
 }
 
 // Attention of one layer for nrows rows; see attend_split_kernel.  hd = d /

@@ -1,10 +1,15 @@
 """Device-resident loops: the JAX package's decode `while_loop`s and its
-25-step CFM `scan` (`voice_tts_tpu/models/gpt/decode.py:318`,
+25-step CFM `scan` (`voice_tts_tpu/models/gpt/decode.py:318, 551`,
 `models/gpt/beam.py:404`, `models/s2mel/cfm.py:71`) with their state, their
-positions and their stop test on the device.
+positions and their stop test on the device: every decode arm (K1, K3, the
+unfused step, the eager beam, `spec_decode`) and the CFM solve.
 
 A decode loop's state is a NamedTuple of tensors, and its step function is
-predicated: a step taken after the stop leaves the state as it was.
+predicated: a step taken after the stop leaves the state as it was.  A step
+reads the state, the static tensors of `bind` and the model's weights, and
+makes every other tensor it needs itself: a graph replays the addresses it
+captured, and a tensor made by the caller outside the step is freed when
+the call that captured returns.
 `run_chunks` runs the steps CHUNK at a time and reads one flag from the
 device before the first chunk and after each (`read_flag`): the loop's only
 host reads.  `run_once` runs a function of fixed-shape inputs (the whole CFM
@@ -180,16 +185,19 @@ class DeviceLoops:
         self._stream: Optional[torch.cuda.Stream] = None
         self.stats = {"graphs": 0, "capture_s": 0.0, "replays": 0, "host_reads": 0}
 
-    def bind(self, key: tuple, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def bind(self, key: tuple, tensors: Dict[str, Optional[torch.Tensor]]
+             ) -> Dict[str, Optional[torch.Tensor]]:
         """The key's static copies of `tensors` (same names, shapes and
         dtypes), holding `tensors`' values: allocated on the key's first
-        use, copied into after it."""
+        use, copied into after it (a None stays None)."""
         entry = self._keys.get(key)
         if entry is None:
-            self._keys[key] = _Key({k: v.clone() for k, v in tensors.items()})
+            self._keys[key] = _Key({k: None if v is None else v.clone()
+                                    for k, v in tensors.items()})
             return self._keys[key].tensors
         for k, v in tensors.items():
-            entry.tensors[k].copy_(v)
+            if v is not None:
+                entry.tensors[k].copy_(v)
         return entry.tensors
 
     def _side(self):
@@ -366,11 +374,17 @@ def run_once(inputs: Dict[str, torch.Tensor],
     return loops.once(key, inputs, fn, generator)
 
 
-def loops_for(device: torch.device, loops: Optional[DeviceLoops]) -> Optional[DeviceLoops]:
+def loops_for(device: torch.device, loops: Optional[DeviceLoops],
+              capture: bool = True) -> Optional[DeviceLoops]:
     """The loops a device loop runs under: none on the CPU; on a CUDA device
     `loops`, or a cache of its own for this one call (captured anew) when
     the caller passed none: the card runs the loops as graphs unless the
-    caller asked otherwise (`DeviceLoops(..., capture=False)`)."""
+    caller asked otherwise (`DeviceLoops(..., capture=False)`).  With
+    `capture` false (a cache split over cards: one graph cannot span
+    cards) the loop runs op by op, under `loops` when they do not capture,
+    else under loops of its own."""
     if device.type != "cuda":
         return None
-    return loops if loops is not None else DeviceLoops(device)
+    if loops is None or (loops.capture and not capture):
+        return DeviceLoops(device, capture=capture)
+    return loops

@@ -17,13 +17,16 @@ buckets and padded shapes.  The decode is either
   `spec_decode_k >= 2` the self-speculative decode instead (int4 drafts
   through K1, one int8 verify pass through K6 a round).
 
-On a CUDA device the decode loops of the K1 and K3 arms and the CFM solve
-run as the JAX package runs them, on the device (`engine/device_loop.py`):
-the decode a chunk of CHUNK steps at a time, each chunk a replay of a CUDA
-graph captured once per shape key (one host read a chunk), and the 25 Euler
-steps one graph a request.  The graphs and their static buffers belong to
-the engine (`self.loops`); a key's first request captures them.  The spec
-decode and the unfused arms keep their host loops.
+On a CUDA device every decode loop (the K1 and K3 arms, the unfused step
+with or without K5, the eager beam and the spec decode's rounds) and the
+CFM solve run as the JAX package runs them, on the device
+(`engine/device_loop.py`): the decode a chunk of steps at a time, each
+chunk a replay of a CUDA graph captured once per shape key (one host read a
+chunk), and the 25 Euler steps one graph a request.  The graphs and their
+static buffers belong to the engine (`self.loops`); a key's first request
+captures them.  Under tensor parallelism the same loops run op by op
+(`DeviceLoops(capture=False)`: one host read a chunk, no graph), since one
+graph cannot span cards.
 
 New speakers run the conditioning path (resample, seamless features,
 w2v-bert, RepCodec, kaldi fbank + CAMPPlus, mel, regulator,
@@ -148,12 +151,12 @@ FUSED_DIT_MAX_FRAMES = 768
 # ms a decode step of the flagship bench configuration on one card, the
 # rates `_should_batch_segments` weighs: "k1" the one-row K1 device loop,
 # "k3_batch" the batched sampling decode's K3 device loop at 4 rows, "eager"
-# the unfused step's host loop at 4 rows (medians of 3 runs of 254 and 31
+# the unfused step's device loop at 4 rows (medians of 3 runs of 254 and 31
 # steps, each decode's wall over its steps: the prefill included, one a row
 # in the batched decode).  Measured on NVIDIA H100 80GB HBM3 at a 700.00 W
 # power limit by `python -m voice_tts_tpu_torch.scripts.decode_host_time
-# --profiles rates`.
-DECODE_STEP_MS = {"k1": 1.1121, "k3_batch": 1.8966, "eager": 41.5748}
+# --profiles rates` (the eager step took 41.5748 ms in its host loop).
+DECODE_STEP_MS = {"k1": 1.0460, "k3_batch": 1.7466, "eager": 5.0055}
 
 # the keys an `infer_batch` request dict may hold: `infer`'s keywords that a
 # request of a group can carry (every request decodes with the engine's
@@ -487,8 +490,10 @@ class TTSEngine:
         self.generator = torch.Generator(device=dev).manual_seed(e.seed)
         # row slots of the request-batched decodes, one stream a job
         self._job_streams: List[torch.Generator] = []
-        # the captured device loops (decode chunks, CFM solve) on the card
-        self.loops = device_loop.DeviceLoops(dev) if dev.type == "cuda" else None
+        # the captured device loops (decode chunks, CFM solve) on the card;
+        # op by op under TP (a graph does not span cards)
+        self.loops = (device_loop.DeviceLoops(dev, capture=self.tp_mesh is None)
+                      if dev.type == "cuda" else None)
         self._step_tables: Dict[bool, dict] = {}
         self.last_metrics: Dict[str, float] = {}
 
@@ -1336,7 +1341,7 @@ class TTSEngine:
                 res = spec_decode(self.gpt_rt, gen, spk["cond_latents"], emovec,
                                   text, text_lens, max_new, self.generator,
                                   self.fused_pack, self.spec_draft_pack,
-                                  e.spec_decode_k)
+                                  e.spec_decode_k, loops=self.loops)
                 timers["spec_rounds"] = timers.get("spec_rounds", 0) + res.rounds
                 timers["spec_accepted"] = timers.get("spec_accepted", 0) + res.accepted
             else:

@@ -35,11 +35,16 @@ Two arms, chosen as in the JAX package:
   `done` or past `max_new` leaves the state and the cache as they were;
 - the eager arm (no pack, K > 4, or `GPTConfig.pallas_decode_attention`):
   `UnifiedVoice.decode_step` over a cache that is physically reordered
-  after every step.  It is the plain reference of the K3 arm
-  (`ancestor_table=False` gives the K3 step the same physical reorder, for
-  tests).  With `pallas_decode_attention` its cache is float, padded to a
-  multiple of 512, and each layer attends through K5.  Both keep a host
-  loop, one host read of `done` a step.
+  after every step (JAX's `jnp.take` of the cache by the parents).  It is
+  the plain reference of the K3 arm (`ancestor_table=False` gives the K3
+  step the same physical reorder, for tests).  With
+  `pallas_decode_attention` its cache is float, padded to a multiple of
+  512, and each layer attends through K5.  It is the same device loop:
+  the parents ride in the state, and each step first reorders the cache
+  (and an int8 cache's scales) by them into a scratch of the same shape
+  and copies it back (`index_select` of a tensor into itself would alias;
+  no step allocates a cache), then takes the step at its device position.
+  Over a cache split over cards (tensor parallelism) it runs op by op.
 
 Request-batched beam (`beam_decode_fused_batch`, the engine's `infer_batch`
 and multi-segment path): R requests x K beams = R * K <= 12 rows of one K3
@@ -67,11 +72,11 @@ import torch
 from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.engine import device_loop
 from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
-from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult,
+from voice_tts_tpu_torch.models.gpt.decode import (DecodeResult, is_sharded,
                                                    apply_repetition_penalty,
                                                    apply_top_k, apply_top_p,
                                                    apply_typical, generation_key,
-                                                   prefill_rows)
+                                                   held_step, kv_tensors, prefill_rows)
 from voice_tts_tpu_torch.models.gpt.decode import log_softmax as _log_softmax
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
@@ -103,6 +108,9 @@ class _BeamState(NamedTuple):
     pool_seqs: torch.Tensor        # (K, max_new)
     pool_lens: torch.Tensor        # (K,)
     done: torch.Tensor             # () bool
+    # (K,) each beam's parent, by which the next step first reorders the
+    # cache (the arms without a table); None with a table
+    parents: Optional[torch.Tensor] = None
 
 
 class _BeamStateB(NamedTuple):
@@ -341,8 +349,8 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
     CUDA device a replay of a graph of `loops` (the engine's; one of this
     call's own when None), or op by op with `DeviceLoops(..., capture=False)`.
     Otherwise, and always under `cfg.pallas_decode_attention`, the eager
-    step with a physical cache reorder in a host loop (`ancestor_table=False`
-    gives the K3 step that reorder and loop too).
+    step with a physical cache reorder, as the same device loop
+    (`ancestor_table=False` gives the K3 step that reorder too).
     `uniform` replaces the Gumbel draw's uniforms (default: `generator`)."""
     cfg = model.cfg
     k = gen.num_beams
@@ -401,48 +409,55 @@ def beam_decode(model: UnifiedVoice, gen: GenerationConfig,
             torch.zeros((k,), dtype=torch.long, device=dev),
             torch.zeros((), dtype=torch.bool, device=dev))
         s, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p, max_new)
+        reorder = src is None
+        if reorder:
+            s = s._replace(parents=parents)
 
-        chunks = 0
-        if src is None:
-            # the eager arm, or K3 with a physical reorder: a host loop
-            step = 1
-            while True:
-                cache = cache.index_select(2, parents)
-                if scales is not None:
-                    scales = scales.index_select(1, parents)
-                if step >= max_new or bool(s.done):
-                    break
-                if use_fused:
-                    logits = _k3_logits(model, fused_pack, readout_pack, cache, scales,
-                                        attn_bias, s, p + step)
-                else:
-                    logits = model.decode_step(s.last_tokens, step - 1, p + step,
-                                               valid_k, cache)
-                s, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p,
-                                        max_new)
-                step += 1
-        else:
-            chunk = chunk or device_loop.CHUNK
-            loops = device_loop.loops_for(dev, loops)
-            key = ("beam", id(model), id(fused_pack), id(readout_pack), id(generator),
-                   id(uniform) if injected else None, generation_key(gen), p, t_max,
-                   max_new, int8_kv, chunk)
-            st = device_loop.bind(loops, key, {
-                "cache": cache, "bias": attn_bias,
-                **({"scales": scales} if int8_kv else {}),
-                **s._asdict()})
-            cache, attn_bias, scales = st["cache"], st["bias"], st.get("scales")
+        chunk = chunk or device_loop.CHUNK
+        loops = device_loop.loops_for(dev, loops, capture=not is_sharded(cache))
+        key = ("beam", id(model), id(fused_pack), id(readout_pack), id(generator),
+               id(uniform) if injected else None, generation_key(gen), p, t_max,
+               max_new, use_fused, reorder, int8_kv, cfg.pallas_decode_attention, chunk)
+        def beam_axes(cache, scales):
+            """The cache's tensors, each with its beam axis."""
+            if use_fused:
+                return [(cache, 2)] + ([(scales, 1)] if int8_kv else [])
+            return [(t, 2) for t in kv_tensors(cache)]
 
-            def step_fn(s: _BeamState) -> _BeamState:
-                active = (s.step < max_new) & ~s.done
+        # each cache tensor has a scratch of its shape for the reorder
+        st = device_loop.bind(loops, key, {
+            "cache": cache, "bias": attn_bias, "scales": scales,
+            "valid": None if use_fused else valid_k.contiguous(),
+            **{f"scratch{i}": torch.empty_like(t) if reorder else None
+               for i, (t, _) in enumerate(beam_axes(cache, scales))},
+            **s._asdict()})
+        cache, attn_bias, scales, valid_k = st["cache"], st["bias"], st["scales"], st["valid"]
+        rows = beam_axes(cache, scales)
+        scratch = [st[f"scratch{i}"] for i in range(len(rows))]
+
+        def step_fn(s: _BeamState) -> _BeamState:
+            active = (s.step < max_new) & ~s.done
+            pos = p + s.step                            # at most t_max - 1
+            if reorder:
+                # this step's beams read their parents' histories (made in
+                # the step: a replay reads only the key's static tensors)
+                order = torch.where(active, s.parents, torch.arange(k, device=dev))
+                for (t, dim), tmp in zip(rows, scratch):
+                    torch.index_select(t, dim, order.to(t.device), out=tmp)
+                    t.copy_(tmp)
+            if use_fused:
                 logits = _k3_logits(model, fused_pack, readout_pack, cache, scales,
-                                    attn_bias, s, p + s.step, active)  # pos <= t_max - 1
-                return device_loop.select(active, _make_step(
-                    s, logits, uniform, gen, k, vocab, eos, p, max_new)[0], s)
+                                    attn_bias, s, pos, active)
+            else:
+                logits = held_step(cache, pos, active, lambda: model.decode_step(
+                    s.last_tokens, s.step - 1, pos, valid_k, cache))
+            new, parents = _make_step(s, logits, uniform, gen, k, vocab, eos, p, max_new)
+            return device_loop.select(active, new._replace(
+                parents=parents if reorder else None), s)
 
-            s, chunks = device_loop.run_chunks(
-                _BeamState(*(st[f] for f in _BeamState._fields)), step_fn,
-                lambda s: (s.step < max_new) & ~s.done, chunk, loops, key, generator)
+        s, chunks = device_loop.run_chunks(
+            _BeamState(*(st[f] for f in _BeamState._fields)), step_fn,
+            lambda s: (s.step < max_new) & ~s.done, chunk, loops, key, generator)
 
         seq, lengths, hit_limit = _best(s, gen, k, max_new, eos)
     return DecodeResult(seq, lengths, hit_limit, int(s.step) - 1, chunks)

@@ -2,10 +2,11 @@
 (`voice_tts_tpu/models/gpt/decode.py:151-553`): `decode` and the
 self-speculative `spec_decode`.
 
-The fused arm runs as the JAX `while_loop` does, on the device
-(`engine.device_loop`: chunks of steps, one CUDA graph a chunk on the
-card); the unfused arms and `spec_decode` run a host loop over a
-preallocated KV cache.  Logit processing follows the
+Every arm, and `spec_decode`, runs as the JAX `while_loop` does, on the
+device (`engine.device_loop`: chunks of steps over a preallocated KV
+cache, one CUDA graph a chunk on the card, one host read a chunk; the
+unfused step and the spec rounds take their positions on the device, as
+K5's length and K6's position).  Logit processing follows the
 HF order for the reference defaults: repetition penalty -> temperature ->
 top-k -> top-p -> categorical sample (or argmax when `do_sample` is off),
 with top-p computed inside the descending top-k candidates (no full-vocab
@@ -43,13 +44,14 @@ device, as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
 from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.engine import device_loop
 from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
+from voice_tts_tpu_torch.models.gpt.gpt2 import QuantKVCache
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice, n_cond_latents
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T as ATTN_BLOCK_T
 from voice_tts_tpu_torch.ops.fused_decode import (BLOCK_T, FusedDecodePack,
@@ -72,7 +74,7 @@ class DecodeResult(NamedTuple):
     lengths: torch.Tensor    # (B,) codes per row including the stop token
     hit_limit: torch.Tensor  # (B,) True if stopped by max length
     steps: int               # decode steps after the prefill
-    chunks: int = 0          # chunks of the device loop (0: the host loop)
+    chunks: int = 0          # chunks of the device loop
 
 
 class _LoopState(NamedTuple):
@@ -235,6 +237,35 @@ def _advance(s: _LoopState, logits: torch.Tensor, gen: GenerationConfig,
                       torch.where(s.finished, s.lengths, s.step + 1))
 
 
+def kv_tensors(cache) -> List[torch.Tensor]:
+    """The tensors of an unfused decode's cache: a float cache, the rows and
+    scales of a `QuantKVCache`, or every shard of a cache split over cards
+    (`parallel.tp.ShardedKV`)."""
+    parts = list(cache) if isinstance(cache, QuantKVCache) else [cache]
+    return [t for part in parts for t in getattr(part, "shards", [part])]
+
+
+def held_step(cache, pos: torch.Tensor, active: torch.Tensor, fn: Callable):
+    """fn(), an unfused step that writes `cache` at the time position `pos`
+    (0-d, the last axis of every cache tensor), with what it wrote there
+    taken back where the 0-d `active` is false: a step after the loop's
+    stop leaves the cache as it was."""
+    ts = kv_tensors(cache)
+    idx = [pos.reshape(1).to(t.device) for t in ts]
+    held = [t.index_select(-1, i) for t, i in zip(ts, idx)]
+    out = fn()
+    for t, i, h in zip(ts, idx, held):
+        t.index_copy_(t.dim() - 1, i,
+                      torch.where(active.to(t.device), t.index_select(-1, i), h))
+    return out
+
+
+def is_sharded(cache) -> bool:
+    """Whether a cache is split over cards (a tensor-parallel GPT's)."""
+    return any(hasattr(part, "shards")
+               for part in (cache if isinstance(cache, QuantKVCache) else [cache]))
+
+
 def decode(model: UnifiedVoice, gen: GenerationConfig,
            cond_latents: torch.Tensor, emo_vec: torch.Tensor,
            text_tokens: torch.Tensor, text_lengths: torch.Tensor,
@@ -252,15 +283,15 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
     `int8_kv_xla` case).  `cfg.pallas_decode_attention` turns the fused path
     off (K5 reads a float cache, so `int8_kv` drops there).  With
     `fused_batch`, a pack and 1 < B <= 8 the step is K3 over the B rows at
-    one shared position (the JAX `use_fused_b` arm), a device loop too.
+    one shared position (the JAX `use_fused_b` arm).
 
-    The fused arm (K1) is the JAX `while_loop` on the device
-    (`engine.device_loop`): state, position and stop test stay there, and
-    the steps run `chunk` (default CHUNK) at a time, one host read a chunk;
-    on a CUDA device each chunk replays a graph of `loops` (the engine's;
-    one of this call's own when None), or runs op by op with
-    `DeviceLoops(..., capture=False)`.  The unfused arms keep a host loop
-    (one host read a step)."""
+    Every arm is the JAX `while_loop` on the device (`engine.device_loop`):
+    state, position and stop test stay there, and the steps run `chunk`
+    (default CHUNK) at a time, one host read a chunk; on a CUDA device each
+    chunk replays a graph of `loops` (the engine's; one of this call's own
+    when None), or runs op by op with `DeviceLoops(..., capture=False)`.
+    The unfused arm's step (`UnifiedVoice.decode_step`) takes its position
+    on the device too; over a cache split over cards it runs op by op."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     dev = text_tokens.device
@@ -307,37 +338,42 @@ def decode(model: UnifiedVoice, gen: GenerationConfig,
         s = _LoopState(torch.ones((), dtype=torch.long, device=dev), token,
                        presence.scatter(1, token[:, None], True), codes,
                        token == stop, torch.ones((b,), dtype=torch.long, device=dev))
-        if not (use_fused or use_fused_b):
-            step = 1
-            while step < max_new and not bool(s.finished.all()):
-                s = _advance(s, model.decode_step(s.token, step - 1, p + step, valid, cache),
-                             gen, generator, stop, max_new)
-                step += 1
-            return DecodeResult(s.codes, s.lengths, ~s.finished, step - 1)
 
-        cache = cache_to_time_major(cache)
-        scales = None
-        if use_fused_b:
-            # (B, Tmax) per-row additive mask over the cache positions
-            bias = torch.where(valid, 0.0, -1e30).float()
-            if int8_kv:
-                cache, scales = quantize_kv_cache_batch(cache)
+        scales = bias = None
+        if use_fused or use_fused_b:
+            cache = cache_to_time_major(cache)
+            if use_fused_b:
+                # (B, Tmax) per-row additive mask over the cache positions
+                bias = torch.where(valid, 0.0, -1e30).float()
+                if int8_kv:
+                    cache, scales = quantize_kv_cache_batch(cache)
+            else:
+                bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
+                if int8_kv:
+                    cache, scales = quantize_kv_cache(cache)
+            static = {"cache": cache, "bias": bias, "scales": scales}
         else:
-            bias = torch.where(valid[0, :, None], 0.0, -1e30).float()
-            if int8_kv:
-                cache, scales = quantize_kv_cache(cache)
+            # the unfused step reads the request's valid mask
+            static = {"cache": cache.kv if int8_kv_eager else cache,
+                      "scales": cache.scales if int8_kv_eager else None, "valid": valid}
         chunk = chunk or device_loop.CHUNK
-        loops = device_loop.loops_for(dev, loops)
+        loops = device_loop.loops_for(dev, loops, capture=not is_sharded(cache))
         key = ("decode", id(model), id(fused_pack), id(readout_pack), id(generator),
-               generation_key(gen), b, p, t_max, max_new, int8_kv, chunk)
-        st = device_loop.bind(loops, key, {
-            "cache": cache, "bias": bias,
-            **({"scales": scales} if int8_kv else {}), **s._asdict()})
-        cache, bias, scales = st["cache"], st["bias"], st.get("scales")
+               generation_key(gen), b, p, t_max, max_new, use_fused, use_fused_b,
+               int8_kv, int8_kv_eager, cfg.pallas_decode_attention, chunk)
+        st = device_loop.bind(loops, key, {**static, **s._asdict()})
+        cache, scales, bias, valid = st["cache"], st["scales"], st.get("bias"), st.get("valid")
+        if int8_kv_eager:
+            cache = QuantKVCache(cache, scales)
 
         def step(s: _LoopState) -> _LoopState:
             active = (s.step < max_new) & ~s.finished.all()
             pos = p + s.step                # at most t_max - 1
+            if not (use_fused or use_fused_b):
+                logits = held_step(cache, pos, active, lambda: model.decode_step(
+                    s.token, s.step - 1, pos, valid, cache))
+                return device_loop.select(active, _advance(s, logits, gen, generator,
+                                                           stop, max_new), s)
             emb = model.embed_decode_token(s.token, s.step - 1)
             if use_fused_b:
                 hidden, kv_new, logits_pad = fused_decode_step_batch(
@@ -379,6 +415,21 @@ class SpecDecodeResult(NamedTuple):
     steps: int               # codes emitted after the prefill's first code
     rounds: int              # draft + verify rounds
     accepted: int            # drafted tokens accepted, over all rounds
+    chunks: int = 0          # chunks of the device loop
+
+
+class _SpecState(NamedTuple):
+    """The speculative loop's state on the device (JAX `_SpecState`; the
+    cache is updated in place beside it, the generator stands for the key,
+    and the port counts rounds and accepted drafts there too)."""
+    step: torch.Tensor       # () int64: codes emitted
+    token: torch.Tensor      # (1,) last emitted token
+    presence: torch.Tensor   # (1, V)
+    codes: torch.Tensor      # (1, max_new + K): a round's window never clips
+    finished: torch.Tensor   # (1,)
+    lengths: torch.Tensor    # (1,)
+    rounds: torch.Tensor     # () int64
+    accepted: torch.Tensor   # () int64
 
 
 def warped_logprobs(logits: torch.Tensor, presence: torch.Tensor,
@@ -438,10 +489,13 @@ def speculative_accept(lp_target: torch.Tensor, lp_draft: torch.Tensor,
     else:
         accept = torch.log(uniforms) < (lp_target[idx, drafts] - lp_draft[idx, drafts])
     n_acc = torch.cumprod(accept.to(torch.int64), dim=0).sum()
-    row = torch.clamp(n_acc, max=kk - 2)           # the first rejected position
-    corr = lp_target[row]
+    # the first rejected position (`index_select`: a 0-d index would be read
+    # on the host)
+    row = torch.clamp(n_acc, max=kk - 2).reshape(1)
+    corr = lp_target.index_select(0, row)[0]
     if uniforms is not None:
-        resid = torch.clamp(torch.exp(corr) - torch.exp(lp_draft[row]), min=0.0)
+        resid = torch.clamp(torch.exp(corr) - torch.exp(lp_draft.index_select(0, row)[0]),
+                            min=0.0)
         corr = torch.where(resid.sum() > 0, torch.log(torch.clamp(resid, min=1e-30)),
                            corr)
     return n_acc, torch.where(n_acc == kk - 1, lp_target[kk - 1], corr)
@@ -452,7 +506,8 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
                 text_tokens: torch.Tensor, text_lengths: torch.Tensor,
                 max_new: int, generator: Optional[torch.Generator],
                 pack_target: FusedDecodePack, pack_draft: Pack,
-                k_spec: int = 4) -> SpecDecodeResult:
+                k_spec: int = 4, loops: Optional[DeviceLoops] = None,
+                chunk: Optional[int] = None) -> SpecDecodeResult:
     """Self-speculative AR decode, batch 1 (JAX `spec_decode`).
 
     Each round drafts k_spec - 1 tokens, one K1 step each with `pack_draft`
@@ -464,7 +519,18 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
     overwrites at the same positions.  Both read out through
     `model.readout`.  Stop-token and cap semantics as `decode` (drafts past
     a stop are dropped).  `cfg.pallas_decode_attention` is not read here,
-    as the JAX `spec_decode` does not read it: the packs stay in use."""
+    as the JAX `spec_decode` does not read it: the packs stay in use.
+
+    The rounds are the JAX `while_loop` on the device (`engine.device_loop`,
+    `chunk` rounds a chunk, default CHUNK // k_spec: about CHUNK codes at
+    full acceptance): the position reaches K1 and K6 as a device tensor,
+    the emission is JAX's masked window merge (no host read), a round draws
+    a fixed number of times (k_spec - 1 drafts, the acceptance uniforms and
+    the emitted token when sampling), and a round after the stop leaves the
+    state and the cache as they were.  On a CUDA device each chunk replays a
+    graph of `loops` (the engine's; one of this call's own when None), or
+    runs op by op with `DeviceLoops(..., capture=False)`.  `rounds` and
+    `accepted` are read once, at the end."""
     cfg = model.cfg
     b, bl = text_tokens.shape
     if b != 1:
@@ -495,64 +561,79 @@ def spec_decode(model: UnifiedVoice, gen: GenerationConfig,
         presence[:, 1] = True
         presence[:, cfg.start_mel_token] = True
         token = _draw(warped_logprobs(logits0, presence, gen), gen, generator)
-        presence[0, token] = True
-        # the codes are kept on the host, where each round's emission lands
-        # after its one device sync
-        codes = torch.full((1, max_new), eos, dtype=torch.long)
-        codes[0, 0] = int(token[0])
-        finished = int(codes[0, 0]) == eos
-        length, step, rounds, accepted = 1, 1, 0, 0
-        while step < max_new and not finished:
-            pos0 = p + step                 # the last emitted token's position
+        codes = torch.full((1, max_new + kk), eos, dtype=torch.long, device=dev)
+        codes[:, 0] = token
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        s = _SpecState(torch.ones((), dtype=torch.long, device=dev), token,
+                       presence.scatter(1, token[:, None], True), codes, token == eos,
+                       torch.ones((1,), dtype=torch.long, device=dev), zero, zero.clone())
+        chunk = chunk or max(1, device_loop.CHUNK // kk)
+        loops = device_loop.loops_for(dev, loops)
+        key = ("spec", id(model), id(pack_target), id(pack_draft), id(generator),
+               generation_key(gen), p, t_max, max_new, kk, chunk)
+        st = device_loop.bind(loops, key, {"cache": cache, "bias": bias, **s._asdict()})
+        cache, bias = st["cache"], st["bias"]
+
+        def round_fn(s: _SpecState) -> _SpecState:
+            active = (s.step < max_new) & ~s.finished.all()
+            # made in the round: a replay reads only the key's static tensors
+            lanes = torch.arange(kk, device=dev)
+            pos0 = p + s.step               # the last emitted token's position
             # ---- draft kk - 1 tokens
-            tok, pres_d = token, presence.clone()
+            tok, pres_d = s.token, s.presence
             embs, ckpts, d_toks, d_lps = [], [], [], []
             for i in range(kk - 1):
-                emb = model.embed_decode_token(tok, step - 1 + i)
+                emb = model.embed_decode_token(tok, s.step - 1 + i)
                 embs.append(emb)
-                ckpts.append(pres_d.clone())
+                ckpts.append(pres_d)
                 hidden, kv_new, _ = fused_decode_step(emb, pack_draft, cache, bias,
                                                       pos0 + i, cfg.heads)
-                apply_kv_update(cache, kv_new, pos0 + i)
+                apply_kv_update(cache, kv_new, pos0 + i, active)
                 lp_d = warped_logprobs(model.readout(hidden), pres_d, gen)
                 tok = _draw(lp_d, gen, generator)
                 d_toks.append(tok)
                 d_lps.append(lp_d)
-                pres_d[0, tok] = True
-            embs.append(model.embed_decode_token(tok, step - 1 + kk - 1))
+                pres_d = pres_d.scatter(1, tok[:, None], True)
+            embs.append(model.embed_decode_token(tok, s.step - 1 + kk - 1))
             ckpts.append(pres_d)
             # ---- one verify pass over [token, d_0 .. d_{kk-2}]
             hid_v, kv_v = fused_decode_verify(torch.cat(embs), pack_target, cache,
                                               bias, pos0, cfg.heads)
-            apply_kv_update_span(cache, kv_v, pos0)
+            apply_kv_update_span(cache, kv_v, pos0, active)
             # the target's warped distributions, each under the presence
             # its position saw (row-wise: one call for the kk rows)
-            lp_t = warped_logprobs(model.readout(hid_v), torch.cat(ckpts), gen)
+            pres_stack = torch.cat(ckpts)                       # (kk, V)
+            lp_t = warped_logprobs(model.readout(hid_v), pres_stack, gen)
             # ---- accept, then the residual or bonus token
             drafts = torch.cat(d_toks)
             u = (torch.clamp(torch.rand(kk - 1, generator=generator, device=dev),
                              min=1e-20) if gen.do_sample else None)
-            n_acc_t, next_lp = speculative_accept(lp_t, torch.cat(d_lps), drafts, u)
-            t_star = _draw(next_lp[None], gen, generator)
-            round_t = torch.cat([drafts, t_star])       # d_0 .. d_{kk-2}, t_star
-            # the round's one device sync
-            n_acc, *round_toks = torch.cat([n_acc_t.reshape(1), round_t]).tolist()
+            n_acc, next_lp = speculative_accept(lp_t, torch.cat(d_lps), drafts, u)
+            t_star = _draw(next_lp[None], gen, generator)       # (1,)
             # ---- emit [d_0 .. d_{n_acc-1}, t_star], honouring stop and cap
-            emitted = round_toks[:n_acc] + round_toks[-1:]
-            count = len(emitted)
-            if eos in emitted:
-                count = emitted.index(eos) + 1
-            count = min(count, max_new - step)
-            finished = eos in emitted[:count]
-            codes[0, step:step + count] = torch.tensor(emitted[:count])
-            presence = ckpts[n_acc].clone()
-            presence[0, t_star] = True
-            # the next round's first token, left on the device
-            token = round_t[count - 1:count] if count <= n_acc else t_star
-            step += count
-            length = step
-            rounds += 1
-            accepted += n_acc
-    return SpecDecodeResult(codes.to(dev), torch.tensor([length], device=dev),
-                            torch.tensor([not finished], device=dev), step - 1,
-                            rounds, accepted)
+            # (JAX's masked window merge)
+            emitted = torch.where(lanes == n_acc, t_star, torch.cat([drafts, t_star]))
+            is_stop = (emitted == eos) & (lanes <= n_acc)
+            any_stop = is_stop.any()
+            first_stop = torch.argmax(is_stop.long())
+            # (>= 1 in a round that runs: JAX's count-0 branch is the stop,
+            # which `select` covers; a round after it reads lane 0)
+            count = torch.minimum(torch.where(any_stop, first_stop + 1, n_acc + 1),
+                                  max_new - s.step)
+            cols = s.step + lanes
+            merged = torch.where(lanes < count, emitted, s.codes[0].index_select(0, cols))
+            return device_loop.select(active, _SpecState(
+                s.step + count, merged.index_select(0, (count - 1).clamp(min=0).reshape(1)),
+                # the checkpoint at the emission boundary, and t_star's bit
+                pres_stack.index_select(0, n_acc.reshape(1)).scatter(1, t_star[:, None], True),
+                s.codes.index_copy(1, cols, merged[None]),
+                s.finished | (any_stop & (count == first_stop + 1)),
+                s.step + count, s.rounds + 1, s.accepted + n_acc), s)
+
+        s, chunks = device_loop.run_chunks(
+            _SpecState(*(st[f] for f in _SpecState._fields)), round_fn,
+            lambda s: (s.step < max_new) & ~s.finished.all(), chunk, loops, key,
+            generator)
+        steps, rounds, accepted = torch.stack([s.step, s.rounds, s.accepted]).tolist()
+    return SpecDecodeResult(s.codes[:, :max_new].clone(), s.lengths.clone(), ~s.finished,
+                            steps - 1, rounds, accepted, chunks)

@@ -13,6 +13,12 @@ probabilities (the unfused decode with `int8_kv`).  With
 `pallas_attention` (`GPTConfig.pallas_decode_attention`) a single-token step
 over a cache whose length is a multiple of 512 attends through K5
 (`ops.decode_attention`), which reads only the live prefix.
+
+`cache_index`, where the new rows land, is a host int or a 0-d integer
+tensor on the device (a device loop's position, as the JAX package's
+traced index, `dynamic_update_slice` at `voice_tts_tpu/models/gpt/gpt2.py:
+120-133`): the cache is then written with `index_copy_` and K5 reads its
+length from the device, so no host code reads the position.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from torch import nn
 from voice_tts_tpu_torch.models.layers import LayerNorm, normal_
 from voice_tts_tpu_torch.ops.decode_attention import BLOCK_T, decode_attention
 from voice_tts_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_gemv
+
+# a cache position: a host int, or a 0-d integer tensor on the device
+Index = Union[int, torch.Tensor]
 
 
 class QuantKVCache(NamedTuple):
@@ -97,12 +106,25 @@ class Conv1DGPT(nn.Module):
         return (y * self.scale.float() + b).to(x.dtype)
 
 
-def attend(qkv: torch.Tensor, kv, cache_index: int, attn_mask: torch.Tensor,
+def _write_time(buf: torch.Tensor, cache_index: Index, rows: torch.Tensor) -> None:
+    """rows (..., S) into buf (..., Tmax) at [cache_index, cache_index + S)
+    along the last axis: a slice for a host int, `index_copy_` for a
+    device position (no host read)."""
+    s = rows.shape[-1]
+    if not isinstance(cache_index, torch.Tensor):
+        buf[..., cache_index:cache_index + s] = rows
+        return
+    idx = cache_index.to(buf.device).reshape(1).long() + torch.arange(s, device=buf.device)
+    buf.index_copy_(buf.dim() - 1, idx, rows.to(buf.dtype))
+
+
+def attend(qkv: torch.Tensor, kv, cache_index: Index, attn_mask: torch.Tensor,
            heads: int, pallas_attention: bool = False) -> torch.Tensor:
     """Multi-head attention of a block from its fused projection `qkv` (B,
     S, 3 * heads * hd) = [q | k | v]: writes K/V into `kv` (as
-    `GPT2Block.forward` takes it) and returns the context (B, S, heads *
-    hd).  The tensor-parallel block calls it on each shard's heads."""
+    `GPT2Block.forward` takes it) at `cache_index` (a host int or a 0-d
+    device tensor) and returns the context (B, S, heads * hd).  The
+    tensor-parallel block calls it on each shard's heads."""
     b, s, _ = qkv.shape
     q, k, v = torch.chunk(qkv, 3, dim=-1)
     d = q.shape[-1]
@@ -115,21 +137,24 @@ def attend(qkv: torch.Tensor, kv, cache_index: int, attn_mask: torch.Tensor,
         kv_q, kv_s = kv
         for i, t in enumerate((k, v)):
             q_i, s_i = _quantize_kv(t)
-            kv_q[i, :, :, :, cache_index:cache_index + s] = q_i
-            kv_s[i, :, :, cache_index:cache_index + s] = s_i
+            _write_time(kv_q[i], cache_index, q_i)
+            _write_time(kv_s[i], cache_index, s_i)
         k_all, v_all = kv_q[0], kv_q[1]
     elif kv is not None:
-        kv[0, :, :, :, cache_index:cache_index + s] = k.to(kv.dtype)
-        kv[1, :, :, :, cache_index:cache_index + s] = v.to(kv.dtype)
+        _write_time(kv[0], cache_index, k.to(kv.dtype))
+        _write_time(kv[1], cache_index, v.to(kv.dtype))
         k_all, v_all = kv[0], kv[1]
     else:
         k_all, v_all = k, v
     if (pallas_attention and kv is not None and not int8_kv and s == 1
             and k_all.shape[3] % BLOCK_T == 0):
-        # K5: reads only the live prefix [0, cache_index]
+        # K5: reads only the live prefix [0, cache_index]; a device position
+        # stays on the device as K5's length
         bias = torch.where(attn_mask[:, 0, :], 0.0, -1e30).float()
+        length = (cache_index.to(q.device).reshape(()) + 1
+                  if isinstance(cache_index, torch.Tensor) else cache_index + 1)
         return decode_attention(q[:, :, 0, :], k_all, v_all, bias,
-                                cache_index + 1).reshape(b, s, d)
+                                length).reshape(b, s, d)
     # f32 scores / softmax regardless of the compute dtype; an int8 cache is
     # cast to the compute dtype before each product (exact: |q| <= 127), its
     # k dequant rides on the scores and its v dequant on the probabilities
@@ -162,7 +187,7 @@ class GPT2Block(nn.Module):
         self.mlp_c_fc = Conv1DGPT(dim, 4 * dim, int8)
         self.mlp_c_proj = Conv1DGPT(4 * dim, dim, int8)
 
-    def forward(self, x, kv, cache_index: int, attn_mask: torch.Tensor):
+    def forward(self, x, kv, cache_index: Index, attn_mask: torch.Tensor):
         """x (B, S, D); kv (2, B, H, hd, Tmax), an int8 pair ((2, B, H, hd,
         Tmax) int8, (2, B, H, Tmax) f32 scales) or None; attn_mask (B, S, L).
 
@@ -182,11 +207,12 @@ class GPT2Block(nn.Module):
         return res + y, kv
 
 
-def attention_mask(embeds: torch.Tensor, kv_cache, cache_index: int,
+def attention_mask(embeds: torch.Tensor, kv_cache, cache_index: Index,
                    valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, S, L) attendable keys of a stack's forward: causal over the S
     new rows at [cache_index, cache_index + S) of a cache of length L (or
-    over the rows alone without a cache), and `valid_mask` (B, L)."""
+    over the rows alone without a cache), and `valid_mask` (B, L).  A
+    device `cache_index` gives the query positions on the device."""
     b, s, _ = embeds.shape
     dev = embeds.device
     if kv_cache is not None:
@@ -214,7 +240,7 @@ class GPT2Stack(nn.Module):
 
     def forward(self, embeds: torch.Tensor,
                 kv_cache: Union[torch.Tensor, QuantKVCache, None] = None,
-                cache_index: int = 0,
+                cache_index: Index = 0,
                 valid_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, QuantKVCache, None]]:
         """embeds (B, S, D) -> (hidden (B, S, D), cache).  `kv_cache` (a

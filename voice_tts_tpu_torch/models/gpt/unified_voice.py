@@ -27,7 +27,7 @@ from torch import nn
 from voice_tts_tpu_torch.config import GPTConfig
 from voice_tts_tpu_torch.models.gpt.cond_encoder import AttentionConditioningEncoder
 from voice_tts_tpu_torch.models.gpt.conformer import ConformerEncoder
-from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack, QuantKVCache
+from voice_tts_tpu_torch.models.gpt.gpt2 import GPT2Stack, Index, QuantKVCache
 from voice_tts_tpu_torch.models.gpt.perceiver import PerceiverResampler
 from voice_tts_tpu_torch.models.layers import Embedding, LayerNorm, Linear
 
@@ -239,8 +239,10 @@ class UnifiedVoice(nn.Module):
         this keeps a row's logits those of `readout` at batch 1."""
         return torch.cat([self.readout(hidden[i:i + 1]) for i in range(hidden.shape[0])])
 
-    def decode_step(self, token, step: int, cache_index: int, valid, kv_cache):
-        """One AR step on the unfused path; `kv_cache` is updated in place."""
+    def decode_step(self, token, step: Index, cache_index: Index, valid, kv_cache):
+        """One AR step on the unfused path; `kv_cache` is updated in place.
+        `step` (the mel position less one) and `cache_index` are host ints,
+        or 0-d tensors on the device (a device loop's: no host read)."""
         emb = self.embed_decode_token(token, step)[:, None, :]
         dtype = emb.dtype if isinstance(kv_cache, QuantKVCache) else kv_cache.dtype
         hidden, _ = self.gpt(emb.to(dtype), kv_cache, cache_index, valid)

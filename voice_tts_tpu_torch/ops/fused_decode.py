@@ -310,10 +310,21 @@ def apply_kv_update_q(kv_cache: torch.Tensor, kv_scales: torch.Tensor,
 
 
 def apply_kv_update_span(kv_cache: torch.Tensor, kv_new: torch.Tensor,
-                         pos: int) -> torch.Tensor:
+                         pos: Pos, active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write kv_new (L, 2, K, D) at the span [pos, pos + K) of the batch-1
-    time-major cache (the speculative verify's commit)."""
-    kv_cache[:, :, 0, pos:pos + kv_new.shape[2], :] = kv_new.to(kv_cache.dtype)
+    time-major cache (the speculative verify's commit); `pos` a host int,
+    or a 0-d device tensor (`index_copy_`: no host read), with `active` as
+    in `_write_rows`."""
+    kk = kv_new.shape[2]
+    rows = kv_new.to(kv_cache.dtype)
+    if not isinstance(pos, torch.Tensor):
+        kv_cache[:, :, 0, pos:pos + kk, :] = rows
+        return kv_cache
+    buf = kv_cache[:, :, 0]
+    idx = pos.reshape(1).long() + torch.arange(kk, device=pos.device)
+    if active is not None:
+        rows = torch.where(active, rows, buf.index_select(2, idx))
+    buf.index_copy_(2, idx, rows)
     return kv_cache
 
 
@@ -641,22 +652,26 @@ def _verify_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int,
     return xs, kv_new
 
 
-def fused_decode_verify_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int):
+def fused_decode_verify_plain(x, pack: Pack, kv_cache, bias, pos: Pos, heads: int):
     """Plain PyTorch version; see `fused_decode_verify`.  Row j attends the
     committed prefix [0, pos) under the bias, then rows i <= j of the K
     current tokens with their unrounded f32 k/v (JAX `_attend_verify`).
-    An int4 pack's products are `_dot4`'s (JAX's default scheme)."""
+    An int4 pack's products are `_dot4`'s (JAX's default scheme).  A tensor
+    `pos` is read on the host (CPU tensors, and the reference on the
+    card)."""
     return _verify_plain(x, pack, kv_cache, bias, pos, heads, None)
 
 
-def fused_decode_verify_split_plain(x, pack: Pack, kv_cache, bias, pos: int, heads: int):
+def fused_decode_verify_split_plain(x, pack: Pack, kv_cache, bias, pos: Pos, heads: int):
     """The plain verify with the CUDA verify attention's arithmetic: the
-    committed prefix in the splits of `verify_splits`, each split's softmax
+    committed prefix in the splits of `verify_plan` (a host int's own plan,
+    or a tensor position's plan fixed for the cache, whose splits past the
+    position the kernel leaves out of the combine), each split's softmax
     partials of every row combined in split order, then the row's causal
     tail (`_split_attention`), and an int4 pack's fc2 summed as K7 sums it
     (`int4_gemv_plain`); the same function as `fused_decode_verify_plain`,
     summed another way."""
-    split_t, _ = verify_splits(pos, heads, kv_cache.shape[3])
+    split_t, _ = verify_plan(pos, heads, kv_cache.shape[3], x.shape[0])
     return _verify_plain(x, pack, kv_cache, bias, pos, heads, split_t)
 
 
@@ -747,6 +762,18 @@ def verify_splits(pos: int, heads: int, t_max: int):
     return width, max(1, -(-live // width))
 
 
+def verify_plan(pos: Pos, heads: int, t_max: int, k: int):
+    """(split width, splits) of the K6 attention's grid for K rows at
+    `pos`: `verify_splits` for a host int; for a position on the device,
+    which the host does not read, a plan fixed for the cache: the width of
+    `verify_splits(t_max, heads, t_max)` and the splits that cover the
+    largest prefix, Tmax - K (a split past the position only arrives)."""
+    if not isinstance(pos, torch.Tensor):
+        return verify_splits(pos, heads, t_max)
+    width, _ = verify_splits(t_max, heads, t_max)
+    return width, max(1, -(-(t_max - k) // width))
+
+
 def verify_workspace(heads: int, splits: int, k: int, hd: int) -> int:
     """f32 scratch of one K6 attention launch, (H, splits, K, hd + 2): each
     split's weighted sum of V, max and sum for every row."""
@@ -818,13 +845,15 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
         _check(f"{kernel}: readout.consts", readout_pack.consts, dev,
                torch.float32, (2, v_pad))
         _check(f"{kernel}: readout.lnf", readout_pack.lnf, dev, torch.float32, (2, d))
-    pos_rows = None
+    pos_rows = pos_dev = None
     if isinstance(pos, torch.Tensor):
-        if verify or pos.numel() not in (1, b):
+        if pos.numel() not in ((1,) if verify else (1, b)):
             raise ValueError(f"{kernel}: pos {tuple(pos.shape)}: a host int, or "
-                             f"one or {b} positions")
-        pos_rows = pos.reshape(-1).to(device=dev, dtype=torch.int32).expand(b).contiguous()
-        pos = 0
+                             f"one{'' if verify else f' or {b}'} position(s)")
+        if verify:
+            pos_dev = pos.reshape(1).to(device=dev, dtype=torch.int32)
+        else:
+            pos_rows = pos.reshape(-1).to(device=dev, dtype=torch.int32).expand(b).contiguous()
     elif not 0 <= int(pos) <= t_max - (b if verify else 1):
         raise ValueError(f"{kernel}: pos {int(pos)} with {b if verify else 1} "
                          f"row(s) outside [0, {t_max})")
@@ -838,7 +867,7 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     kv_new = torch.empty((n_layers, 2, b, d), device=dev,
                          dtype=torch.float32 if int8_kv else kv_cache.dtype)
     if verify:
-        split_t, splits = verify_splits(pos, heads, t_max)
+        split_t, splits = verify_plan(pos, heads, t_max, b)
         work = torch.empty(verify_workspace(heads, splits, b, hd),
                            dtype=torch.float32, device=dev)
         arrivals = torch.zeros(heads, dtype=torch.int32, device=dev)
@@ -865,6 +894,8 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
     scale_base = kv_scales.data_ptr() if int8_kv else None
     src_p = beam_src.data_ptr() if beam_src is not None else None
     pos_p = pos_rows.data_ptr() if pos_rows is not None else None
+    pos_dev_p = pos_dev.data_ptr() if pos_dev is not None else None
+    pos = 0 if isinstance(pos, torch.Tensor) else int(pos)
     bias_p = bias.data_ptr()
     work_p, arrivals_p = work.data_ptr(), arrivals.data_ptr()
     if int4:
@@ -892,7 +923,7 @@ def _decode_chain_cuda(kernel: str, x, pack: Pack, kv_cache, bias, pos: Pos,
              qkvp, 3 * d, _EPI_NONE)
         if verify:
             call("vtt_verify_attend", qkvp, cache_k, cache_k + plane, bias_p,
-                 pos, b, t_max, d, heads, q_scale, ctxp,
+                 pos, pos_dev_p, b, t_max, d, heads, q_scale, ctxp,
                  kv_base + layer * kv_layer, work_p, split_t, splits, arrivals_p,
                  stream)
         else:
@@ -1008,7 +1039,7 @@ def fused_decode_step_batch(x: torch.Tensor, pack: Pack,
 
 
 def fused_decode_verify(x: torch.Tensor, pack: Pack,
-                        kv_cache: torch.Tensor, bias: torch.Tensor, pos: int,
+                        kv_cache: torch.Tensor, bias: torch.Tensor, pos: Pos,
                         heads: int):
     """The speculative verify step, K6: K = 2..8 tokens of ONE sequence in
     one pass over the trunk.
@@ -1017,7 +1048,10 @@ def fused_decode_verify(x: torch.Tensor, pack: Pack,
     then every GEMV of the chain is K7's int4 loader over the K rows (JAX's
     `FusedDecodePackInt4` branch, its default dequant scheme) and each
     launch also counts under `fused_decode_int4`, as an int4 K1 / K3 chain.
-    x (K, D) embeddings of the tokens at positions pos .. pos + K - 1;
+    x (K, D) embeddings of the tokens at positions pos .. pos + K - 1, pos a
+    host int or a 0-d integer tensor on x's device (a device loop's: the
+    kernels read it and clamp it to [0, Tmax - K], their grid the plan
+    fixed for the cache, `verify_plan`);
     kv_cache TIME-MAJOR (L, 2, 1, Tmax, D) bf16, Tmax % 256 == 0 (positions
     [0, pos) are the committed history); bias (Tmax, 1) f32 additive mask.
     Row j attends the prefix, then rows i <= j of the K tokens with their
@@ -1039,12 +1073,11 @@ def fused_decode_verify(x: torch.Tensor, pack: Pack,
     if x.is_cuda:
         y, kv_new, _ = _decode_chain_cuda(
             "fused_decode_verify", x.float().contiguous(), pack, kv_cache,
-            bias.reshape(1, t_max), int(pos), heads, None, None, None,
-            verify=True)
+            bias.reshape(1, t_max), pos, heads, None, None, None, verify=True)
         return y, kv_new
     if x.device.type != "cpu":
         raise ValueError(f"fused_decode_verify: unsupported device {x.device}")
-    return fused_decode_verify_plain(x, pack, kv_cache, bias, int(pos), heads)
+    return fused_decode_verify_plain(x, pack, kv_cache, bias, pos, heads)
 
 
 def int4_gemv(x: torch.Tensor, w: torch.Tensor, gscales: torch.Tensor,

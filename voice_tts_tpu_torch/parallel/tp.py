@@ -37,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from voice_tts_tpu_torch.models.gpt.gpt2 import (GPT2Block, GPT2Stack, QuantKVCache,
+from voice_tts_tpu_torch.models.gpt.gpt2 import (GPT2Block, GPT2Stack, Index, QuantKVCache,
                                                  attend, attention_mask, gelu_new)
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.models.layers import Embedding, Linear, promote
@@ -242,10 +242,13 @@ class TPBlock(_Sharded):
         return torch.cat([t[..., c * self.dim + i * n:c * self.dim + (i + 1) * n]
                           for c in range(3)], dim=-1)
 
-    def forward(self, x, kvs: Optional[List], cache_index: int, masks: List[torch.Tensor]):
+    def forward(self, x, kvs: Optional[List], cache_index: Index,
+                masks: List[torch.Tensor]):
         """x (B, S, D) on the lead device; kvs[i] shard i's layer cache (a
-        tensor, an int8 pair, or None for all); masks[i] the (B, S, L)
-        mask on shard i's device.  Returns (hidden, kvs)."""
+        tensor, an int8 pair, or None for all); `cache_index` a host int or
+        a 0-d tensor on the lead device (each shard's `attend` takes it to
+        its own); masks[i] the (B, S, L) mask on shard i's device.  Returns
+        (hidden, kvs)."""
         lead = x.device
         y = self.ln_1(x)
         parts = []
@@ -295,7 +298,7 @@ class TPStack(nn.Module):
             setattr(self, f"h_{i}", TPBlock(getattr(stack, f"h_{i}"), self.devices))
         self.ln_f = stack.ln_f
 
-    def forward(self, embeds: torch.Tensor, kv_cache=None, cache_index: int = 0,
+    def forward(self, embeds: torch.Tensor, kv_cache=None, cache_index: Index = 0,
                 valid_mask: Optional[torch.Tensor] = None):
         """`GPT2Stack.forward` with the cache a `ShardedKV` or a
         `QuantKVCache` of two (updated in place)."""

@@ -12,7 +12,8 @@ acceptance logic, the other launches, syncs and the device's tail.  One
 JSON line a request; the first request of a profile is the cold one.
 
 Where the package runs its loops on the device (`engine/device_loop.py`:
-the K1 / K3 decode a chunk of steps at a time, the CFM solve once), a
+every decode a chunk of steps (spec decode a chunk of rounds) at a time,
+the CFM solve once), a
 wrapper runs its Python only when a graph is captured, and a row also has
 the host time of each graph replay (`replay_*`: a decode chunk, or a
 solve), the host reads of the loops' flags (`host_reads`), the decode's
@@ -29,7 +30,7 @@ Two profiles time no request.  `rates` times the decode steps that
 the bench configuration: "k1" the one-row K1 device loop, "k3_batch" the
 batched sampling decode of 4 rows through K3 at one shared position
 (`decode(fused_batch=True)`), "eager" the unfused step of 4 rows in its
-host loop; a warm-up run, then `--requests` timed runs, one line a rate
+device loop; a warm-up run, then `--requests` timed runs, one line a rate
 (ms a step: the median, min and max of wall / steps).  `memory` serves
 the production configuration's `infer_batch` of 2 and of 4 requests
 (beam-3: 6 and 12 K3 rows) in two text buckets from a fresh engine at
@@ -98,7 +99,7 @@ TINY_BENCH_FLAGS = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=Tr
 # the K8 trunk (prompt bucket 256 + mel bucket 448)
 PROMPT_S = {"dit": 2.5}
 # the rates profile: the rows of the batched rates, and the decode steps of
-# the K1 / K3 runs and of the eager run (its host loop is ~35x slower)
+# the K1 / K3 runs and of the eager run (its unfused step is the slowest)
 RATE_ROWS, RATE_STEPS, EAGER_STEPS = 4, 255, 32
 # the memory profile: a text of each of two text buckets (32 and 64 tokens
 # on the flagship), and the group sizes (beam-3: 6 and 12 K3 rows)
