@@ -4,7 +4,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-(`--only k5 k8 ...` runs just those kernel checks and prints their JSON,
+(`--only k5 k8 ...` runs just those kernel checks (`micro`: the
+micro-benchmark path) and prints their JSON,
 without the slices and without the result line; `--only vocoder` runs the
 vocoder A/B alone on a flagship BigVGAN with random weights, `--only
 batched`, `--only serving`, `--only loading` and `--only emotion` those
@@ -55,13 +56,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    device-only beside the int8 K6, and at a device position);
 3b. the int4 verify path: K6's int4 branch at its op entry (no serving
    path sends it an int4 pack), 8 calls with the counters from 0;
-4. micro-benchmark path: K12 (`micro_tile`, the int8 tile stream) and K13
-   (`micro_int4`, the int4 stream with a carried row), every mode against
-   its plain version at D 1280, 16 tiles (K12's dot8i with x past the int8
-   range, K13 with scales at U(500, 2500)), then the entry points
+4. micro-benchmark path (`--only micro` runs it alone): K12 (`micro_tile`,
+   the int8 tile stream; dot8 and dot8i on the tensor cores) and K13
+   (`micro_int4`, the int4 stream with a carried row, exchanged tile by
+   tile without a grid barrier), every mode against its plain version:
+   K12 at D 1280, 16 tiles and at D 256 / 512 with 1, 3 and 5 tiles (dot8i
+   with x past the int8 range); K13 at D 512 and 1280 end to end over 1,
+   2, 3 and 16 tiles (scales at U(500, 2500)), then over every prefix of
+   a 288-tile pass, each tile against one plain tile from the kernel's own
+   row (scales that keep the row's size); then the entry points
    `voice_tts_tpu_torch.scripts.micro_tile` / `.micro_int4` at their
    defaults (D 1280, 288 tiles, 20 and 60 passes) with the counters from 0:
    one launch a pass, 160 a mode; then each plain version over 3 passes;
+   each mode's share of its bound, K12's blocks a SM, K13's time a tile
+   beyond the stream and its serial floor;
 5. tiny engines: the tiny engine on the card against the same weights on
    the CPU, greedy, same CFM noise: one beam (K1), the production flags
    (beam-3 through K3, int8 KV, bf16 conditioning), spec decode with
@@ -2256,6 +2264,13 @@ def check_k10(torch, dev, results):
 MICRO_CHECK_TILES = 16
 # a benchmark run: the scripts' defaults (D 1280, 288 tiles, 20 and 60 passes)
 MICRO_D, MICRO_TILES, MICRO_LO, MICRO_HI = 1280, 288, 20, 60
+# K12's edge shapes: 2 and 4 column slices, tile counts that leave the last
+# group of TILES_PER_BLOCK short
+MICRO_TILE_EDGES = [(d, n) for d in (256, 512) for n in (1, 3, 5)]
+# K13's: two widths of the exchange (4 and 10 column slices); 1-16 tiles
+# end to end, then a whole pass, the ring of slabs reused 72 times
+MICRO_INT4_DIMS = (512, 1280)
+MICRO_INT4_TILES = (1, 2, 3, 16)
 # the mode each entry's headline times: K12's one-row product (K4's case),
 # K13's grouped int4 scheme (K7's)
 MICRO_HEADLINE = {"micro_tile": "dot1", "micro_int4": "cur"}
@@ -2266,77 +2281,112 @@ MICRO_LIBRARY = ("no single PyTorch call streams int8 tiles through a per-tile "
 
 
 def check_micro_tile(torch, dev):
-    """K12's modes against the plain version at D 1280, 16 tiles (dot8i with
-    x scaled past the int8 range, so the saturating cast shows).  Returns
-    each mode's error."""
+    """K12's modes against the plain version at D 1280, 16 tiles, and at
+    the edge shapes (dot8i with x scaled past the int8 range, so the
+    saturating cast shows).  Returns each mode's largest error."""
     from voice_tts_tpu_torch.ops import micro_tile as mt
     from voice_tts_tpu_torch.scripts import micro_tile as script
 
-    n = MICRO_CHECK_TILES
-    x, w = script.make_inputs(MICRO_D, n, dev)
-    # the kernel adds its partials in another order: each of the n + 1
-    # adds on either side rounds by at most 2^-24 of the absolute sum of the
-    # terms; the dots' f32 sums of D products also run in another order
-    # (4 standard deviations of that random walk, sqrt(D) 2^-24)
-    c_int = 2 * (n + 1) * 2 ** -24
-    c_dot = c_int + 4 * MICRO_D ** 0.5 * 2 ** -24
-    errs = {}
-    for mode in mt.MODES:
-        xm = x * 100 if mode == "dot8i" else x
-        out = mt.micro_tile(xm, w, mode)
-        torch.cuda.synchronize()
-        ref = mt.micro_tile_plain(xm, w, mode)
-        if mode in ("dot1", "dot8"):
-            terms = [mt.stage_plain(xm.abs(), w[t].abs(), mode) for t in range(n)]
-        else:
-            terms = [mt.stage_plain(xm, w[t], mode).abs() for t in range(n)]
-        mag = float((xm.abs() + sum(terms)).max())
-        tol = (c_dot if mode in ("dot1", "dot8") else c_int) * mag
-        err = max_err(torch, out, ref)
-        print(f"K12 {mode} D={MICRO_D} T={n}: max_abs_err {err:.4g} (tol {tol:.4g} = "
-              f"{tol / mag:.3g} * {mag:.4g}, the largest absolute sum of the terms)")
-        if not torch.isfinite(out).all() or not err <= tol:
-            fail(f"K12 micro_tile {mode} disagrees with the plain version")
-        errs[mode] = err
+    errs = dict.fromkeys(mt.MODES, 0.0)
+    for d, n in [(MICRO_D, MICRO_CHECK_TILES)] + MICRO_TILE_EDGES:
+        x, w = script.make_inputs(d, n, dev)
+        # the kernel adds its partials in another order: each of the n + 1
+        # adds on either side rounds by at most 2^-24 of the absolute sum of
+        # the terms; the dots' f32 sums of D products also run in another
+        # order (4 standard deviations of that random walk, sqrt(D) 2^-24)
+        c_int = 2 * (n + 1) * 2 ** -24
+        c_dot = c_int + 4 * d ** 0.5 * 2 ** -24
+        for mode in mt.MODES:
+            xm = x * 100 if mode == "dot8i" else x
+            out = mt.micro_tile(xm, w, mode)
+            torch.cuda.synchronize()
+            ref = mt.micro_tile_plain(xm, w, mode)
+            if mode in ("dot1", "dot8"):
+                terms = [mt.stage_plain(xm.abs(), w[t].abs(), mode) for t in range(n)]
+            else:
+                terms = [mt.stage_plain(xm, w[t], mode).abs() for t in range(n)]
+            mag = float((xm.abs() + sum(terms)).max())
+            tol = (c_dot if mode in ("dot1", "dot8") else c_int) * mag
+            err = max_err(torch, out, ref)
+            print(f"K12 {mode} D={d} T={n}: max_abs_err {err:.4g} (tol {tol:.4g} = "
+                  f"{tol / mag:.3g} * {mag:.4g}, the largest absolute sum of the terms)")
+            if not torch.isfinite(out).all() or not err <= tol:
+                fail(f"K12 micro_tile {mode} D={d} T={n} disagrees with the plain version")
+            errs[mode] = max(errs[mode], err)
     return errs
 
 
 def check_micro_int4(torch, dev):
-    """K13's modes against the plain version at D 1280, scales at U(500,
-    2500) so that the tile term moves the carried row: one tile from a
-    bf16-exact x (the tile's arithmetic), then 16 tiles (the barriers and
-    buffers that carry the row).  Returns each mode's larger error."""
+    """K13's modes against the plain version at D 512 and 1280.  End to
+    end, scales at U(500, 2500) so that the tile term moves the carried
+    row: one tile from a bf16-exact x (the tile's arithmetic), then 2, 3 and
+    16 tiles (the exchange that carries the row).  Then a whole pass of 288
+    tiles at scales that keep the row's size (`carry_gs_range`; at 500..2500
+    it is zero by then): the kernel over the first T tiles for every T,
+    each against one plain tile from the kernel's own row after T - 1, so
+    every tile's exchange and the ring of slabs over the pass are held to
+    the one-tile tolerance.  Returns each mode's largest error."""
     from voice_tts_tpu_torch.ops import micro_int4 as mi
     from voice_tts_tpu_torch.scripts import micro_int4 as script
 
-    x, w, gs, per_half = script.make_inputs(MICRO_D, MICRO_CHECK_TILES, dev,
-                                            gs_range=(500.0, 2500.0))
-    x1 = x.to(torch.bfloat16).float()
     # dma: the same f32 operations in the same order.  One tile: the dots'
-    # f32 sums in another order.  16 tiles: a carried value that differs in
+    # f32 sums in another order.  2-16 tiles: a carried value that differs in
     # its last bit may round to a neighbouring bf16 before the next tile's
     # product, and such flips compound from tile to tile (one bf16 step is
     # 2^-8 of a value; 2^-6 of max|row 0| bounds where the two land, while a
     # fault in a tile's arithmetic or in the carry moves row 0 by its size)
-    tols = {1: 1e-5, MICRO_CHECK_TILES: 2 ** -6}
-    errs = {}
-    for mode in mi.MODES:
-        errs[mode] = 0.0
-        for n, xn in ((1, x1), (MICRO_CHECK_TILES, x)):
-            out = mi.micro_int4(xn, w[:n].contiguous(), gs, mode, per_half)
-            torch.cuda.synchronize()
-            ref = mi.micro_int4_plain(xn, w[:n], gs, mode, per_half)
-            scale = float(ref[0].abs().max())
-            tol = 0.0 if mode == "dma" else tols[n] * scale
-            err = max_err(torch, out, ref)
-            moved = float((ref[0] - 0.5 ** n * xn[0]).abs().max())
-            print(f"K13 {mode} D={MICRO_D} T={n}: max_abs_err {err:.4g} (tol {tol:.4g}; "
-                  f"max|row 0| {scale:.4g}, moved by the tiles {moved:.4g}); rows 1-7 "
-                  f"equal: {bool(torch.equal(out[1:], ref[1:]))}")
-            if (not torch.isfinite(out).all() or not err <= tol
-                    or not torch.equal(out[1:], ref[1:])):
-                fail(f"K13 micro_int4 {mode} T={n} disagrees with the plain version")
-            errs[mode] = max(errs[mode], err)
+    tol_one, tol_many = 1e-5, 2 ** -6
+    errs = dict.fromkeys(mi.MODES, 0.0)
+
+    def held(mode, label, out, ref, rel, extra="", quiet=False):
+        scale = float(ref[0].abs().max())
+        tol = 0.0 if mode == "dma" else rel * scale
+        err = max_err(torch, out, ref)
+        rows = bool(torch.equal(out[1:], ref[1:]))
+        if not quiet:
+            print(f"K13 {mode} {label}: max_abs_err {err:.4g} (tol {tol:.4g}; max|row 0| "
+                  f"{scale:.4g}{extra}); rows 1-7 equal: {rows}")
+        if not torch.isfinite(out).all() or not err <= tol or not rows:
+            fail(f"K13 micro_int4 {mode} {label} disagrees with the plain version")
+        errs[mode] = max(errs[mode], err)
+        return err / max(scale, 1e-30)
+
+    for d in MICRO_INT4_DIMS:
+        x, w, gs, per_half = script.make_inputs(d, MICRO_INT4_TILES[-1], dev,
+                                                gs_range=(500.0, 2500.0))
+        x1 = x.to(torch.bfloat16).float()
+        for mode in mi.MODES:
+            for n in MICRO_INT4_TILES:
+                xn = x1 if n == 1 else x
+                out = mi.micro_int4(xn, w[:n], gs, mode, per_half)
+                torch.cuda.synchronize()
+                ref = mi.micro_int4_plain(xn, w[:n], gs, mode, per_half)
+                moved = float((ref[0] - 0.5 ** n * xn[0]).abs().max())
+                held(mode, f"D={d} T={n}", out, ref, tol_one if n == 1 else tol_many,
+                     f", moved by the tiles {moved:.4g}")
+        del x, w, gs
+        x, w, gs, per_half = script.make_inputs(d, MICRO_TILES, dev,
+                                                gs_range=script.carry_gs_range(d))
+        for mode in mi.MODES:
+            row, worst = x, 0.0
+            for n in range(1, MICRO_TILES + 1):
+                out = mi.micro_int4(x, w[:n], gs, mode, per_half)
+                ref = mi.micro_int4_plain(row, w[n - 1:n], gs, mode, per_half)
+                worst = max(worst, held(mode, f"D={d} T={n} from the kernel's row",
+                                        out, ref, tol_one, quiet=True))
+                row = out
+            size = float(row[0].abs().max())
+            whole = mi.micro_int4_plain(x, w, gs, mode, per_half)
+            apart = max_err(torch, row, whole) / float(whole[0].abs().max())
+            print(f"K13 {mode} D={d} T=1..{MICRO_TILES}, each tile from the kernel's "
+                  f"row: largest error {worst:.3g} of max|row 0| (tol {tol_one:g}); "
+                  f"max|row 0| after the pass {size:.4g}; the whole pass against the "
+                  f"plain one {apart:.3g} of max|row 0| (bf16 roundings of rows that "
+                  f"differ in their last bits)")
+            if mode != "dma" and not 1e-3 < size < 1e3:
+                fail(f"K13 {mode} D={d}: the carried row left the range where the tiles "
+                     f"move it ({size:.4g})")
+        del x, w, gs
     return errs
 
 
@@ -2350,10 +2400,32 @@ def micro_bound(name: str, mode: str, x, w, gs=None) -> dict:
     return bound(nbytes(w, gs, x) + nbytes(x), ops, "int8" if mode == "dot8i" else "bf16")
 
 
+def micro_tile_occupancy(torch, dev) -> dict:
+    """Blocks of each K12 mode's kernel that one SM holds at D 1280 (the
+    card's occupancy calculator), beside the grid's blocks and the SMs."""
+    import ctypes
+
+    from voice_tts_tpu_torch.ops import build
+    from voice_tts_tpu_torch.ops import micro_tile as mt
+
+    lib, got = build.kernels().lib, {}
+    for i, mode in enumerate(mt.MODES):
+        n = (ctypes.c_int * 1)()
+        if lib.vtt_micro_tile_occupancy(i, MICRO_D, n) != 0:
+            fail(f"vtt_micro_tile_occupancy refused {mode} at D {MICRO_D}")
+        got[mode] = n[0]
+    grid = MICRO_D // mt.COLS * -(-MICRO_TILES // mt.TILES_PER_BLOCK)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"K12 blocks a SM at D {MICRO_D}: {got} ({grid} blocks, {sms} SMs)")
+    return {"blocks_per_sm": got, "grid_blocks": grid, "sms": sms}
+
+
 def run_micro_path(torch, dev, counters, results):
     """The micro-benchmark path: both entry points at their defaults with
     the launch counters from 0 (one launch a pass: 2 (lo + hi) a mode),
-    then each plain version's time over 3 passes at the same shapes."""
+    then each plain version's time over 3 passes at the same shapes.  Each
+    mode's share of its bound; K13's time a tile beyond the stream (dma),
+    the carried row's exchange and the tile's arithmetic after it."""
     from voice_tts_tpu_torch.ops import micro_int4 as mi
     from voice_tts_tpu_torch.ops import micro_tile as mt
     from voice_tts_tpu_torch.scripts import micro_int4 as int4_script
@@ -2362,6 +2434,8 @@ def run_micro_path(torch, dev, counters, results):
     torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' dots in f32
     errs = {"micro_tile": check_micro_tile(torch, dev),
             "micro_int4": check_micro_int4(torch, dev)}
+    occupancy = micro_tile_occupancy(torch, dev)
+    print_ptxas(("micro_tile_mma_kernel", "micro_int4_kernel"))
     args = ["--dim", str(MICRO_D), "--tiles", str(MICRO_TILES),
             "--lo", str(MICRO_LO), "--hi", str(MICRO_HI)]
     counters.reset()
@@ -2391,11 +2465,32 @@ def run_micro_path(torch, dev, counters, results):
             b = micro_bound(name, mode, *data)
             modes[mode] = {"ms": r["ms"], "event_ms": r["event_ms"],
                            "us_per_tile": r["us_per_tile"], "gb_per_s": r["gb_per_s"],
-                           "plain_ms": plain_ms, "max_abs_err": errs[name][mode], **b}
+                           "plain_ms": plain_ms, "max_abs_err": errs[name][mode], **b,
+                           "bound_share": b["bound_ms"] / r["ms"]}
+            if name == "micro_tile":
+                modes[mode]["blocks_per_sm"] = occupancy["blocks_per_sm"][mode]
+            elif mode != "dma":
+                modes[mode]["us_per_tile_over_dma"] = \
+                    (r["ms"] - modes["dma"]["ms"]) / MICRO_TILES * 1e3
             print(f"{name} {mode}: {r['ms']:.4f} ms a pass (events {r['event_ms']:.4f}), "
                   f"{r['gb_per_s']:.1f} GB/s, plain {plain_ms:.3f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                  f"{modes[mode]['bound_share']:.3f} of it"
+                  + (f", {modes[mode]['us_per_tile_over_dma']:.3f} us a tile beyond dma"
+                     if "us_per_tile_over_dma" in modes[mode] else ""))
         head = modes[MICRO_HEADLINE[name]]
+        extra = {"occupancy": occupancy} if name == "micro_tile" else {}
+        if name == "micro_int4":
+            serial = min(m["us_per_tile_over_dma"] for k, m in modes.items() if k != "dma")
+            extra = {"exchange_us_per_tile": serial,
+                     "serial_floor_ms": serial * MICRO_TILES / 1e3,
+                     "serial_floor_of": "the least time a tile of any mode with the "
+                                        "carried row took beyond the stream (dma), "
+                                        f"times {MICRO_TILES} tiles: a chain of "
+                                        "cross-SM exchanges, each with the tile's "
+                                        "arithmetic after it"}
+            print(f"micro_int4 serial floor: {serial:.3f} us a tile, "
+                  f"{extra['serial_floor_ms']:.4f} ms a pass")
         results.append({
             "name": name, "route": "cuda", "source": f"voice_tts_tpu_torch/csrc/{name}.cu",
             "replaces": {"micro_tile": "scripts/micro_tile.py:51",
@@ -2407,7 +2502,7 @@ def run_micro_path(torch, dev, counters, results):
             "ms_of": f"a pass of mode {MICRO_HEADLINE[name]} at D {MICRO_D}, "
                      f"{MICRO_TILES} tiles ((t({MICRO_HI}) - t({MICRO_LO})) / "
                      f"{MICRO_HI - MICRO_LO}, as the script times); every mode under modes",
-            "launches_per_pass": 1, "modes": modes})
+            "launches_per_pass": 1, "modes": modes, **extra})
     del x, w, x4, w4, gs, cases
     return launches
 
@@ -5063,9 +5158,16 @@ def vocoder_ab(torch, dev, vocoder):
 # main
 # ---------------------------------------------------------------------------
 
+def check_micro(torch, dev, results):
+    """`--only micro`: the micro-benchmark path (K12, K13) alone."""
+    from voice_tts_tpu_torch.ops import counters
+
+    run_micro_path(torch, dev, counters, results)
+
+
 KERNEL_CHECKS = {"k2": check_k2, "k4": check_k4, "k1": check_k1, "k3": check_k3,
                  "k3rows": check_k3_rows, "k7": check_k7, "k6": check_k6, "attention": check_attention,
-                 "k8": check_k8, "k5": check_k5, "k10": check_k10}
+                 "k8": check_k8, "k5": check_k5, "k10": check_k10, "micro": check_micro}
 
 
 def main():
@@ -5146,8 +5248,9 @@ def main():
               f"the build)")
         laps.append(now)
 
-    for check in KERNEL_CHECKS.values():
-        check(torch, dev, results)
+    for name, check in KERNEL_CHECKS.items():
+        if name != "micro":            # the micro path below, with its counters
+            check(torch, dev, results)
     lap("kernel checks")
     torch.cuda.empty_cache()
     by_path = {"micro": run_micro_path(torch, dev, counters, results)}

@@ -442,11 +442,11 @@ def test_batcher_takes_text_emotion(engines):
 
 def test_batcher_refusals():
     """Beam search and an engine without the fused pack raise ValueError."""
-    eng = TTSEngine.tiny(**TINY_FLAGS)
+    eng = TTSEngine.tiny(device="cpu", **TINY_FLAGS)
     with pytest.raises(ValueError, match="num_beams"):
         pcont.ContinuousBatcher(eng, generation_kwargs={"num_beams": 3})
     with pytest.raises(ValueError, match="megakernel"):
-        pcont.ContinuousBatcher(TTSEngine.tiny())
+        pcont.ContinuousBatcher(TTSEngine.tiny(device="cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -182,7 +182,7 @@ def test_int4_expand_true_is_refused_as_tpu_only():
     with pytest.raises(ValueError, match="TPU-only"):
         pfd.check_int4_expand(True)
     with pytest.raises(ValueError, match="TPU-only"):
-        TTSEngine.tiny(use_int8_decode=True, use_fused_decode=True,
+        TTSEngine.tiny(device="cpu", use_int8_decode=True, use_fused_decode=True,
                        use_int4_decode=True, int4_expand=True)
 
 
@@ -202,17 +202,17 @@ def test_engine_builds_int4_packs_from_the_f32_master():
     """use_int4_decode: the decode pack is `pack_gpt_int4` of the f32 master
     (not of the int8 copy) with the configured group; spec decode keeps the
     int8 pack and drafts with the int4 one; the masters can be released."""
-    int4 = TTSEngine.tiny(use_int8_decode=True, use_fused_decode=True,
+    int4 = TTSEngine.tiny(device="cpu", use_int8_decode=True, use_fused_decode=True,
                           use_int4_decode=True, int4_group=16,
                           release_master_trees=True)
     assert isinstance(int4.fused_pack, pfd.FusedDecodePackInt4)
     d = int4.cfg.gpt.model_dim
     assert int4.fused_pack.gscales.shape[-1] == d // 16
-    master = TTSEngine.tiny(use_int8_decode=True, use_fused_decode=True)
+    master = TTSEngine.tiny(device="cpu", use_int8_decode=True, use_fused_decode=True)
     ref = pfd.pack_gpt_int4(master.gpt.state_dict(), master.cfg.gpt.layers, group=16)
     for a, b in zip(int4.fused_pack, ref):
         assert torch.equal(a, b)
-    spec = TTSEngine.tiny(use_int8_decode=True, use_fused_decode=True,
+    spec = TTSEngine.tiny(device="cpu", use_int8_decode=True, use_fused_decode=True,
                           spec_decode_k=4)
     assert isinstance(spec.fused_pack, pfd.FusedDecodePack)
     assert isinstance(spec.spec_draft_pack, pfd.FusedDecodePackInt4)

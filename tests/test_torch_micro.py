@@ -13,6 +13,7 @@ against the script's `cur` and `xp8` against `expand`: each pair computes
 the same values, (b << 4) >> 4 on int8 being the signed low nibble."""
 
 import importlib.util
+import random
 import re
 import subprocess
 import sys
@@ -145,14 +146,14 @@ def test_saturating_int8_cast_matches_jax():
 # K13
 # ---------------------------------------------------------------------------
 
-def int4_inputs(d, n_tiles, seed):
+def int4_inputs(d, n_tiles, seed, gs_range=(500, 2500)):
     """w (T, D/2, D) int8; gs at U(500, 2500), where the tile term 1e-6 y
     is of the order of acc[0] (at the script's 1e-4..5e-4 it falls below
     acc[0]'s f32 resolution and a wrong y would pass); x bf16-exact."""
     rng = np.random.default_rng(seed)
     per_half = mi.per_half_for(d)
     w = rng.integers(-127, 128, (n_tiles, d // 2, d), dtype=np.int8)
-    gs = rng.uniform(500, 2500, (2 * per_half, d)).astype(np.float32)
+    gs = rng.uniform(*gs_range, (2 * per_half, d)).astype(np.float32)
     x = t(rng.standard_normal((8, d)).astype(np.float32)).to(torch.bfloat16).float().numpy()
     return x, w, gs, per_half
 
@@ -204,6 +205,74 @@ def test_unpacks_match_numpy_on_all_bytes(unpack):
     np.testing.assert_array_equal(lo.numpy().astype(np.int8), (b << 4) >> 4)
     np.testing.assert_array_equal(hi.numpy().astype(np.int8), b >> 4)
     assert lo.min() == -8 and lo.max() == 7 and hi.min() == -8 and hi.max() == 7
+
+
+@pytest.mark.parametrize("d", [256, 512, 1280])
+def test_int4_exchange_plan(d):
+    """K13's per-tile exchange (`exchange_plan`): block (cs, ks) reads the
+    carried rows of its 64 packed rows, low and high, and the blocks of
+    column slice 0 read every row once (they write row 0 out); each carried
+    row is the sum of n_ks partials, one from each ks of the row's column
+    slice, in ks order, each from a block that writes that column; a block
+    waits for the one or two column slices its rows lie in, n_ks producers
+    each; the kernel's ring of slabs (`kSlots`, read from the source) is
+    as deep as the dependence needs."""
+    plan = mi.exchange_plan(d)
+    n_blocks = plan.n_cs * plan.n_ks
+    assert (plan.n_cs, plan.n_ks) == (d // mi.COLS, d // 2 // mi.KSPLIT)
+    assert sorted(r for b in range(0, n_blocks, plan.n_cs) for r in plan.reads[b]) \
+        == list(range(d))
+    for b, rows in enumerate(plan.reads):
+        k0 = (b // plan.n_cs) * mi.KSPLIT
+        assert rows == [*range(k0, k0 + mi.KSPLIT), *range(d // 2 + k0, d // 2 + k0 + mi.KSPLIT)]
+        sources = {p for r in rows for p in plan.producers[r]}
+        assert 1 <= len(plan.waits[b]) <= 2
+        assert len(sources) == plan.n_ks * len(plan.waits[b])
+        assert {p % plan.n_cs for p in sources} == set(plan.waits[b])
+    for r, producers in enumerate(plan.producers):
+        assert [p // plan.n_cs for p in producers] == list(range(plan.n_ks))
+        assert all(p % plan.n_cs == r // mi.COLS for p in producers)
+    src = (REPO / "voice_tts_tpu_torch" / "csrc" / "micro_int4.cu").read_text()
+    assert int(re.search(r"constexpr int kSlots = (\d+);", src).group(1)) == mi.SLOTS
+    assert plan.slots_needed == (2 if d == 256 else 3) <= mi.SLOTS
+
+
+def exchange_hazards(plan, slots, tiles, pick):
+    """Run the kernel's blocks as an interleaving of steps (block b writes
+    tile t into slab t % slots; then, once every producer of its rows has
+    written tile t, it reads them), `pick` choosing the next block among
+    those that can step; count the partials a reader found overwritten."""
+    n = plan.n_cs * plan.n_ks
+    sources = [sorted({p for r in rows for p in plan.producers[r]}) for rows in plan.reads]
+    held = [[-1] * n for _ in range(slots)]
+    written, t, reading, hazards = [0] * n, [0] * n, [False] * n, 0
+    while min(t) < tiles:
+        ready = [b for b in range(n) if t[b] < tiles and (
+            not reading[b] or all(written[p] > t[b] for p in sources[b]))]
+        b = pick(ready, t, reading)
+        if not reading[b]:
+            held[t[b] % slots][b] = t[b]
+            written[b] += 1
+        else:
+            hazards += sum(held[t[b] % slots][p] != t[b] for p in sources[b])
+            t[b] += 1
+        reading[b] = not reading[b]
+    return hazards
+
+
+@pytest.mark.parametrize("d", [256, 512, 1280])
+def test_int4_exchange_ring_never_overwrites_unread_partials(d):
+    """No interleaving of the blocks overwrites a partial before every
+    reader has read it with the kernel's ring: the block furthest ahead
+    always stepping first (the most skew the waits allow), and a random
+    order.  One slab fewer than `slots_needed` does overwrite."""
+    plan = mi.exchange_plan(d)
+    ahead = lambda ready, t, reading: max(ready, key=lambda b: (t[b], reading[b], -b))
+    rnd = random.Random(d)
+    shuffled = lambda ready, t, reading: rnd.choice(ready)
+    assert exchange_hazards(plan, mi.SLOTS, 6, ahead) == 0
+    assert exchange_hazards(plan, mi.SLOTS, 6, shuffled) == 0
+    assert exchange_hazards(plan, plan.slots_needed - 1, 6, ahead) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +336,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,n_tiles", [(256, 9), (256, 1), (256, 3), (256, 5),
+                                       (512, 1), (512, 3), (512, 5)])
 @pytest.mark.parametrize("mode", mt.MODES)
-def test_tile_kernel_matches_plain_on_card(cuda_device, mode):
-    """9 tiles (three groups, the last one short): the kernel's partials
-    sum in another order than the plain tile-by-tile adds."""
-    x, w = (t(a).to(cuda_device) for a in tile_inputs(256, 9, mode, seed=3))
+def test_tile_kernel_matches_plain_on_card(cuda_device, mode, d, n_tiles):
+    """2 and 4 column slices; 1-9 tiles (a last group of 1-4 tiles): the
+    kernel's partials sum in another order than the plain tile-by-tile
+    adds."""
+    x, w = (t(a).to(cuda_device) for a in tile_inputs(d, n_tiles, mode, seed=3))
     out = mt.micro_tile(x, w, mode)
     torch.cuda.synchronize()
     ref = mt.micro_tile_plain(x, w, mode)
@@ -281,13 +353,31 @@ def test_tile_kernel_matches_plain_on_card(cuda_device, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,n_tiles", [(512, 3), (512, 1), (512, 2), (512, 16), (512, 288),
+                                       (1280, 1), (1280, 2), (1280, 3), (1280, 16), (1280, 288)])
 @pytest.mark.parametrize("mode", mi.MODES)
-def test_int4_kernel_matches_plain_on_card(cuda_device, mode):
-    x, w, gs, per_half = (t(a).to(cuda_device) if isinstance(a, np.ndarray) else a
-                          for a in int4_inputs(512, 3, seed=4))
+def test_int4_kernel_matches_plain_on_card(cuda_device, mode, d, n_tiles):
+    """End to end up to 3 tiles (relative 1e-3, as in the tests against
+    JAX).  Then, at scales that keep the carried row's size over a whole
+    pass (`carry_gs_range`), the last tile against one plain tile from the
+    kernel's own row after n - 1 tiles: relative 1e-5, the dots' f32 sums
+    in another order, for every tile's exchange and the ring of slabs."""
+    on_card = lambda a: t(a).to(cuda_device) if isinstance(a, np.ndarray) else a
+    x, w, gs, per_half = map(on_card, int4_inputs(d, n_tiles, seed=4))
     out = mi.micro_int4(x, w, gs, mode, per_half)
     torch.cuda.synchronize()
     ref = mi.micro_int4_plain(x, w, gs, mode, per_half)
     assert torch.equal(out[1:], ref[1:])
-    tol = 0.0 if mode == "dma" else 1e-3
-    assert float((out[0] - ref[0]).abs().max()) <= tol * float(ref[0].abs().max())
+    if n_tiles <= 3:
+        tol = 0.0 if mode == "dma" else 1e-3
+        assert float((out[0] - ref[0]).abs().max()) <= tol * float(ref[0].abs().max())
+    rng = np.random.default_rng(5)
+    gs = on_card(rng.uniform(*micro_int4_script.carry_gs_range(d), tuple(gs.shape))
+                 .astype(np.float32))
+    row = mi.micro_int4(x, w[:n_tiles - 1], gs, mode, per_half) if n_tiles > 1 else x
+    out = mi.micro_int4(x, w, gs, mode, per_half)
+    torch.cuda.synchronize()
+    step = mi.micro_int4_plain(row, w[n_tiles - 1:], gs, mode, per_half)
+    assert torch.equal(out[1:], step[1:])
+    tol = 0.0 if mode == "dma" else 1e-5
+    assert float((out[0] - step[0]).abs().max()) <= tol * float(step[0].abs().max())

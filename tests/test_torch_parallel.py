@@ -287,10 +287,10 @@ def test_engine_tensor_parallel_matches_single():
     as JAX's test builds it) serves the tp-1 engine's WAV within 2 LSB;
     `to_device` is a no-op under TP."""
     flags = dict(use_fused_decode=False, use_int8_decode=False)
-    eng_tp = TTSEngine.tiny(tensor_parallel=4, **flags)
+    eng_tp = TTSEngine.tiny(device="cpu", tensor_parallel=4, **flags)
     assert eng_tp.tp_mesh.shape == {"tp": 4} and isinstance(eng_tp.gpt_rt.gpt, TPStack)
     res_tp = eng_tp.infer(tone(), "你好世界")
-    res = TTSEngine.tiny(**flags).infer(tone(), "你好世界")
+    res = TTSEngine.tiny(device="cpu", **flags).infer(tone(), "你好世界")
     assert res_tp.wav.shape == res.wav.shape
     diff = np.abs(res_tp.wav.astype(np.int32) - res.wav.astype(np.int32))
     assert diff.max() <= 2, diff.max()
@@ -305,7 +305,7 @@ def test_engine_conditioning_reads_the_master():
     the production arms serve: beam-3 with int8 KV, and `infer_batch`."""
     flags = dict(use_fp16=True, use_int8_kv=True, use_bf16_conditioning=True,
                  release_master_trees=True)
-    eng = TTSEngine.tiny(tensor_parallel=2, **flags)
+    eng = TTSEngine.tiny(device="cpu", tensor_parallel=2, **flags)
     assert eng.cond_gpt is eng.gpt is eng.models["gpt"]
     assert eng.cond_gpt.final_norm.weight.dtype == torch.float32
     assert not isinstance(eng.cond_gpt.gpt, TPStack)

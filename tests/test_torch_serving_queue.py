@@ -71,7 +71,7 @@ def _request(port, method, path, body=None, raw=None):
 @pytest.fixture(scope="module")
 def server():
     """A tiny port engine served over HTTP in grouped mode."""
-    service = app.TTSService(_greedy(TTSEngine.tiny()), profile="tiny")
+    service = app.TTSService(_greedy(TTSEngine.tiny(device="cpu")), profile="tiny")
     srv = app.BackgroundServer(service)
     port = srv.start()
     yield service, port
@@ -246,7 +246,7 @@ def test_a_lone_request_runs_infer():
 def test_spy_on_a_real_engine_coalesces():
     """Three concurrent requests on a tiny engine: one `infer_batch` call
     of three requests (a spy), each result a WAV."""
-    eng = _greedy(TTSEngine.tiny(), max_new=8)
+    eng = _greedy(TTSEngine.tiny(device="cpu"), max_new=8)
     calls = []
     infer_batch = eng.infer_batch
 
@@ -401,7 +401,7 @@ def test_fatal_error_names():
 # ---------------------------------------------------------------------------
 
 def test_warm_texts_land_in_every_bucket():
-    eng = TTSEngine.tiny()
+    eng = TTSEngine.tiny(device="cpu")
     texts = app.TTSService._warm_texts(eng)
     buckets = eng.cfg.engine.text_buckets
     assert len(texts) == len(buckets)
@@ -435,7 +435,7 @@ def test_warmup_covers_the_batch_buckets(continuous):
     code-bucket estimate off, and in both modes the synthesis of every code
     bucket up to the cap at every batch; continuous mode runs no `infer`
     and no `infer_batch`."""
-    eng = TTSEngine.tiny()
+    eng = TTSEngine.tiny(device="cpu")
     eng.cfg.server.max_batch_size = 4
     eng.cfg.server.continuous_batching = continuous
     eng.cfg.engine.use_int8_decode = continuous
@@ -590,7 +590,7 @@ def test_continuous_chunk_failure_answers_500(monkeypatch):
 def test_beam_profile_falls_back_to_grouped():
     """Continuous batching asked of a beam-3 engine: the worker falls back
     to grouped `infer_batch`, and worker-info reports the grouped mode."""
-    eng = TTSEngine.tiny(use_int8_decode=True, use_fused_decode=True)
+    eng = TTSEngine.tiny(device="cpu", use_int8_decode=True, use_fused_decode=True)
     eng.cfg.generation.num_beams = 3
     eng.cfg.server.continuous_batching = True
     service = app.TTSService(eng)

@@ -288,7 +288,7 @@ FLAGS = {"packed": "use_packed_vocoder", "shared_act": "use_shared_act_vocoder",
 
 @pytest.fixture(scope="module")
 def base_engine():
-    return TTSEngine.tiny(seed=0)
+    return TTSEngine.tiny(device="cpu", seed=0)
 
 
 def engine_with(base, **flags):

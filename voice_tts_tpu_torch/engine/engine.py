@@ -617,8 +617,9 @@ class TTSEngine:
         return cls(cfg, models, tokenizer, extras, device)
 
     @classmethod
-    def tiny(cls, device="cpu", seed: int = 0, **engine_overrides) -> "TTSEngine":
-        """Miniature random-weight engine (CPU-friendly demos and tests)."""
+    def tiny(cls, device="cuda", seed: int = 0, **engine_overrides) -> "TTSEngine":
+        """Miniature random-weight engine (demos and tests; `device="cpu"`
+        runs it on the plain versions)."""
         return cls.random(tiny_config(**engine_overrides), device, seed)
 
     @classmethod

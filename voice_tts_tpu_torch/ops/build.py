@@ -47,6 +47,7 @@ _SIGNATURES = {
     "vtt_fused_resblock_stage": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_F, _I, _P],
     "vtt_fused_stage_plan": [_I] * 4 + [_P],
     "vtt_micro_tile": [_P] * 4 + [_I] * 4 + [_P],
+    "vtt_micro_tile_occupancy": [_I, _I, _P],
     "vtt_micro_int4": [_P] * 5 + [_I] * 4 + [_P],
 }
 

@@ -31,10 +31,15 @@ x <- 0.5 x + 1e-6 out (`voice_tts_tpu_torch/scripts/micro_int4.py`).
   reference the kernel is checked against on the card);
 - `csrc/micro_int4.cu` (`vtt_micro_int4`): the hand-written kernel, one
   cooperative launch a call: each block owns a column slice and a 64-row
-  slice of the contraction, one grid barrier a tile (none in `dma`).
+  slice of the contraction; a tile's partials go to a ring of slabs, each
+  with its tile number, and a block waits only for the partials of the
+  rows it reads next (none in `dma`).  `exchange_plan` spells out that
+  dependence and the ring depth it needs.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +50,49 @@ MODES = ("dma", "cur", "i8sh", "g2", "dense", "expand", "xp8")
 GROUP = 128
 ROWS = 8
 KSPLIT = 64     # packed rows of a kernel block (its columns: 128)
+COLS = 128      # columns of a kernel block
+SLOTS = 4       # slabs of partials in the kernel's ring (`kSlots`)
+
+
+class ExchangePlan(NamedTuple):
+    """The kernel's per-tile exchange at one width.  Block b is (cs, ks) =
+    (b % n_cs, b // n_cs); it writes the partial of its 64 packed rows for
+    columns cs * 128.. and reads the carried rows `reads[b]`; carried row r
+    is the sum, in ks order, of the partials of `producers[r]`; `waits[b]`
+    are the column slices whose producers block b waits for."""
+    n_cs: int
+    n_ks: int
+    reads: list
+    producers: list
+    waits: list
+    slots_needed: int
+
+
+def exchange_plan(d: int) -> ExchangePlan:
+    """The dependence that `csrc/micro_int4.cu` waits for at width d, and
+    the ring depth it needs: a block writes tile t's partials into slab
+    t % SLOTS after reading tile t - 1's from its producers, which read t -
+    2 from theirs, and so on; once the blocks reached that way in h steps
+    are all blocks, every block has finished reading tile t - h - 1, so
+    h + 1 slabs suffice (`slots_needed`)."""
+    half = d // 2
+    n_cs, n_ks = d // COLS, half // KSPLIT
+    n_blocks = n_cs * n_ks
+    reads, waits = [], []
+    for b in range(n_blocks):
+        k0 = (b // n_cs) * KSPLIT
+        rows = list(range(k0, k0 + KSPLIT)) + list(range(half + k0, half + k0 + KSPLIT))
+        reads.append(rows)
+        waits.append(sorted({r // COLS for r in rows}))
+    producers = [[r // COLS + ks * n_cs for ks in range(n_ks)] for r in range(d)]
+    sources = [sorted({p for r in rows for p in producers[r]}) for rows in reads]
+    reached, hops = [set(s) for s in sources], 1
+    while any(len(s) < n_blocks for s in reached):
+        if hops > n_blocks:
+            raise ValueError(f"micro_int4: some block never depends on every block at D {d}")
+        reached = [set().union(*(sources[p] for p in s)) for s in reached]
+        hops += 1
+    return ExchangePlan(n_cs, n_ks, reads, producers, waits, hops + 1)
 
 
 def per_half_for(d: int) -> int:
@@ -132,7 +180,8 @@ def _check(x, w, gs, mode, per_half) -> None:
 
 def micro_int4_cuda(x: torch.Tensor, w: torch.Tensor, gs: torch.Tensor,
                     mode: str, per_half: int) -> torch.Tensor:
-    """One cooperative launch; raises if the card cannot hold the grid."""
+    """One cooperative launch (after zeroing the ring of partials); raises
+    if the card cannot hold the grid."""
     _check(x, w, gs, mode, per_half)
     n_tiles, half, d = w.shape
     if d % (4 * KSPLIT):
@@ -141,8 +190,9 @@ def micro_int4_cuda(x: torch.Tensor, w: torch.Tensor, gs: torch.Tensor,
     for name, a in (("x", x), ("w", w), ("gs", gs)):
         if not a.is_cuda or a.device != x.device or not a.is_contiguous():
             raise ValueError(f"micro_int4: {name} must be contiguous on {x.device}")
-    # the blocks' partials of a tile, double-buffered: (2, D/2 / 64, D)
-    scratch = torch.empty((2 * (half // KSPLIT) * d,), dtype=torch.float32,
+    # the ring of the tiles' partials, each a 64-bit word with its tile
+    # number (zeroed by the C entry): (SLOTS, D/2 / 64, D)
+    scratch = torch.empty((SLOTS * (half // KSPLIT) * d,), dtype=torch.int64,
                           device=x.device)
     out = torch.empty_like(x)
     lib = build.kernels()

@@ -23,7 +23,9 @@ counts (`voice_tts_tpu_torch/scripts/micro_tile.py`).
   the reference the kernel is checked against on the card);
 - `csrc/micro_tile.cu` (`vtt_micro_tile`): the hand-written kernel,
   launched for CUDA tensors: tiles spread over the card, partials reduced
-  in a fixed order by a second pass (one C call, two launches).
+  in a fixed order by a second pass (one C call, two launches); `dot8`
+  and `dot8i` run on the tensor cores (mma.sync bf16 and s8), the other
+  modes on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -99,6 +101,8 @@ def micro_tile_cuda(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor
     for name, a in (("x", x), ("w", w)):
         if not a.is_cuda or a.device != x.device or not a.is_contiguous():
             raise ValueError(f"micro_tile: {name} must be contiguous on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("micro_tile: x must be 16-byte aligned (the kernel reads float4)")
     groups = -(-n_tiles // TILES_PER_BLOCK)
     partial = torch.empty((groups, ROWS, d), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)

@@ -35,6 +35,18 @@ def make_inputs(d: int, tiles: int, dev: torch.device, gs_range=(1e-4, 5e-4)):
     return x, w, gs, per_half
 
 
+def carry_gs_range(d: int) -> tuple:
+    """Scales U(-b, b) at which the carried row keeps its size over a whole
+    pass: acc[0] <- 0.5 acc[0] + 1e-6 y, y's rms sqrt(D E[nib^2] E[s^2])
+    times x's (E[nib^2] = 21.5 for bytes uniform in [-127, 127], E[s^2] =
+    b^2 / 3), so 0.25 + 1e-12 D 21.5 b^2 / 3 = 1; zero-mean scales, since
+    the nibbles' mean (-0.5) times positive scales is a common mode that
+    grows from tile to tile.  At the defaults' 1e-4..5e-4 (and at 500..2500)
+    the row halves each tile and is zero long before tile 288."""
+    b = (0.75e12 * 3 / (21.5 * d)) ** 0.5
+    return -b, b
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dim", type=int, default=1280)
