@@ -144,6 +144,18 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    chunks, host reads, wall), and one `infer(use_emo_text=True, emo_text=...)`
    on the production engine with that `QwenEmotion`: a WAV and its emotion
    dict;
+   Then the production s2mel phase (`run_prod_s2mel`, ~30 s;
+   `--only prod_s2mel` runs it alone on a production engine of its own):
+   the production profile's f32 s2mel stage at flagship width (T 3104:
+   code bucket 1536 + prompt bucket 448, 1499 codes, 25 Euler steps, CFG
+   batch 2, the replayed CFM graph) through the einsum attention, K9
+   (`fused_attention`) and K11 (`flash_attention`), each arm an engine of
+   its own over the production engine's weights, one set of random stage
+   inputs and one CFM noise: 325 launches of the arm's kernel a replay,
+   each kernel arm's mel within PROD_S2MEL_TOL of the einsum's, the arms
+   timed A B C C B A with CUDA events over a replay each, one replay of
+   each profiled (the f32 tile must run, the retired CUDA-core kernel
+   never; the attention's device time a stage);
 8. bench slice: the same with `--profile bench` (sampling, one beam): K1
    once per executed step, K3 never, K2 109 times per vocode, the replayed
    request bit-equal to the uncaptured one; one request with
@@ -222,11 +234,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
     train step over every card (dp 2 x tp 2 on four).
 
 The kernel phase also holds K9 and K11 (bf16 on the tensor cores, f32 on
-the CUDA cores; every row at T 65 and 130 with lens 0, 1, 63, 64, 65 and T
-and a query row that matches no segment, and misaligned bf16 views must
-raise; then T 896 and 3104, timed in a host loop and device-only behind a
-`torch.cuda._sleep`) beside `F.scaled_dot_product_attention` with the same
-boolean mask, timed alike, K8
+them too as three split-TF32 passes, each tile's ptxas registers and
+spills printed; every row at T 65 and 130 with lens 0, 1, 63, 64, 65 and T
+and a query row that matches no segment, and misaligned bf16 and f32
+views must raise; then T 896 and 3104, timed in a host loop and
+device-only behind a `torch.cuda._sleep`; the f32 case at T 3104 with its
+bound as three TF32 passes and in f32 on the CUDA cores) beside
+`F.scaled_dot_product_attention` with the same boolean mask, timed alike,
+K8
 (the 13-block trunk at B 2, T 704, lens 650 and at T 130, lens (1, 77):
 the GEMM planner's tiles, checked against the C launch's; two calls
 bit-equal; host loop and device-only; one evaluation profiled, with
@@ -257,7 +272,8 @@ its launch count from the path that runs it (K3 and K2 from the production
 slice, K1 from the bench slice, K6 and K7 from the spec slice, K6's int4
 branch from its op entry (`verify_int4`), K8 and K9 from the DiT slice,
 K11 from its engine, K5, K4 and K10 from the K5 slice, K12 and K13 from
-the micro-benchmark path; `launches_by_path` has all fifteen paths,
+the micro-benchmark path; `launches_by_path` has all sixteen paths,
+"prod_s2mel" one replay of each arm of the production s2mel phase,
 "loading" the onboarding (gates and bench), the server's warm-up and the
 served request (not the source engine's comparison request), "batched"
 the batched phase's two warm `infer_batch` runs, "grouped" the serving
@@ -1665,25 +1681,34 @@ def attention_case(torch, dev, g, kind: str, dtype, t: int, lens: list):
             lib_ms = library_time_ms(torch, library, 10)
             lib_dev_ms = device_time_ms(torch, library, 20)
     # q, k, v read, the output written, the mask's ints read; QK^T and PV
-    # are 4 operations a (query, attended key, head dim)
-    bnd = bound(nbytes(q, k, v, out, lens_t), 4 * h * hd * attended,
-                "f32" if dtype == torch.float32 else "bf16")
+    # are 4 operations a (query, attended key, head dim): bf16 on the tensor
+    # cores; f32 as three TF32 passes on them (the tile's split), beside the
+    # same work in f32 on the CUDA cores
+    n_bytes, n_ops = nbytes(q, k, v, out, lens_t), 4 * h * hd * attended
+    extra = {}
+    if dtype == torch.float32:
+        bnd = bound(n_bytes, 3 * n_ops, "tf32")
+        extra["cuda_core_bound_ms"] = bound(n_bytes, n_ops, "f32")["bound_ms"]
+    else:
+        bnd = bound(n_bytes, n_ops, "bf16")
     print(f"{tag}: {ms:.4f} ms kernel ({dev_ms:.4f} device-only), {plain_ms:.4f} ms "
-          f"plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library "
-          f"{lib_ms} ms ({lib_dev_ms} device-only)")
+          f"plain, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+          + (f"; three TF32 passes, {extra['cuda_core_bound_ms']:.4f} ms in f32 on the "
+             f"CUDA cores" if extra else "")
+          + f"), library {lib_ms} ms ({lib_dev_ms} device-only)")
     return {"dtype": str(dtype).split(".")[-1], "t": t, "lens": lens, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library_device_ms": lib_dev_ms, "max_abs_err": err, **bnd}
+            "library_device_ms": lib_dev_ms, "max_abs_err": err, **bnd, **extra}
 
 
 def attention_edges(torch, dev, g):
     """K9 and K11 against their plain versions on EVERY query row at the
-    edges the bf16 tensor-core tile leans on, bf16 and f32, H 8: T 65 and
-    130 (a ragged last key tile); K9 at lens 0 (the uniform row over all T
-    keys), 1, 63, 64, 65 and T (its key loop stops at ceil(lens / 64)
-    tiles); K11 with the same key segments and one query row whose segment
-    matches no key (the uniform row again).  A bf16 view off the kernel's
-    16-byte grid must raise."""
+    edges the tensor-core tiles lean on, bf16 and f32, H 8: T 65 and 130 (a
+    ragged last key tile); K9 at lens 0 (the uniform row over all T keys),
+    1, 63, 64, 65 and T (its key loop stops at ceil(lens / 64) tiles); K11
+    with the same key segments and one query row whose segment matches no
+    key (the uniform row again).  A bf16 or f32 view off the tiles' 16-byte
+    grid must raise."""
     from voice_tts_tpu_torch.ops import cfm_attention as k9
     from voice_tts_tpu_torch.ops import flash_attention as k11
 
@@ -1714,28 +1739,42 @@ def attention_edges(torch, dev, g):
                     fail(f"{tag} disagrees with the plain version")
     b, t = 2, 130
     n = b * h * t * hd
-    buf = torch.randn(b * h * t * 68 + 8, generator=g, device=dev).to(torch.bfloat16)
-    good = buf[:n].view(b, h, t, hd)
     lens_t = torch.tensor([t, 65], device=dev, dtype=torch.int32)
     seg = (torch.arange(t, device=dev)[None, :] < lens_t[:, None]).to(torch.int32)
-    for what, bad in (("base one element off", buf[1:n + 1].view(b, h, t, hd)),
-                      ("time stride 68", buf.as_strided((b, h, t, hd), (h * t * 68, t * 68, 68, 1)))):
-        for kind, call in (("K9", lambda x: k9.cfm_attention(x, good, good, lens_t, 0.125)),
-                           ("K11", lambda x: k11.flash_attention(x, good, good, seg, seg, 0.125))):
-            try:
-                call(bad)
-            except ValueError as e:
-                print(f"{kind} bf16 q with {what} raises: {e}")
-            else:
-                fail(f"{kind}: a bf16 q with {what} did not raise")
+    # a time stride off the grid: 68 bf16 (136 bytes), 66 f32 (264 bytes)
+    for dtype, st in ((torch.bfloat16, 68), (torch.float32, 66)):
+        name = str(dtype).split(".")[-1]
+        buf = torch.randn(b * h * t * st + 8, generator=g, device=dev).to(dtype)
+        good = buf[:n].view(b, h, t, hd)
+        for what, bad in (("base one element off", buf[1:n + 1].view(b, h, t, hd)),
+                          (f"time stride {st}",
+                           buf.as_strided((b, h, t, hd), (h * t * st, t * st, st, 1)))):
+            for kind, call in (
+                    ("K9", lambda x: k9.cfm_attention(x, good, good, lens_t, 0.125)),
+                    ("K11", lambda x: k11.flash_attention(x, good, good, seg, seg, 0.125))):
+                try:
+                    call(bad)
+                except ValueError as e:
+                    print(f"{kind} {name} q with {what} raises: {e}")
+                else:
+                    fail(f"{kind}: a {name} q with {what} did not raise")
     torch.cuda.synchronize()
 
 
+ATT_SOURCES = {"bf16": "voice_tts_tpu_torch/csrc/dit_attention_mma.cuh",
+               "f32": "voice_tts_tpu_torch/csrc/dit_attention_tf32.cuh"}
+
+
 def check_attention(torch, dev, results):
-    """K9 and K11: the edge cases (`attention_edges`), then B 2, H 8, hd 64,
-    bf16 and f32, T 896 (the DiT slice's 5 s prompt) and T 3104 (the
-    production slice's mel bucket 2656 plus prompt bucket 448), lens below
-    T; the entry's headline is bf16 at T 896, the shape the slice runs."""
+    """K9 and K11: the tiles' ptxas registers and spills, the edge cases
+    (`attention_edges`), then B 2, H 8, hd 64, bf16 and f32, T 896 (the DiT
+    slice's 5 s prompt) and T 3104 (the production slice's mel bucket 2656
+    plus prompt bucket 448), lens below T; the entry's headline is bf16 at T
+    896, the shape the slice runs, with the f32 case at T 3104 (the
+    production profile's s2mel) beside it: its device-only time, its bound
+    as three TF32 passes and in f32 on the CUDA cores, and SDPA's f32
+    device-only time."""
+    print_ptxas(("dit_attention_mma_kernel", "dit_attention_tf32_kernel"))
     g = torch.Generator(device=dev).manual_seed(10)
     attention_edges(torch, dev, g)
     for kind, name, src in (("K9", "cfm_attention", "voice_tts_tpu/ops/attic/cfm_attention.py:64"),
@@ -1746,16 +1785,24 @@ def check_attention(torch, dev, results):
         cases = [attention_case(torch, dev, g, kind, dtype, t, lens)
                  for dtype in (torch.bfloat16, torch.float32)
                  for t, lens in ((896, [850, 600]), (3104, [3000, 2100]))]
-        head = cases[0]
+        head, f32 = cases[0], cases[3]
         results.append({
-            "name": name, "route": "cuda", "source": "voice_tts_tpu_torch/csrc/dit_attention_mma.cuh",
+            "name": name, "route": "cuda", "source": ATT_SOURCES["f32"],
+            "sources": ATT_SOURCES,
             "replaces": src, "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "library_device_ms": head["library_device_ms"],
             "library_call": "torch.nn.functional.scaled_dot_product_attention (boolean mask)",
-            "ms_of": "one call, bf16, B 2, H 8, T 896, lens (850, 600); f32 cases run "
-                     "csrc/dit_attention.cuh", "cases": cases})
+            "ms_of": "one call, bf16 (the bf16 tile), B 2, H 8, T 896, lens (850, 600); "
+                     "the f32_ keys: one call of the f32 tile (source), T 3104, lens "
+                     "(3000, 2100)",
+            "f32_ms": f32["ms"], "f32_device_ms": f32["device_ms"],
+            "f32_plain_ms": f32["plain_ms"], "f32_bound_ms": f32["bound_ms"],
+            "f32_bound_by": f32["bound_by"],
+            "f32_cuda_core_bound_ms": f32["cuda_core_bound_ms"],
+            "f32_library_ms": f32["library_ms"],
+            "f32_library_device_ms": f32["library_device_ms"], "cases": cases})
 
 
 # K8 on the card against its plain version: the same bf16 rounding points,
@@ -3340,6 +3387,175 @@ def run_production_slice(torch, dev, counters):
     run_typical(torch, dev, counters, engine, "serving typical", "fused_decode_step_batch",
                 max_mel_tokens=TYPICAL_BEAM_CAP)
     return launches, engine
+
+
+# The production s2mel phase: the production profile's s2mel stage, f32, at
+# code bucket 1536 (mel bucket 2656) + prompt bucket 448 = T 3104, for the
+# production request's 1499 codes and a 5 s prompt's 430 frames.
+PROD_S2MEL_CODES, PROD_S2MEL_PROMPT, PROD_S2MEL_T = 1499, 430, 3104
+# An attention kernel's mel against the einsum's.  One velocity evaluation
+# through the DiT with a kernel flag is held to 2e-5 of max(1, max|v|) of
+# the einsum's (tests/test_torch_dit_kernels.py DIT_F32_TOL); CFG's
+# (1 + r) v - r v_null, r = 0.7, carries up to 2.4x that; the 25 Euler
+# steps sum them.  Each step counts with its whole velocity tolerance (not
+# dt = 1/25 of it): 25x room for the state error later evaluations carry.
+PROD_S2MEL_TOL = 25 * 2.4 * 2e-5
+
+
+def s2mel_arm(torch, engine, **dit_flags):
+    """An engine of its own over `engine`'s weights whose DiT has
+    `dit_flags`: a shallow copy with a new s2mel module (the DiT reads its
+    flags from its config) holding the same weights, and device loops of its
+    own.  The CFM graph's key does not carry the DiT flags, so a flag
+    flipped on a captured engine would replay the einsum graph."""
+    import copy
+
+    from voice_tts_tpu_torch.engine.device_loop import DeviceLoops
+    from voice_tts_tpu_torch.models.s2mel.s2mel import S2Mel
+
+    cfg = copy.deepcopy(engine.cfg)
+    for k, v in dit_flags.items():
+        setattr(cfg.s2mel.dit, k, v)
+    with torch.device(engine.device):
+        s2mel = S2Mel(cfg.s2mel, cfg.semantic_codec.hidden_size)
+    s2mel.load_state_dict(engine.s2mel_rt.state_dict())
+    arm = copy.copy(engine)
+    arm.cfg = cfg
+    arm.models = {**engine.models, "s2mel": s2mel}
+    arm.s2mel = arm.s2mel_rt = s2mel.eval().requires_grad_(False)
+    arm.loops = DeviceLoops(engine.device)
+    arm._step_tables = {}
+    return arm
+
+
+def profile_s2mel(torch, run):
+    """One replayed s2mel stage under the CUDA profiler: its kernels' device
+    time, and the DiT attention kernels' by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"kernel_sum_s": sum(e.self_device_time_total for e in events) / 1e6,
+            "attention": {e.key[:80]: {"count": e.count,
+                                       "device_s": e.self_device_time_total / 1e6}
+                          for e in events if "dit_attention" in e.key},
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_s": e.self_device_time_total / 1e6} for e in top]}
+
+
+def run_prod_s2mel(torch, dev, counters, engine, results):
+    """The production profile's s2mel stage at flagship width (f32, T 3104,
+    25 Euler steps, CFG batch 2, the replayed CFM graph) three ways on one
+    set of weights, one set of random stage inputs and one CFM noise: the
+    einsum attention (the default; `engine` itself), `fused_attention` (K9)
+    and `flash_attention` (K11), each on an engine of its own
+    (`s2mel_arm`).  Each kernel arm's replay must launch its kernel once a
+    block and evaluation (325) and give the einsum's mel within
+    PROD_S2MEL_TOL; the arms are timed A B C C B A with CUDA events over a
+    replay each, and one replay of each is profiled: the f32 tile's kernel
+    must run, the retired CUDA-core kernel never.  The result goes beside
+    the K9 and K11 entries of `results`.  Returns the launches of one
+    replay of each arm."""
+    import collections
+
+    import numpy as np
+
+    c = engine.cfg
+    cb = max(c.engine.code_buckets)
+    mb = engine._mel_bucket_for(cb)
+    pb = min(b for b in c.engine.prompt_frame_buckets if b >= PROD_S2MEL_PROMPT)
+    if pb + mb != PROD_S2MEL_T:
+        fail(f"[prod s2mel] buckets {pb} + {mb} != T {PROD_S2MEL_T}")
+    if engine._float_dtype(engine.s2mel_rt) != torch.float32:
+        fail("[prod s2mel] the production s2mel is not f32")
+    rng = np.random.default_rng(7)
+    inputs = [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((1, cb, c.gpt.model_dim)).astype(np.float32),
+        rng.integers(0, c.semantic_codec.codebook_size, (1, cb)),
+        np.asarray([PROD_S2MEL_CODES]),
+        rng.standard_normal((1, pb, c.s2mel.length_regulator.channels)).astype(np.float32),
+        np.asarray([PROD_S2MEL_PROMPT]),
+        rng.standard_normal((1, c.mel.num_mels, pb)).astype(np.float32),
+        rng.standard_normal((1, c.campplus.embedding_size)).astype(np.float32))]
+    noise = torch.randn((1, c.mel.num_mels, PROD_S2MEL_T),
+                        generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    arms = {"einsum": engine, "K9": s2mel_arm(torch, engine, fused_attention=True),
+            "K11": s2mel_arm(torch, engine, flash_attention=True)}
+    counter = {"einsum": None, "K9": "cfm_attention", "K11": "flash_attention"}
+    want = c.engine.diffusion_steps * c.s2mel.dit.depth
+    draw = engine._draw_noise
+    for arm in arms.values():
+        arm._draw_noise = lambda shape: noise
+    try:
+        def run(name):
+            with torch.no_grad():
+                return arms[name]._s2mel(*inputs, mb)[0]
+        mels, launches = {}, collections.Counter()
+        for name in arms:
+            run(name)                        # the key's first call captures
+            counters.reset()
+            mels[name] = run(name)
+            torch.cuda.synchronize()
+            got = counters.snapshot()
+            launches.update(got)
+            n9, n11 = got["cfm_attention"], got["flash_attention"]
+            print(f"[prod s2mel] {name}: a replay launched K9 {n9}, K11 {n11}, K8 "
+                  f"{got['dit_block_chain']}")
+            wanted = {k: (want if k == counter[name] else 0)
+                      for k in ("cfm_attention", "flash_attention", "dit_block_chain")}
+            if {k: got[k] for k in wanted} != wanted:
+                fail(f"[prod s2mel] {name}: launches {got}, want {wanted}")
+        ref = mels["einsum"]
+        scale = max(1.0, float(ref.abs().max()))
+        errs = {}
+        for name in ("K9", "K11"):
+            errs[name] = max_err(torch, mels[name], ref)
+            print(f"[prod s2mel] {name} mel against the einsum's: max_abs_err "
+                  f"{errs[name]:.4g} (tol {PROD_S2MEL_TOL:.4g} * max(1, max|ref|) = "
+                  f"{PROD_S2MEL_TOL * scale:.4g})")
+            if not torch.isfinite(mels[name]).all() or not errs[name] <= PROD_S2MEL_TOL * scale:
+                fail(f"[prod s2mel] the {name} arm's mel disagrees with the einsum's")
+        times = {name: [] for name in arms}
+        for name in ("einsum", "K9", "K11", "K11", "K9", "einsum"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(name)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / 1e3)
+        profiles = {name: profile_s2mel(torch, lambda n=name: run(n)) for name in arms}
+    finally:
+        engine._draw_noise = draw
+    attention_s = {n: sum(v["device_s"] for v in p["attention"].values())
+                   for n, p in profiles.items()}
+    for name in ("K9", "K11"):
+        names = list(profiles[name]["attention"])
+        if not any("dit_attention_tf32_kernel" in k for k in names):
+            fail(f"[prod s2mel] the {name} arm's profile shows no dit_attention_tf32_kernel: "
+                 f"{names}")
+        if any(r in k for k in names for r in K8_RETIRED):
+            fail(f"[prod s2mel] the {name} arm launched a retired kernel: {names}")
+    # the einsum's attention is not one kernel: what the K9 arm saves,
+    # plus K9's own device time, by the kernel sums of the profiles
+    einsum_attention_s = (profiles["einsum"]["kernel_sum_s"] - profiles["K9"]["kernel_sum_s"]
+                          + attention_s["K9"])
+    summary = {"t": PROD_S2MEL_T, "codes": PROD_S2MEL_CODES, "evaluations": 25,
+               "order": "einsum K9 K11 K11 K9 einsum", "replay_s": times,
+               "mel_max_abs_err": errs, "tol": PROD_S2MEL_TOL * scale,
+               "attention_device_s": {**attention_s, "einsum": einsum_attention_s},
+               "profiles": profiles}
+    print("[prod s2mel] " + json.dumps(summary))
+    for r in results:
+        if r["name"] in ("cfm_attention", "flash_attention"):
+            r["production_s2mel"] = {k: summary[k] for k in
+                                     ("t", "order", "replay_s", "mel_max_abs_err", "tol",
+                                      "attention_device_s")}
+    return dict(launches)
 
 
 # the batched phase's code cap: random weights never stop, so every decode
@@ -5175,7 +5391,7 @@ def main():
     ap.add_argument("--only", nargs="+",
                     choices=list(KERNEL_CHECKS) + ["vocoder", "batched", "serving",
                                                    "workers", "loading", "emotion",
-                                                   "tp", "tp_phase"],
+                                                   "prod_s2mel", "tp", "tp_phase"],
                     help="run only these kernel checks, in this order, and print "
                          "their JSON (no slice runs, no result line); `vocoder` runs "
                          "the vocoder A/B on a flagship BigVGAN with random weights, "
@@ -5185,6 +5401,8 @@ def main():
                          "(two or more), `loading` the loading phase on a production "
                          "engine of its own, `emotion` the text-emotion phase (the Qwen "
                          "LM at Qwen3-0.6B widths) on a production engine of its own, "
+                         "`prod_s2mel` the production s2mel phase (einsum, K9, K11 at T "
+                         "3104) on a production engine of its own, "
                          "`tp_phase` the main run's tp phase and train step on one card, "
                          "`tp` tensor-parallel engines and a train step over the cards "
                          "(two or more)")
@@ -5230,6 +5448,11 @@ def main():
                 print("launches " + json.dumps(run_tp_cards(
                     torch, counters, [torch.device("cuda", i)
                                       for i in range(torch.cuda.device_count())])))
+            elif name == "prod_s2mel":
+                from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
+                print("launches " + json.dumps(run_prod_s2mel(
+                    torch, dev, counters, TTSEngine.random(serving_config(), device=dev,
+                                                           seed=0), results)))
             elif name == "emotion":
                 from voice_tts_tpu_torch.engine.engine import TTSEngine, serving_config
                 run_emotion(torch, dev, TTSEngine.random(serving_config(), device=dev,
@@ -5276,6 +5499,8 @@ def main():
     lap("loading phase")
     run_emotion(torch, dev, engine)
     lap("emotion phase")
+    by_path["prod_s2mel"] = run_prod_s2mel(torch, dev, counters, engine, results)
+    lap("production s2mel phase")
     vocoder = engine.vocoder
     del engine
     torch.cuda.empty_cache()

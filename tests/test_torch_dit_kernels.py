@@ -423,15 +423,18 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, kernel, dtype, tl, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["cfm_attention", "flash_attention"])
 @pytest.mark.parametrize("bad", ["offset", "stride"])
-def test_attention_kernel_rejects_misaligned_bf16_on_card(cuda_device, kernel, bad):
-    """The tensor-core kernel copies 16-byte chunks: a bf16 view one element
-    off, or with a time stride of 68, raises instead of launching."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernel_rejects_misaligned_bf16_on_card(cuda_device, kernel, bad, dtype):
+    """Both tensor-core tiles copy 16-byte chunks: a view one element off, or
+    with a time stride off the 16-byte grid (68 bf16, 66 f32 elements),
+    raises instead of launching."""
     b, h, tl = 2, 4, 130
     n = b * h * tl * HD
-    buf = torch.randn(b * h * tl * 68 + 8, device=cuda_device).to(torch.bfloat16)
+    st = 68 if dtype == torch.bfloat16 else 66
+    buf = torch.randn(b * h * tl * st + 8, device=cuda_device).to(dtype)
     good = buf[:n].view(b, h, tl, HD)
     q = (buf[1:n + 1].view(b, h, tl, HD) if bad == "offset"
-         else buf.as_strided((b, h, tl, HD), (h * tl * 68, tl * 68, 68, 1)))
+         else buf.as_strided((b, h, tl, HD), (h * tl * st, tl * st, st, 1)))
     lens = torch.tensor([tl, 65], device=cuda_device)
     seg = (torch.arange(tl, device=cuda_device)[None, :] < lens[:, None]).int()
     with pytest.raises(ValueError, match="16-byte"):

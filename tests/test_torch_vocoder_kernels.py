@@ -1,6 +1,7 @@
 """The redesigned vocoder kernels' planning and packing on the CPU: K10's
 launch planner (`plan_fused_stage`) at every flagship and tiny fused stage
-shape and at the kernel's largest halo; its TF32 split (`tf32_round`) and
+shape and at the kernel's largest halo; the TF32 split it shares with the
+f32 DiT attention tile (`ops/tf32.py` `tf32_round`, `split_tf32`) and
 the split weight slabs (`kernel_pack`); K2's launch planner
 (`plan_aa_snake`) at every activation shape of a 448- and a 2656-frame
 vocode and at short and ragged rows; and both wrappers' refusals of a
@@ -16,6 +17,7 @@ from voice_tts_tpu_torch.config import TTSConfig
 from voice_tts_tpu_torch.engine.engine import tiny_config
 from voice_tts_tpu_torch.ops import aa_activation as k2
 from voice_tts_tpu_torch.ops import fused_vocoder as k10
+from voice_tts_tpu_torch.ops import tf32
 
 SMEM_LIMIT = 232448      # the H100's shared memory a block (227 KB)
 FLAGSHIP = TTSConfig().vocoder
@@ -105,10 +107,10 @@ def test_tf32_round():
                       0.0, -0.0, 2 ** -126], dtype=torch.float32)
     want = torch.tensor([one, one + 2 ** -10, one, -(one + 2 ** -10), 3.0 + 2 ** -9, 0.0, -0.0,
                          2 ** -126], dtype=torch.float32)
-    assert torch.equal(k10.tf32_round(v), want)
+    assert torch.equal(tf32.tf32_round(v), want)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(10000).astype(np.float32))
-    hi = k10.tf32_round(x)
-    lo = k10.tf32_round(x - hi)
+    hi, lo = tf32.split_tf32(x)
+    assert torch.equal(lo, tf32.tf32_round(x - hi))
     assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros_like(x, dtype=torch.int32))
     assert torch.equal(lo.view(torch.int32) & 0x1FFF, torch.zeros_like(x, dtype=torch.int32))
     assert float(((x - hi).abs() / x.abs()).max()) <= 2 ** -11
@@ -124,8 +126,7 @@ def test_kernel_pack_slabs_and_cache():
                          (3,))
     kp = k10.kernel_pack(pack)
     assert kp.w.shape == (n, k_max, c // 8, 1, 2, 32, 4) and kp.w.is_contiguous()
-    hi = k10.tf32_round(w)
-    lo = k10.tf32_round(w - hi)
+    hi, lo = tf32.split_tf32(w)
     # lane (g, t)'s quad: (o, i) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
     for p, tap, s, lane in ((0, 0, 0, 0), (1, 2, 1, 31), (0, 1, 1, 13), (1, 0, 0, 6)):
         g, t = lane // 4, lane % 4

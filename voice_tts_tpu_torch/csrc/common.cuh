@@ -122,6 +122,21 @@ __device__ __forceinline__ void bf16x8_to_f32(const uint4 raw, float* f) {
   }
 }
 
+// d += a b over one m16n8k8 TF32 tile: a is the lane's A quad (rows g, g + 8
+// at column t, then at t + 4), (b0, b1) its B pair (rows t and t + 4 of
+// column g), both already in fragment order and TF32 values.  A three-pass
+// split product takes hi = tf32(v) and lo = tf32(v - hi) of each operand
+// and accumulates lo.hi + hi.lo + hi.hi in f32: f32-class numerics on the
+// TF32 tensor cores (K10, and the f32 DiT attention tile; ops/tf32.py
+// models both splits)
+__device__ __forceinline__ void mma_tf32(float* d, const float4& a, float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)), "r"(__float_as_uint(a.z)),
+        "r"(__float_as_uint(a.w)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory (above the default 48
 // KB).  The attribute is set once per kernel, device and size, not at every
 // launch: each cudaFuncSetAttribute costs host time on a chain of launches.

@@ -1,9 +1,10 @@
 // C entries of K9 (key-length-masked DiT attention) and K11 (segment-id
-// masked DiT attention).  bf16 inputs run the tensor-core kernel of
-// dit_attention_mma.cuh; f32 inputs the CUDA-core kernel of
-// dit_attention.cuh.  Each header holds its kernel's design and bound; the
-// K8 block chain (dit_blocks.cu) runs the tensor-core one.
+// masked DiT attention).  bf16 inputs run the bf16 tensor-core tile of
+// dit_attention_mma.cuh (which the K8 block chain, dit_blocks.cu, also
+// runs); f32 inputs the split-TF32 tensor-core tile of
+// dit_attention_tf32.cuh.  Each header holds its kernel's design and bound.
 #include "dit_attention_mma.cuh"
+#include "dit_attention_tf32.cuh"
 
 namespace {
 
@@ -27,7 +28,8 @@ vtt::AttnArgs make_args(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // K9.  q, k, v, o: (B, H, T, 64) views, bf16 (is_bf16 = 1) or f32, head dim
-// contiguous (bf16: 16-byte-aligned bases, strides multiples of 8 elements);
+// contiguous, 16-byte-aligned bases and (batch, head, time) strides in
+// multiples of 16 bytes (8 bf16 or 4 f32 elements);
 // `strides` (host, 12 ints): the (batch, head, time) element strides of q,
 // k, v, o in that order; lens: (B,) int32 valid keys.
 VTT_EXPORT int vtt_cfm_attention(const void* q, const void* k, const void* v, void* o,
@@ -39,7 +41,7 @@ VTT_EXPORT int vtt_cfm_attention(const void* q, const void* k, const void* v, vo
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16
                    ? vtt::launch_dit_attention_mma<vtt::MASK_LENS>(a, batch, s)
-                   : vtt::launch_dit_attention<float, vtt::MASK_LENS>(a, batch, s));
+                   : vtt::launch_dit_attention_tf32<vtt::MASK_LENS>(a, batch, s));
 }
 
 // K11.  As K9, with q_seg, kv_seg: (B, T) int32 segment ids instead of lens.
@@ -53,5 +55,5 @@ VTT_EXPORT int vtt_flash_attention(const void* q, const void* k, const void* v, 
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16
                    ? vtt::launch_dit_attention_mma<vtt::MASK_SEG>(a, batch, s)
-                   : vtt::launch_dit_attention<float, vtt::MASK_SEG>(a, batch, s));
+                   : vtt::launch_dit_attention_tf32<vtt::MASK_SEG>(a, batch, s));
 }

@@ -1,32 +1,22 @@
-// Masked full (non-causal) attention of the DiT on the CUDA cores: the f32
-// branch of K9 and K11 (bf16 runs the tensor-core tile of
-// dit_attention_mma.cuh, as does the K8 block chain's attention stage).
+// What the two DiT attention tiles share: the arguments, the masks, the
+// cp.async copies, and the scale / mask / online-softmax step over one
+// 64-key tile held in mma.sync accumulators.
 //
-// Replaces the attention of these TPU kernels:
-//   K9  voice_tts_tpu/ops/attic/cfm_attention.py `cfm_attention` (keys at
+// The tiles (each header holds its design and bound):
+//   dit_attention_mma.cuh   bf16 on the tensor cores (m16n8k16 bf16), the
+//                           bf16 branch of K9 and K11 and K8's attention stage;
+//   dit_attention_tf32.cuh  f32 on the tensor cores as three split-TF32 passes
+//                           (m16n8k8 tf32), the f32 branch of K9 and K11.
+// Both replace the attention of these TPU kernels:
+//   K9  voice_tts_tpu/ops/attic/cfm_attention.py:64 `cfm_attention` (keys at
 //       col >= lens[b] masked to -1e30),
 //   K11 jax.experimental.pallas.ops.tpu.flash_attention as the DiT calls it
 //       (voice_tts_tpu/models/s2mel/dit.py:122-148; query i sees key j only
 //       where their segment ids are equal, others get -0.7 * FLT_MAX added).
-//
 // The K9 TPU kernel holds one (T, T) f32 score tile in VMEM; at T = 3104 that
-// is 38 MB, far past the 227 KB of shared memory a block may use.  This
-// kernel is flash-style instead: one block per (batch, head, 32 query rows)
-// walks 64-key tiles of K and V through shared memory with an f32 running
-// max and sum per row, so no score leaves the SM.  Scores come from the
-// f32-widened q and k (bf16 products are exact in f32), softmax is f32, and
-// the unnormalized probabilities are rounded to the input type before the PV
-// product (as the jax flash kernel does; K9 rounds the normalized ones, a
-// difference of one bf16 rounding per probability), which accumulates in
-// f32.  A row whose keys so far are all masked keeps the finite mask value
-// as its max; the `m = -inf` guard only covers keys past the sequence end.
-//
-// Bound: at the DiT's shapes (B 2, H 8, T 704-3104, hd 64) it is operations
-// (4 T^2 hd per (batch, head)), against about 1 MB to 10 MB of q, k, v and
-// output.  This first version computes on the CUDA cores in f32 FMAs (q and
-// the K tile read as float4 from shared memory, each lane owning two keys of
-// a tile for QK^T and two head dims for PV); tensor-core tiles (mma.sync or
-// wgmma) are later work.
+// is 38 MB, far past the 227 KB of shared memory a block may use, so both
+// tiles are flash-style: one block per (64 query rows, batch * head) walks
+// 64-key tiles of K and V with an f32 running max and sum per row.
 #pragma once
 
 #include "common.cuh"
@@ -35,12 +25,8 @@ namespace vtt {
 namespace {
 
 constexpr int ATT_HD = 64;        // head width (the DiT's 512 / 8)
-constexpr int ATT_BQ = 32;        // query rows a block (8 a warp)
-constexpr int ATT_BK = 64;        // keys a shared-memory tile
-constexpr int ATT_KPAD = 68;      // K-tile row stride in floats: float4 loads without bank conflicts
-constexpr int ATT_THREADS = 128;
-constexpr int ATT_SMEM_BYTES =
-    (ATT_BQ * ATT_HD + ATT_BK * ATT_KPAD + ATT_BK * ATT_HD + 4 * 8 * ATT_BK) * 4;
+constexpr int ATT_BK = 64;        // keys a tile
+constexpr float ATT_LOG2E = 1.4426950408889634f;
 // jax flash_attention's DEFAULT_MASK_VALUE, -0.7 * float32 max
 constexpr float SEG_MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float LENS_MASK_VALUE = -1e30f;
@@ -74,150 +60,118 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, int MASK>
-__global__ void __launch_bounds__(ATT_THREADS) dit_attention_kernel(const AttnArgs a) {
-  extern __shared__ __align__(16) float att_smem[];
-  float* qs = att_smem;                       // [BQ][HD]
-  float* ks = qs + ATT_BQ * ATT_HD;           // [BK][KPAD]
-  float* vs = ks + ATT_BK * ATT_KPAD;         // [BK][HD]
-  float* ps = vs + ATT_BK * ATT_HD;           // [4 warps][8 rows][BK]
+// cp.async of 16 bytes, zero-filling the destination when !valid.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * ATT_BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t_len = a.t_len;
-  const T* qg = static_cast<const T*>(a.q) + (long)b * a.q_sb + (long)h * a.q_sh;
-  const T* kg = static_cast<const T*>(a.k) + (long)b * a.k_sb + (long)h * a.k_sh;
-  const T* vg = static_cast<const T*>(a.v) + (long)b * a.v_sb + (long)h * a.v_sh;
-  T* og = static_cast<T*>(a.o) + (long)b * a.o_sb + (long)h * a.o_sh;
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 
-  for (int i = tid; i < ATT_BQ * ATT_HD; i += ATT_THREADS) {
-    const int t = q0 + i / ATT_HD;
-    qs[i] = t < t_len ? to_f32(qg[(long)t * a.q_st + i % ATT_HD]) : 0.0f;
-  }
-  const int n_valid = MASK == MASK_LENS ? a.lens[b] : 0;
-  int my_seg[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = q0 + warp * 8 + r;
-    my_seg[r] = (MASK == MASK_SEG && t < t_len) ? a.q_seg[(long)b * t_len + t] : 0;
-  }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  float m[8], l[8], o[8][2];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-    o[r][0] = o[r][1] = 0.0f;
-  }
-  const float* qw = qs + warp * 8 * ATT_HD;
-  float* pw = ps + warp * 8 * ATT_BK;
+// Number of 64-key tiles a block walks: every tile of T, except that K9
+// stops at ceil(lens[b] / 64) when lens[b] >= 1 (once a valid key has set a
+// finite max, exp(-1e30 - m) is 0 in f32, as in the plain version; lens[b]
+// <= 0 walks every tile for the uniform row).  K11 walks every tile: a row
+// that matches no key must still average all T keys.
+// n_valid: K9's lens[b].
+template <int MASK>
+__device__ __forceinline__ int key_tiles(int t_len, int n_valid) {
+  const int n_tiles = (t_len + ATT_BK - 1) / ATT_BK;
+  if (MASK == MASK_LENS && n_valid >= 1) return min(n_tiles, (n_valid + ATT_BK - 1) / ATT_BK);
+  return n_tiles;
+}
 
-  for (int k0 = 0; k0 < t_len; k0 += ATT_BK) {
-    __syncthreads();   // the previous tile is consumed (and the q tile written)
-    for (int i = tid; i < ATT_BK * ATT_HD; i += ATT_THREADS) {
-      const int j = i / ATT_HD, d = i % ATT_HD, t = k0 + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (t < t_len) {
-        kv = to_f32(kg[(long)t * a.k_st + d]);
-        vv = to_f32(vg[(long)t * a.v_st + d]);
-      }
-      ks[j * ATT_KPAD + d] = kv;
-      vs[j * ATT_HD + d] = vv;
-    }
-    __syncthreads();
-
-    // scores of this warp's 8 rows against keys lane and lane + 32
-    float s[8][2];
+// Segment ids of a lane's two rows (fragment rows g and g + 8 of its warp's
+// 16, from query row `row0`); 0 for K9.
+template <int MASK>
+__device__ __forceinline__ void query_segments(int (&my_seg)[2], const AttnArgs& a, int b,
+                                               int row0) {
+  my_seg[0] = my_seg[1] = 0;
+  if (MASK == MASK_SEG) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) s[r][0] = s[r][1] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < ATT_HD; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(ks + lane * ATT_KPAD + d);
-      const float4 kb = *reinterpret_cast<const float4*>(ks + (lane + 32) * ATT_KPAD + d);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * ATT_HD + d);
-        s[r][0] = fmaf(qv.x, ka.x, s[r][0]);
-        s[r][0] = fmaf(qv.y, ka.y, s[r][0]);
-        s[r][0] = fmaf(qv.z, ka.z, s[r][0]);
-        s[r][0] = fmaf(qv.w, ka.w, s[r][0]);
-        s[r][1] = fmaf(qv.x, kb.x, s[r][1]);
-        s[r][1] = fmaf(qv.y, kb.y, s[r][1]);
-        s[r][1] = fmaf(qv.z, kb.z, s[r][1]);
-        s[r][1] = fmaf(qv.w, kb.w, s[r][1]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = k0 + lane + 32 * c;
-      const int kv_seg = (MASK == MASK_SEG && j < t_len) ? a.kv_seg[(long)b * t_len + j] : 0;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        float v = s[r][c] * a.scale;
-        if (j >= t_len) {
-          v = -INFINITY;                   // past the sequence: no weight at all
-        } else if (MASK == MASK_LENS) {
-          if (j >= n_valid) v = LENS_MASK_VALUE;
-        } else {
-          v += my_seg[r] == kv_seg ? 0.0f : SEG_MASK_VALUE;
-        }
-        s[r][c] = v;
-      }
-    }
-
-    // online softmax: f32 running max and sum, the same in every lane
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float mn = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      const float mu = mn == -INFINITY ? 0.0f : mn;
-      const float alpha = expf(m[r] - mu);
-      float p0 = expf(s[r][0] - mu), p1 = expf(s[r][1] - mu);
-      l[r] = l[r] * alpha + warp_sum(p0 + p1);
-      m[r] = mn;
-      o[r][0] *= alpha;
-      o[r][1] *= alpha;
-      p0 = to_f32(from_f32<T>(p0));       // p in the type of v before PV
-      p1 = to_f32(from_f32<T>(p1));
-      pw[r * ATT_BK + lane] = p0;
-      pw[r * ATT_BK + lane + 32] = p1;
-    }
-    __syncwarp();
-    // PV: lane owns head dims lane and lane + 32
-#pragma unroll 4
-    for (int j = 0; j < ATT_BK; ++j) {
-      const float v0 = vs[j * ATT_HD + lane], v1 = vs[j * ATT_HD + lane + 32];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float p = pw[r * ATT_BK + j];
-        o[r][0] = fmaf(p, v0, o[r][0]);
-        o[r][1] = fmaf(p, v1, o[r][1]);
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = q0 + warp * 8 + r;
-    if (t < t_len) {
-      const float inv = 1.0f / l[r];
-      og[(long)t * a.o_st + lane] = from_f32<T>(o[r][0] * inv);
-      og[(long)t * a.o_st + lane + 32] = from_f32<T>(o[r][1] * inv);
+    for (int r = 0; r < 2; ++r) {
+      const int t = row0 + 8 * r;
+      my_seg[r] = t < a.t_len ? a.q_seg[(long)b * a.t_len + t] : 0;
     }
   }
 }
 
-// Launch on `stream`; returns cudaGetLastError().  The dynamic shared memory
-// (49 KB) is above the 48 KB default, so the kernel's limit is raised.
-template <typename T, int MASK>
-cudaError_t launch_dit_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
-  const cudaError_t e = vtt::allow_dynamic_smem((const void*)dit_attention_kernel<T, MASK>,
-                                                ATT_SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.t_len + ATT_BQ - 1) / ATT_BQ, batch * a.heads);
-  dit_attention_kernel<T, MASK><<<grid, ATT_THREADS, ATT_SMEM_BYTES, stream>>>(a);
-  return cudaGetLastError();
+// One 64-key tile of scores s (8 n-tiles of m16n8 accumulators: s[n][e] is
+// row g + 8 * (e >> 1), key k0 + n * 8 + 2 * tq + (e & 1)) scaled, masked
+// and turned into unnormalized probabilities, with the running max m, the
+// lane's share of the running sum l (the quad sums it at the end) and the
+// accumulators o (the same row layout) rescaled.  n_valid: K9's lens[b];
+// tile_seg: K11's key segment ids of the tile.
+//
+// Keys past T get -inf (no weight at all).  exp2f((s - m) * log2e) is taken
+// AFTER the subtraction: prescaling by log2e would turn K11's -0.7 * FLT_MAX
+// into -inf and a row that matches no key into NaN.  A row whose keys are
+// all masked keeps the finite mask value as its max (the uniform average
+// over every key, as the plain versions give); `m = -inf` is guarded for
+// keys past T.  A row's 64 scores live in one quad of 4 lanes.
+template <int MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[8][4], float (&m)[2],
+                                             float (&l)[2], const AttnArgs& a, int n_valid,
+                                             int k0, const int (&my_seg)[2],
+                                             const int* tile_seg, int tq) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + n * 8 + 2 * tq + (e & 1);
+      float v = s[n][e] * a.scale;
+      if (col >= a.t_len) {
+        v = -INFINITY;                   // past the sequence: no weight at all
+      } else if (MASK == MASK_LENS) {
+        if (col >= n_valid) v = LENS_MASK_VALUE;
+      } else {
+        v += my_seg[e >> 1] == tile_seg[col - k0] ? 0.0f : SEG_MASK_VALUE;
+      }
+      s[n][e] = v;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m[r], mx);
+    const float mu = mn == -INFINITY ? 0.0f : mn;
+    const float alpha = exp2f((m[r] - mu) * ATT_LOG2E);
+    m[r] = mn;
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[n][e] = exp2f((s[n][e] - mu) * ATT_LOG2E);
+        sum += s[n][e];
+      }
+      o[n][2 * r] *= alpha;
+      o[n][2 * r + 1] *= alpha;
+    }
+    l[r] = l[r] * alpha + sum;         // this lane's share; the quad sums at the end
+  }
+}
+
+// The quad's sum of a row's l, and its reciprocal.
+__device__ __forceinline__ float inv_row_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return 1.0f / l;
 }
 
 }  // namespace

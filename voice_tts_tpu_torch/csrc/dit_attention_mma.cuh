@@ -1,12 +1,8 @@
 // bf16 masked full (non-causal) attention of the DiT on the tensor cores:
-// the bf16 branch of K9 and K11.
-//
-// Replaces, for bf16 inputs, the attention of two TPU kernels:
-//   K9  voice_tts_tpu/ops/attic/cfm_attention.py:64 `cfm_attention` (keys at
-//       col >= lens[b] masked to -1e30),
-//   K11 jax.experimental.pallas.ops.tpu.flash_attention as the DiT calls it
-//       (voice_tts_tpu/models/s2mel/dit.py:122-148; query i sees key j only
-//       where their segment ids are equal, others get -0.7 * FLT_MAX added).
+// the bf16 branch of K9 and K11, and the attention stage of the K8 block
+// chain (dit_blocks.cu, under programmatic dependent launch).  What it
+// replaces, the masks and the shared softmax step: dit_attention.cuh.  The
+// f32 branch runs the split-TF32 tile of dit_attention_tf32.cuh.
 //
 // Bound: bf16 tensor-core operations, 4 * T_attended * hd a (query row,
 // head) for QK^T and PV, against 1-10 MB of q, k, v and output at the DiT's
@@ -26,36 +22,18 @@
 //   starts before tile j's math; one barrier a tile.  Rows past T are
 //   zero-filled by the copy (src-size 0), so no stale NaN meets a zero P;
 // - S = Q K^T with mma.sync.m16n8k16 bf16 -> f32 (8 n-tiles x 4 k-steps a
-//   warp, B fragments by ldmatrix on K rows); scale, mask and the ragged
-//   edge (keys past T get -inf) applied in registers;
-// - online softmax in f32 registers: a row's 64 scores live in one quad of
-//   4 lanes (two __shfl_xor_sync for the max; the sum stays a per-lane
-//   partial until the epilogue).  exp2f((s - m) * log2e) is taken AFTER the
-//   subtraction: prescaling by log2e would turn K11's -0.7 * FLT_MAX into
-//   -inf and a row that matches no key into NaN.  A row whose keys are all
-//   masked keeps the finite mask value as its max (the uniform average over
-//   every key, as the plain versions give); `m = -inf` is guarded for keys
-//   past T;
+//   warp, B fragments by ldmatrix on K rows); then `softmax_tile`: scale,
+//   mask, the ragged edge and the online softmax in f32 registers;
 // - P V without shared memory: the m16n8k16 accumulator layout of S is the
 //   A-operand layout of the next product, so the unnormalized probabilities
-//   are rounded to packed bf16 pairs in registers (as the CUDA-core kernel
-//   and jax's flash kernel round them) and fed to the PV mma, whose B
-//   fragments come from ldmatrix.trans on V rows; O (16 x 64 f32 a warp)
-//   stays in registers, rescaled by alpha each tile;
+//   are rounded to packed bf16 pairs in registers (as jax's flash kernel
+//   rounds them) and fed to the PV mma, whose B fragments come from
+//   ldmatrix.trans on V rows; O (16 x 64 f32 a warp) stays in registers,
+//   rescaled by alpha each tile;
 // - epilogue: O / l rounded to bf16, staged through the warp's own rows of
 //   the Q tile and written in 16-byte stores, rows >= T skipped;
-// - K9 stops its key loop at ceil(lens[b] / 64) tiles when lens[b] >= 1:
-//   once a valid key has set a finite max, exp(-1e30 - m) is 0 in f32, as
-//   in the plain version.  lens[b] <= 0 walks every tile (the uniform row).
-//   K11 walks every tile: a row that matches no key must still average all
-//   T keys.
+// - K9 stops its key loop at ceil(lens[b] / 64) tiles (`key_tiles`).
 // Left for later: wgmma, TMA, warp specialisation, persistent blocks.
-//
-// f32 inputs keep the CUDA-core kernel of dit_attention.cuh: TF32 tensor
-// cores would round q and k to 10 mantissa bits and break the f32
-// tolerance (1e-4 against the plain version).  The K8 block chain
-// (dit_blocks.cu) runs this tile as its attention stage, under
-// programmatic dependent launch.
 //
 // The wrapper (ops/cfm_attention.py `check_qkv`) guarantees what the
 // 16-byte copies need: 16-byte-aligned bases and (batch, head, time)
@@ -68,10 +46,9 @@ namespace vtt {
 namespace {
 
 constexpr int MMA_BQ = 64;          // query rows a block (16 a warp)
-constexpr int MMA_BK = 64;          // keys a tile
+constexpr int MMA_BK = ATT_BK;      // keys a tile
 constexpr int MMA_THREADS = 128;
 constexpr int MMA_TILE = MMA_BK * ATT_HD;   // bf16 elements of one 8 KB tile
-constexpr float MMA_LOG2E = 1.4426950408889634f;
 
 struct MmaSmem {
   __nv_bfloat16 q[MMA_TILE];        // the Q tile, later the output staging
@@ -83,25 +60,6 @@ struct MmaSmem {
 // Element offset of 16-byte chunk `c` (8 bf16) of row `r` in a swizzled
 // 64 x 64 bf16 tile.
 __device__ __forceinline__ int swz(int r, int c) { return r * ATT_HD + ((c ^ (r & 7)) << 3); }
-
-// cp.async of 16 bytes, zero-filling the destination when !valid.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Rows row0 .. row0 + 63 of a (T, 64) bf16 view with time stride `st` into
 // a swizzled tile: 512 chunks of 16 bytes, 4 a thread.
@@ -180,23 +138,15 @@ __global__ void __launch_bounds__(MMA_THREADS) dit_attention_mma_kernel(const At
   grid_dependency_wait();
   launch_dependents();
 
-  int n_tiles = (t_len + MMA_BK - 1) / MMA_BK;
   const int n_valid = MASK == MASK_LENS ? a.lens[b] : 0;
-  if (MASK == MASK_LENS && n_valid >= 1) n_tiles = min(n_tiles, (n_valid + MMA_BK - 1) / MMA_BK);
+  const int n_tiles = key_tiles<MASK>(t_len, n_valid);
 
   load_tile(sm.q, qg, a.q_st, q0, t_len, tid);
   load_kv<MASK>(sm, kg, vg, kv_seg, a.k_st, a.v_st, 0, t_len, tid);
   cp_async_commit();
 
-  // segment ids of this lane's two rows (g and g + 8 of the warp's 16)
-  int my_seg[2] = {0, 0};
-  if (MASK == MASK_SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = q0 + warp * 16 + g + 8 * r;
-      my_seg[r] = t < t_len ? a.q_seg[(long)b * t_len + t] : 0;
-    }
-  }
+  int my_seg[2];
+  query_segments<MASK>(my_seg, a, b, q0 + warp * 16 + g);
 
   unsigned qf[4][4];          // A fragments of Q, one a k-step of 16 dims
   float o[8][4];              // O: 8 n-tiles of 8 dims, rows g and g + 8
@@ -235,51 +185,7 @@ __global__ void __launch_bounds__(MMA_THREADS) dit_attention_mma_kernel(const At
       }
     }
 
-    // scale, mask, ragged edge; s[n][e] is row g + 8 * (e >> 1), key
-    // j * 64 + n * 8 + 2 * tq + (e & 1)
-    const int k0 = j * MMA_BK;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * tq + (e & 1);
-        float v = s[n][e] * a.scale;
-        if (col >= t_len) {
-          v = -INFINITY;                   // past the sequence: no weight at all
-        } else if (MASK == MASK_LENS) {
-          if (col >= n_valid) v = LENS_MASK_VALUE;
-        } else {
-          v += my_seg[e >> 1] == sm.kv_seg[j & 1][col - k0] ? 0.0f : SEG_MASK_VALUE;
-        }
-        s[n][e] = v;
-      }
-    }
-
-    // online softmax, one quad of lanes a row
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[r], mx);
-      const float mu = mn == -INFINITY ? 0.0f : mn;
-      const float alpha = exp2f((m[r] - mu) * MMA_LOG2E);
-      m[r] = mn;
-      float sum = 0.0f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[n][e] = exp2f((s[n][e] - mu) * MMA_LOG2E);
-          sum += s[n][e];
-        }
-        o[n][2 * r] *= alpha;
-        o[n][2 * r + 1] *= alpha;
-      }
-      l[r] = l[r] * alpha + sum;         // this lane's share; the quad sums at the end
-    }
+    softmax_tile<MASK>(s, o, m, l, a, n_valid, j * MMA_BK, my_seg, sm.kv_seg[j & 1], tq);
 
     // O += P V: P's accumulators repacked as A fragments, 16 keys a k-step
 #pragma unroll
@@ -303,9 +209,7 @@ __global__ void __launch_bounds__(MMA_THREADS) dit_attention_mma_kernel(const At
   // (no other warp reads them), then 16-byte stores of whole rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.0f / l[r];
+    const float inv = inv_row_sum(l[r]);
     const int row = warp * 16 + g + 8 * r;
 #pragma unroll
     for (int n = 0; n < 8; ++n)

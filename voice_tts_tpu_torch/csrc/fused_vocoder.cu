@@ -123,16 +123,6 @@ __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float(r);
 }
 
-// d += a b over one m16n8k8 TF32 tile: a is the lane's A quad, (b0, b1) its
-// B pair, both already in fragment order
-__device__ __forceinline__ void mma_tf32(float* d, const float4& a, float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)), "r"(__float_as_uint(a.z)),
-        "r"(__float_as_uint(a.w)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
 // out[o, t] = scale * (acc_in[o, t] + (res[o, t] + conv(AA(in))[o, t] + bias[o]))
 // for t in [0, T), with res and acc_in optional (null).  in (C, T); wk the
 // pair's (k_max, C / 8) slabs of CP x 16 split weights in fragment order,
@@ -231,15 +221,15 @@ stage_pair_mma_kernel(const float* __restrict__ in, const float* __restrict__ al
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], alo[i], b[j].x, b[j].y);
+      for (int j = 0; j < NT; ++j) vtt::mma_tf32(acc[i][j], alo[i], b[j].x, b[j].y);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], b[j].z, b[j].w);
+      for (int j = 0; j < NT; ++j) vtt::mma_tf32(acc[i][j], ahi[i], b[j].z, b[j].w);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], b[j].x, b[j].y);
+      for (int j = 0; j < NT; ++j) vtt::mma_tf32(acc[i][j], ahi[i], b[j].x, b[j].y);
   };
 
   int q = 0;

@@ -15,8 +15,14 @@ rows >= x_lens change, which nothing reads).
   that module (mask added as `-0.7 * float32 max`), with f32 scores from the
   f32-widened q and k and p cast to v's dtype before an f32 PV product;
 - `csrc/dit_attention.cu` (`vtt_flash_attention`): the hand-written
-  kernel, launched for CUDA tensors (the K9 device code with the segment
-  mask: bf16 `csrc/dit_attention_mma.cuh`, f32 `csrc/dit_attention.cuh`).
+  kernel, launched for CUDA tensors: K9's tiles with the segment mask
+  (bf16 `csrc/dit_attention_mma.cuh`; f32 `csrc/dit_attention_tf32.cuh`,
+  three split-TF32 passes on the tensor cores: see
+  `ops/cfm_attention.py`), walking every key tile: a row whose segment
+  matches no key averages all T keys;
+- `flash_attention_split_plain`: the f32 tile's arithmetic in PyTorch ops
+  (`attention_split_plain` with the segment mask over every tile), the CPU
+  model the tests hold against jax's flash kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import ctypes
 import torch
 
 from voice_tts_tpu_torch.ops import build
-from voice_tts_tpu_torch.ops.cfm_attention import check_qkv, softmax_pv, strides_arg
+from voice_tts_tpu_torch.ops.cfm_attention import (KEY_TILE, attention_split_plain,
+                                                   check_qkv, softmax_pv, strides_arg)
 from voice_tts_tpu_torch.ops.counters import LAUNCHES
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -40,6 +47,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = q_seg.to(q.device)[:, :, None] == kv_seg.to(q.device)[:, None, :]
     s = s + torch.where(mask, 0.0, MASK_VALUE)[:, None, :, :]
     return softmax_pv(s, v)
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                q_seg: torch.Tensor, kv_seg: torch.Tensor,
+                                sm_scale: float) -> torch.Tensor:
+    """K11's f32 tensor-core tile in PyTorch ops (`attention_split_plain`):
+    -0.7 * float32 max added where the segment ids differ, every key tile
+    walked.  f32 q, k, v on the CPU."""
+    same = q_seg[:, :, None] == kv_seg[:, None, :]                # (B, T, T)
+
+    def mask_tile(b, k0, s):
+        return s + torch.where(same[b, None, :, k0:k0 + s.shape[-1]], 0.0, MASK_VALUE)
+    every = -(-q.shape[2] // KEY_TILE)
+    return attention_split_plain(q, k, v, mask_tile, [every] * q.shape[0], sm_scale)
 
 
 def flash_attention_cuda(q, k, v, q_seg, kv_seg, sm_scale: float) -> torch.Tensor:

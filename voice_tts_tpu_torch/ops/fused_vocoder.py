@@ -48,6 +48,7 @@ from voice_tts_tpu_torch.models.vocoder.packed import (can_pack, pad_kernel,
 from voice_tts_tpu_torch.ops import build
 from voice_tts_tpu_torch.ops.aa_activation import TAPS_HOST, aa_snake_zero_plain
 from voice_tts_tpu_torch.ops.counters import LAUNCHES
+from voice_tts_tpu_torch.ops.tf32 import split_tf32
 
 # the JAX gate (18 * k_max * C^2 f32 weights resident in VMEM), kept; the
 # kernel itself streams its weights through shared memory at any C
@@ -126,13 +127,6 @@ def padded_channels(c: int) -> int:
     return 16 * wm * mt
 
 
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 -> the nearest TF32 value (10 mantissa bits, ties away from zero,
-    as `cvt.rna.tf32.f32`), kept in f32."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def kernel_pack(pack: StagePack) -> KernelPack:
     """The split weight slabs of `pack`, made once and kept while pack.w
     lives (a pack is not written after packing)."""
@@ -145,8 +139,7 @@ def kernel_pack(pack: StagePack) -> KernelPack:
         raise ValueError(f"fused_resblock_stage: {c} channels, not a multiple of 8 up to "
                          f"{_MAX_FUSED_CHANNELS}")
     cp = padded_channels(c)
-    hi = tf32_round(pack.w)
-    planes = torch.stack([hi, tf32_round(pack.w - hi)], dim=-1)   # (n, k, o, i, plane)
+    planes = torch.stack(split_tf32(pack.w), dim=-1)   # (n, k, o, i, plane)
     planes = F.pad(planes, (0, 0, 0, 0, 0, cp - c))
     # o = 16 tile + 8 ob + g, i = 8 slab + 4 ib + t; a lane's quad is
     # (o, i) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
@@ -226,8 +219,7 @@ def _conv_same_split(z: torch.Tensor, w_taps: torch.Tensor, bias: torch.Tensor,
                      dilation: int) -> torch.Tensor:
     """`_conv_same` in the kernel's arithmetic: both operands split into TF32
     hi and lo parts, the three products lo.hi + hi.lo + hi.hi in f32."""
-    zh, wh = tf32_round(z), tf32_round(w_taps)
-    zl, wl = tf32_round(z - zh), tf32_round(w_taps - wh)
+    (zh, zl), (wh, wl) = split_tf32(z), split_tf32(w_taps)
     y = None
     for a, b in ((zl, wh), (zh, wl), (zh, wh)):
         term = _conv_same(a, b, torch.zeros_like(bias), dilation)
