@@ -134,7 +134,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
    KL; then the server on the converted directory with `--model-dir`
    (production profile, `minimal` warm-up) and one POST /tts: its decodes
    bit-equal to the source engine's for the same request, generator state
-   and cap memory, its WAV within 2 LSB (K3 and K2 on the path);
+   and cap memory, its WAV within 2 LSB (K3 and K2 on the path); then the
+   serving image's contract without Docker (`run_image`): Dockerfile.torch's
+   CMD started as a process of its own on the converted directory (its
+   console script as `python -m` of its `[project.scripts]` target, /models
+   the directory, 8000 a free port, no `--device`), its HEALTHCHECK's own
+   command every 2 s until it exits 0 (at most 120 s, the seconds printed),
+   `/debug/worker-info` (one replica on the card, the production profile,
+   beam-3, the production flags), one POST /tts (a 22.05 kHz int16 WAV of
+   finite, non-empty samples, its wall printed) and SIGTERM (exit 0 within
+   `server.graceful_timeout_s` + 30 s);
    Then the emotion phase (`run_emotion`; `--only emotion` runs it alone
    on a production engine of its own): the Qwen LM at Qwen3-0.6B's
    published widths (f32, random weights from seed 0, a byte-level
@@ -293,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4069,6 +4079,199 @@ FOLD_REL_TOL = 2.0 ** -22
 LOADING_WAV_LSB = 2
 
 
+# the serving image, the seconds its command may take to answer its own
+# health check on the card, and the seconds between two checks
+IMAGE_DOCKERFILE = "Dockerfile.torch"
+IMAGE_HEALTHY_S = 120
+IMAGE_POLL_S = 2
+
+
+def dockerfile(path: str) -> list:
+    """A Dockerfile's instructions as (KEYWORD, arguments) pairs: comment
+    lines dropped and continued lines joined, as Docker's parser does."""
+    out, cur = [], ""
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if line.lstrip().startswith("#"):
+                continue
+            if line.endswith("\\"):
+                cur += line[:-1]
+                continue
+            cur += line
+            if cur.strip():
+                key, _, rest = cur.strip().partition(" ")
+                out.append((key.upper(), rest.strip()))
+            cur = ""
+    return out
+
+
+def image_contract(path: str) -> dict:
+    """What a serving image runs: its CMD (exec form), its HEALTHCHECK's
+    options and shell command, the EXPOSEd ports, the VOLUMEs, WORKDIR, ENV
+    and the COPY and RUN arguments (the last CMD, HEALTHCHECK and WORKDIR
+    count, as in Docker)."""
+    import shlex
+
+    found = {}
+    for key, rest in dockerfile(path):
+        found.setdefault(key, []).append(rest)
+    health = re.fullmatch(r"((?:--[\w-]+=\S+\s+)*)CMD\s+(.+)", found["HEALTHCHECK"][-1],
+                          re.S)
+    return {
+        "cmd": json.loads(found["CMD"][-1]),
+        "health": health[2],
+        "health_options": dict(o[2:].split("=", 1) for o in health[1].split()),
+        "expose": [int(p.split("/")[0]) for r in found.get("EXPOSE", []) for p in r.split()],
+        "volumes": [v for r in found.get("VOLUME", [])
+                    for v in (json.loads(r) if r.startswith("[") else r.split())],
+        "workdir": found["WORKDIR"][-1],
+        "env": dict(kv.split("=", 1) for r in found.get("ENV", []) for kv in shlex.split(r)),
+        "copy": [r.split() for r in found.get("COPY", [])],
+        "run": found.get("RUN", []),
+    }
+
+
+def image_server_argv(contract: dict, root: str, model_dir: str, port: int) -> list:
+    """The image's CMD as this Python runs it: its console script as
+    `python -m` of its `[project.scripts]` target (`root`'s pyproject.toml),
+    the image's volume `model_dir` and its exposed port `port`."""
+    import tomllib
+
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    module, _, func = scripts[contract["cmd"][0]].partition(":")
+    if func != "main":
+        raise ValueError(f"{contract['cmd'][0]} runs {func}, not its module's main")
+    swap = {v: model_dir for v in contract["volumes"]}
+    swap.update({str(p): str(port) for p in contract["expose"]})
+    return [sys.executable, "-m", module] + [swap.get(a, a) for a in contract["cmd"][1:]]
+
+
+def image_health_argv(contract: dict, port: int) -> list:
+    """The image's HEALTHCHECK command (a shell form) against `port`, its
+    `python` this Python."""
+    import shlex
+
+    cmd = contract["health"]
+    for p in contract["expose"]:
+        cmd = cmd.replace(f"localhost:{p}/", f"localhost:{port}/")
+    if cmd.startswith("python "):
+        cmd = shlex.quote(sys.executable) + cmd[len("python"):]
+    return ["/bin/sh", "-c", cmd]
+
+
+def _log_tail(path: str, n: int = 4000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def run_image(torch, model_dir: str, prompt: bytes, text: str, graceful_s: float,
+              card: str) -> None:
+    """The serving image's contract on the card, without Docker (the image
+    needs network access to build): Dockerfile.torch's CMD as a process of
+    its own on `model_dir` (`image_server_argv`, no `--device`: the default
+    must put it on the card), the repository on PYTHONPATH as the image's
+    WORKDIR is; its HEALTHCHECK's command every IMAGE_POLL_S s until it
+    exits 0, within IMAGE_HEALTHY_S; `/debug/worker-info`: one replica on
+    the card in the production profile; one POST /tts: a 22.05 kHz mono
+    int16 WAV of finite, non-empty samples; SIGTERM: exit 0 within
+    `graceful_s` + 30 s.  The process is killed in any case.  Kernel
+    launches cannot be counted across processes: the same directory's
+    in-process request before this step counts them."""
+    import io
+    import signal
+    import socket
+    import wave
+
+    import numpy as np
+    from voice_tts_tpu_torch.engine.engine import serving_config
+    from voice_tts_tpu_torch.serving.app import _SERVED_FLAGS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    contract = image_contract(os.path.join(root, IMAGE_DOCKERFILE))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = image_server_argv(contract, root, model_dir, port)
+    health = image_health_argv(contract, port)
+    check_s = float(contract["health_options"]["timeout"].rstrip("s"))
+    print(f"[image] {IMAGE_DOCKERFILE} CMD as {argv[1:]}; HEALTHCHECK "
+          f"({contract['health_options']}) every {IMAGE_POLL_S} s")
+    log_path = os.path.join(os.path.dirname(model_dir), "image_server.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                                stdout=log, stderr=subprocess.STDOUT)
+    try:
+        healthy, checks = None, 0
+        while time.perf_counter() - t0 < IMAGE_HEALTHY_S and proc.poll() is None:
+            checks += 1
+            try:
+                rc = subprocess.run(health, capture_output=True, timeout=check_s).returncode
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc == 0:
+                healthy = time.perf_counter() - t0
+                break
+            time.sleep(IMAGE_POLL_S)
+        if healthy is None:
+            fail(f"[image] not healthy within {IMAGE_HEALTHY_S} s (process exit "
+                 f"{proc.poll()}); its log ends:\n{_log_tail(log_path)}")
+        print(f"[image] healthy {healthy:.2f} s after the start ({checks} health checks; "
+              f"start period {contract['health_options'].get('start-period')}) ({card})")
+
+        status, body = http(port, "GET", "/debug/worker-info", timeout=60)
+        info = json.loads(body) if status == 200 else {}
+        reps = info.get("replicas", [])
+        rep = reps[0] if len(reps) == 1 else {}
+        dev = torch.device(rep.get("device", "cpu"))
+        want = {k: getattr(serving_config().engine, k) for k in _SERVED_FLAGS}
+        print(f"[image] /debug/worker-info -> {status}: backend {info.get('backend')}, "
+              f"devices {info.get('devices')}, {len(reps)} replica(s): "
+              + json.dumps({k: rep.get(k) for k in ("device", "profile", "mode",
+                                                     "num_beams", "offline")}))
+        if not (status == 200 and len(reps) == 1 and dev.type == "cuda"
+                and dev.index in (None, 0) and rep["profile"] == "serving"
+                and rep["num_beams"] == 3 and not rep["offline"]
+                and rep["engine_flags"] == want):
+            fail(f"[image] the image's server is not one production replica on "
+                 f"cuda:0: {json.dumps(info)[:2000]}")
+
+        t1 = time.perf_counter()
+        status, body = http(port, "POST", "/tts", json.dumps(
+            {"text": text, "spk_audio": prompt.hex()}).encode())
+        wall = time.perf_counter() - t1
+        if status != 200:
+            fail(f"[image] POST /tts -> {status}: {body[:500]!r}")
+        with wave.open(io.BytesIO(bytes.fromhex(json.loads(body)["audio_hex"]))) as w:
+            sr, width, channels = w.getframerate(), w.getsampwidth(), w.getnchannels()
+            wav = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        free, total = torch.cuda.mem_get_info()
+        print(f"[image] POST /tts -> {status} in {wall:.3f} s: {wav.size} samples at {sr} "
+              f"Hz, {8 * width}-bit, {channels} channel(s), max |sample| "
+              f"{int(np.abs(wav.astype(np.int32)).max(initial=0))}; card memory in use "
+              f"{(total - free) / 2 ** 30:.2f} GiB, this process reserving "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB ({card})")
+        if (sr, width, channels) != (22050, 2, 1) or wav.size == 0 or not np.isfinite(
+                wav.astype(np.float32)).all():
+            fail("[image] POST /tts did not return a 22.05 kHz mono int16 WAV")
+
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=graceful_s + 30)
+        except subprocess.TimeoutExpired:
+            fail(f"[image] no exit within {graceful_s + 30:.0f} s of SIGTERM")
+        print(f"[image] SIGTERM -> exit {rc} in {time.perf_counter() - t1:.2f} s; step "
+              f"wall {time.perf_counter() - t0:.2f} s")
+        if rc != 0:
+            fail(f"[image] exit {rc} after SIGTERM; its log ends:\n{_log_tail(log_path)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def _wav_int16(data: bytes):
     import io
     import wave
@@ -4093,9 +4296,10 @@ def run_loading(torch, dev, counters, engine, card):
     server on `--out` with `--model-dir` (production profile, `minimal`
     warm-up) and one POST /tts, its decodes bit-equal to the source
     engine's for the same request from the same generator state and cap
-    memory, its WAV within LOADING_WAV_LSB.  Returns the launches from the
-    onboarding through the request, the source engine's comparison request
-    taken out."""
+    memory, its WAV within LOADING_WAV_LSB; (4) the serving image's command
+    and health check on `--out` in a process of its own (`run_image`).
+    Returns the launches from the onboarding through the in-process
+    request, the source engine's comparison request taken out."""
     import gc
     import os
     import shutil
@@ -4252,7 +4456,8 @@ def run_loading(torch, dev, counters, engine, card):
         lsb = (int(np.abs(wav.astype(np.int32) - src_out.wav.astype(np.int32)).max())
                if wav.shape == src_out.wav.shape else None)
         print(f"[loading] POST /tts -> {status} in {wall:.3f} s: {wav.size} samples at "
-              f"{sr} Hz; decodes (steps, chunks) {[(d[3], d[4]) for d in dec]} vs the "
+              f"{sr} Hz, max |sample| {int(np.abs(wav.astype(np.int32)).max(initial=0))}; "
+              f"decodes (steps, chunks) {[(d[3], d[4]) for d in dec]} vs the "
               f"source engine's {[(d[3], d[4]) for d in src_dec]}, codes bit-equal "
               f"{same_codes}; WAV max |diff| {lsb} LSB (bound {LOADING_WAV_LSB}); "
               f"launches {launches}")
@@ -4264,6 +4469,14 @@ def run_loading(torch, dev, counters, engine, card):
                      "aa_snake_activation"):
             if launches[name] == 0:
                 fail(f"[loading] {name} was not launched on the loading path")
+
+        # (4) the serving image's command on the same directory, beside this
+        # process's production engine
+        del loaded, service
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_image(torch, out, prompt, text, saved_json["server"]["graceful_timeout_s"],
+                  card)
         print(f"[loading] phase wall {time.perf_counter() - t_phase:.2f} s")
         return launches
     finally:

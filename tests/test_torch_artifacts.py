@@ -24,6 +24,7 @@ from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
 from voice_tts_tpu.utils import artifacts as jart
 from voice_tts_tpu_torch import cli
 from voice_tts_tpu_torch.audio import encode_wav_int16
+from voice_tts_tpu_torch.config import TTSConfig
 from voice_tts_tpu_torch.engine.engine import (HashTokenizer, TTSEngine,
                                                random_models, tiny_config)
 from voice_tts_tpu_torch.serving import app
@@ -217,15 +218,15 @@ def test_split_matrix_groups_matches_jax():
 
 def test_model_dir_server_and_cli(chain, tmp_path):
     """`--model-dir` in the server (`build_engine`, `load_engines`, `main`'s
-    arguments) and the CLI: the directory's engine, `--profile stock`
-    accepted only with it."""
+    arguments) and the CLI: the directory's engine, `--profile stock` its
+    config as saved; without a directory `stock` is `TTSConfig()` as it
+    stands (`engine_config`, no engine built), as in the JAX server."""
     d = chain["port_dir"]
     args = app.parse_args(["--model-dir", d, "--profile", "stock"])
     assert args.model_dir == d and args.profile == "stock"
     eng = app.build_engine(False, "cpu", profile="stock", model_dir=d)
     assert eng.cfg.to_dict() == chain["peng"].cfg.to_dict()
-    with pytest.raises(ValueError, match="model-dir"):
-        app.build_engine(False, "cpu", profile="stock")
+    assert app.engine_config(False, "stock").to_dict() == TTSConfig().to_dict()
     service = app.TTSService()
     try:
         service.load_engines(device="cpu", profile="serving", model_dir=d)

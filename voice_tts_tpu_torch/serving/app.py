@@ -56,12 +56,14 @@ server does (`serving_config`: beam search with 3 beams through K3 with the
 ancestor table, int8 KV, folded readout, bf16 conditioning); `--profile
 bench` serves the bench decode configuration (`bench_config`: sampling,
 num_beams = 1 through K1, or K3 at per-row positions with
-`--continuous-batching`).  `--tiny` takes the tiny config whatever the
+`--continuous-batching`); `--profile stock` serves `TTSConfig()` as it
+stands, as the JAX server does.  `--tiny` takes the tiny config whatever the
 profile.  `--model-dir DIR` serves a converted model directory
 (`utils.artifacts`, written by `python -m voice_tts_tpu_torch.utils.onboard
 --out DIR`) through `TTSEngine.from_artifacts`, each replica loading it onto
 its own card: in the production profile by default, `--profile bench` the
 bench profile, `--profile stock` the directory's config as saved.
+`engine_config` makes these choices without building an engine.
 
     python -m voice_tts_tpu_torch.serving.app --port 8020            # flagship
     python -m voice_tts_tpu_torch.serving.app --model-dir /models/converted
@@ -97,9 +99,9 @@ _SERVED_FLAGS = ("use_fp16", "use_int8_decode", "use_fused_decode",
                  "fold_readout", "use_int8_kv", "use_bf16_conditioning",
                  "release_master_trees", "spec_decode_k", "use_bf16_s2mel",
                  "fuse_pipeline")
-PROFILES = ("serving", "bench")
-# a model directory may also be served with its config as saved
-MODEL_DIR_PROFILES = PROFILES + ("stock",)
+# the production profile (the default), the bench configuration, and the
+# configuration as it stands (`TTSConfig()`, or a model directory's as saved)
+PROFILES = ("serving", "bench", "stock")
 # seconds a grouped worker waits for more requests to join a batch
 GATHER_WINDOW_S = 0.02
 
@@ -737,30 +739,40 @@ class BackgroundServer:
                 raise TimeoutError("HTTP server thread did not stop")
 
 
-def build_engine(tiny: bool, device: str, seed: int = 0, profile: str = "serving",
-                 continuous: bool = False, model_dir: Optional[str] = None):
-    """The served engine: with `model_dir` the converted model directory
-    there (`TTSEngine.from_artifacts`) in the production profile
-    (`serving`, the default), the bench profile (`bench`) or its config as
-    saved (`stock`); else random weights at the flagship widths in the
-    production profile or the bench configuration, or the tiny
-    configuration for demos (with `continuous`, the int8 trunk and fused
-    decode pack the slot scheduler needs)."""
-    from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config,
-                                                   serving_config)
+def engine_config(tiny: bool, profile: str = "serving", continuous: bool = False,
+                  model_dir: Optional[str] = None):
+    """The served engine's configuration, built without an engine, with the
+    JAX server's precedence: None for `model_dir` (the directory is loaded
+    as saved, `TTSEngine.from_artifacts` applying the profile); else with
+    `tiny` the tiny configuration whatever the profile (with `continuous`,
+    the int8 trunk and fused decode pack the slot scheduler needs); else
+    the flagship widths in the production profile (`serving`), the bench
+    configuration (`bench`) or as they stand (`stock`, `TTSConfig()`).  An
+    unknown profile raises ValueError."""
+    from voice_tts_tpu_torch.config import TTSConfig
+    from voice_tts_tpu_torch.engine.engine import (bench_config, serving_config,
+                                                   tiny_config)
 
-    if model_dir:
-        if profile not in MODEL_DIR_PROFILES:
-            raise ValueError(f"unknown profile {profile!r} "
-                             f"(expected one of {MODEL_DIR_PROFILES})")
-        return TTSEngine.from_artifacts(model_dir, profile=profile, device=device)
     if profile not in PROFILES:
-        raise ValueError(f"unknown profile {profile!r} (expected one of {PROFILES}; "
-                         f"'stock' needs --model-dir)")
+        raise ValueError(f"unknown profile {profile!r} (expected one of {PROFILES})")
+    if model_dir:
+        return None
     if tiny:
         flags = dict(use_int8_decode=True, use_fused_decode=True) if continuous else {}
-        return TTSEngine.tiny(device=device, seed=seed, **flags)
-    cfg = serving_config() if profile == "serving" else bench_config()
+        return tiny_config(**flags)
+    return {"serving": serving_config, "bench": bench_config, "stock": TTSConfig}[profile]()
+
+
+def build_engine(tiny: bool, device: str, seed: int = 0, profile: str = "serving",
+                 continuous: bool = False, model_dir: Optional[str] = None):
+    """The served engine: the converted model directory `model_dir`
+    (`TTSEngine.from_artifacts`) in `profile`, else random weights in
+    `engine_config`'s configuration."""
+    from voice_tts_tpu_torch.engine.engine import TTSEngine
+
+    cfg = engine_config(tiny, profile, continuous, model_dir)
+    if cfg is None:
+        return TTSEngine.from_artifacts(model_dir, profile=profile, device=device)
     return TTSEngine.random(cfg, device=device, seed=seed)
 
 
@@ -811,11 +823,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--tiny", action="store_true",
                         help="tiny random-weight engine (demo / testing)")
     parser.add_argument("--profile", type=str, default="serving",
-                        choices=MODEL_DIR_PROFILES,
+                        choices=PROFILES,
                         help="'serving' (default): the production profile, "
                              "beam-3 with int8 KV; 'bench': sampling, one beam; "
-                             "'stock' (with --model-dir): the directory's config "
-                             "as saved")
+                             "'stock': the configuration as it stands (the "
+                             "directory's as saved with --model-dir); --tiny "
+                             "ignores it")
     parser.add_argument("--continuous-batching", action="store_true",
                         help="slot-based continuous batching: requests join a "
                              "running decode batch mid-flight (needs the fused "
