@@ -14,6 +14,8 @@ import torch
 from voice_tts_tpu.ops import aa_activation as jax_aa
 from voice_tts_tpu_torch.ops import aa_activation as port_aa
 
+pytest_plugins = ("port_fixtures",)
+
 TOL = 1e-5
 
 

@@ -32,6 +32,8 @@ from voice_tts_tpu_torch.text.sp_model import Piece, PieceType, serialize_model
 from voice_tts_tpu_torch.text.tokenizer import TextTokenizer
 from voice_tts_tpu_torch.utils import artifacts
 
+pytest_plugins = ("port_fixtures",)
+
 FLAGS = dict(use_int8_decode=True, use_fused_decode=True, fold_readout=True,
              fuse_pipeline=True, use_fp16=True)
 TEXT = "hello world."

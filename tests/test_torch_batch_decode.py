@@ -44,6 +44,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 SAMPLE = GenerationConfig(num_beams=3)                   # reference defaults
 BEAM_GREEDY = dataclasses.replace(SAMPLE, do_sample=False)
@@ -54,16 +56,6 @@ STOP_BUMP = 0.85
 # four requests of one text bucket (16): their text lengths
 TEXT_LENS = (11, 5, 16, 8)
 
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the tiny models' ops are too small to
-    share, and the test run's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def t(x):
     return torch.from_numpy(np.array(x))

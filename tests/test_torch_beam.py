@@ -31,6 +31,8 @@ from voice_tts_tpu_torch.ops.fused_decode import pack_gpt, pack_readout
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 JAX_CFG = JaxTTSConfig.from_dict(CFG.to_dict())
 K = 3

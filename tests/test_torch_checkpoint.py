@@ -34,6 +34,8 @@ from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.utils import checkpoint as pck
 from voice_tts_tpu_torch.utils.convert import convert, flatten_params, load_family
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 NSR = CFG.s2mel.length_regulator.num_sampling_ratios
 FAMILIES = ("gpt", "s2mel", "vocoder", "campplus", "repcodec", "w2v")

@@ -27,6 +27,8 @@ from voice_tts_tpu_torch.engine.engine import (TTSEngine, bench_config, serving_
 from voice_tts_tpu_torch.serving import app
 from voice_tts_tpu_torch.serving.http import Request
 
+pytest_plugins = ("port_fixtures",)
+
 TEXT = "hello world."
 # the JAX CLI's line when no weight source is given (`voice_tts_tpu/cli.py:76`)
 NO_SOURCE = ("ERROR: pass --model-dir DIR (converted artifacts), or --random/--tiny "

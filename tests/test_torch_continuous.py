@@ -12,7 +12,6 @@ JAX batcher's with the JAX engine's CFM noise handed to the port; the
 refusals.  The `cuda` cases (skipped without a card) hold a replayed chunk
 against the same chunk op by op and count K3 once a step."""
 
-import copy
 import dataclasses
 
 import numpy as np
@@ -43,22 +42,13 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 GREEDY = GenerationConfig(do_sample=False, num_beams=1, repetition_penalty=10.0)
 MAX_NEW, BUCKET, CHUNK = 12, 16, 4
 # three requests of one text bucket: their text lengths
 TEXT_LENS = (11, 5, 16)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the tiny models' ops are too small to
-    share, and the test run's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 def t(x):
     return torch.from_numpy(np.array(x))
@@ -303,20 +293,10 @@ def prompt_wav(f0: float = 220.0) -> bytes:
 
 
 @pytest.fixture(scope="module")
-def engines():
-    if jax is None:
-        pytest.skip("needs JAX (the reference)")
-    from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
-
-    jeng = JaxEngine.tiny(**TINY_FLAGS)
-    jeng.cfg.server.max_batch_size = 2
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean),
-              "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    peng = TTSEngine.from_jax_params(copy.deepcopy(jeng.cfg), params, jeng.tokenizer,
-                                     extras, device="cpu")
+def engines(jax_tiny, jax_port):
+    jeng = jax_tiny(**TINY_FLAGS)
+    peng = jax_port(jeng)
+    jeng.cfg.server.max_batch_size = peng.cfg.server.max_batch_size = 2
     return jeng, peng
 
 

@@ -43,6 +43,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` case runs there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 GREEDY = GenerationConfig(do_sample=False, repetition_penalty=2.0, num_beams=1)
 BEAM3 = dataclasses.replace(GREEDY, num_beams=3)
 

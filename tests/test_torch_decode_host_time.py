@@ -21,6 +21,8 @@ from voice_tts_tpu_torch.models.gpt import beam, decode, gpt2
 from voice_tts_tpu_torch.ops import decode_attention, dit_blocks
 from voice_tts_tpu_torch.scripts import decode_host_time as script
 
+pytest_plugins = ("port_fixtures",)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

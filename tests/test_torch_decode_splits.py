@@ -24,6 +24,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 T_MAX = 512
 # (D, F) of a GPT layer's four int8 products at the flagship D 1280
 PATH_SHAPES = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))

@@ -22,6 +22,8 @@ import pytest
 import chip_smoke
 from voice_tts_tpu_torch.serving import app
 
+pytest_plugins = ("port_fixtures",)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

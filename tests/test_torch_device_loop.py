@@ -55,6 +55,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 CHUNKS = [1, 3, 4, 16]
 SAMPLE = GenerationConfig(num_beams=3)                   # reference defaults

@@ -18,6 +18,8 @@ from voice_tts_tpu_torch.ops import tf32
 
 import test_torch_dit_kernels as tdk   # noqa: E402 - imports JAX only if it is there
 
+pytest_plugins = ("port_fixtures",)
+
 if tdk.jax is not None:
     import jax.numpy as jnp
     from voice_tts_tpu.ops.attic.cfm_attention import \

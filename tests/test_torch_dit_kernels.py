@@ -41,6 +41,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 HD = 64
 # f32: the same f32 arithmetic, sums in another order (as
 # tests/test_cfm_attention.py holds the JAX kernel to its einsum)

@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
 from voice_tts_tpu.engine import post as jax_post
 from voice_tts_tpu.models.gpt.decode import decode as jax_decode
 from voice_tts_tpu_torch.audio import encode_wav_int16
-from voice_tts_tpu_torch.engine.engine import TTSEngine
 from voice_tts_tpu_torch.engine.qwen_emotion import parse_emotion_response
 from voice_tts_tpu_torch.models.gpt.decode import decode as port_decode
 from voice_tts_tpu_torch.serving.http import Request
+
+pytest_plugins = ("port_fixtures",)
 
 FLAGS = dict(use_int8_decode=True, use_fused_decode=True, fold_readout=True,
              fuse_pipeline=True, use_fp16=True)
@@ -39,16 +39,9 @@ def prompt_wav() -> bytes:
 
 
 @pytest.fixture(scope="module")
-def engines():
-    jeng = JaxEngine.tiny(**FLAGS)
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean),
-              "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    peng = TTSEngine.from_jax_params(jeng.cfg, params, jeng.tokenizer, extras,
-                                     device="cpu")
-    return jeng, peng
+def engines(jax_tiny, jax_port):
+    jeng = jax_tiny(**FLAGS)
+    return jeng, jax_port(jeng)
 
 
 def _segment_inputs(eng, spk, emovec, segments):

@@ -8,16 +8,14 @@ decode through K3 at one shared position, and beam-3 packed into one
 segments decoded together), with the JAX engine's CFM noise handed to the
 port."""
 
-import copy
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
 from voice_tts_tpu_torch.audio import encode_wav_int16
-from voice_tts_tpu_torch.engine.engine import TTSEngine
+
+pytest_plugins = ("port_fixtures",)
 
 SERVING = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
                merge_decode_stages=3, use_fused_batch_decode=True,
@@ -27,16 +25,6 @@ SERVING = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
 SEGMENT_TEXT = "hello world. how are you. fine thanks. see you soon. bye now."
 TEXTS = ("hello world.", "one two.", "a longer text, six.")
 
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the tiny models' ops are too small to
-    share, and the test run's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def prompt_wav(f0: float = 220.0) -> bytes:
     """1 s at 16 kHz: a tone plus white noise (as `test_torch_engine.py`)."""
@@ -48,17 +36,9 @@ def prompt_wav(f0: float = 220.0) -> bytes:
 
 
 @pytest.fixture(scope="module")
-def engines():
-    jeng = JaxEngine.tiny(**SERVING)
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean),
-              "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    cfg = copy.deepcopy(jeng.cfg)
-    cfg.engine.release_master_trees = True
-    peng = TTSEngine.from_jax_params(cfg, params, jeng.tokenizer, extras, device="cpu")
-    return jeng, peng
+def engines(jax_tiny, jax_port):
+    jeng = jax_tiny(**SERVING)
+    return jeng, jax_port(jeng, release_master_trees=True)
 
 
 def _greedy(engine, beams: int):

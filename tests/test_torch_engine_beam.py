@@ -6,7 +6,6 @@ conditioning), the port's converted from the JAX one and run on the CPU
 profile."""
 
 import asyncio
-import copy
 import json
 
 import jax
@@ -16,11 +15,12 @@ import torch
 
 import voice_tts_tpu.engine.engine as jax_engine_mod
 import voice_tts_tpu_torch.engine.engine as port_engine_mod
-from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
 from voice_tts_tpu_torch.audio import encode_wav_int16
 from voice_tts_tpu_torch.engine.engine import TTSEngine
 from voice_tts_tpu_torch.serving import app
 from voice_tts_tpu_torch.serving.http import Request
+
+pytest_plugins = ("port_fixtures",)
 
 # `TTSConfig.apply_serving_profile` on the tiny config
 SERVING = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
@@ -44,21 +44,12 @@ def prompt_wav() -> bytes:
 
 
 @pytest.fixture(scope="module")
-def engines():
+def engines(jax_tiny, jax_port):
     """The JAX engine keeps its f32 masters, from which the port's engine is
     built; the port's releases them (`release_master_trees`, as in the
     serving profile)."""
-    jeng = JaxEngine.tiny(**SERVING)
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean),
-              "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    cfg = copy.deepcopy(jeng.cfg)
-    cfg.engine.release_master_trees = True
-    peng = TTSEngine.from_jax_params(cfg, params, jeng.tokenizer, extras,
-                                     device="cpu")
-    return jeng, peng
+    jeng = jax_tiny(**SERVING)
+    return jeng, jax_port(jeng, release_master_trees=True)
 
 
 def test_serving_flags_build_bf16_runtime_copies(engines):

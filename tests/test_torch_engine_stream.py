@@ -20,6 +20,8 @@ from voice_tts_tpu_torch.config import GenerationConfig
 from voice_tts_tpu_torch.engine import engine as eng_mod
 from voice_tts_tpu_torch.engine.engine import DECODE_STEP_MS, TTSEngine
 
+pytest_plugins = ("port_fixtures",)
+
 SERVING = dict(use_fp16=True, use_int8_decode=True, use_fused_decode=True,
                use_fused_batch_decode=True, use_fused_beam_decode=True, use_int8_kv=True,
                fold_readout=True, use_bf16_conditioning=True)
@@ -27,16 +29,6 @@ TEXTS = ("one two.", "three.", "five six seven.", "eight nine.")
 # five sentences of 7-11 tokens: three segments at 24 tokens a segment
 SEGMENT_TEXT = "hello world. how are you. fine thanks. see you soon. bye now."
 
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the tiny models' ops are too small to
-    share, and the test run's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def tone(f0: float, seconds: float = 0.6, sr: int = 16000) -> bytes:
     t = np.arange(int(seconds * sr)) / sr

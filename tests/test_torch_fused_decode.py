@@ -25,6 +25,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 L, D, H, T_MAX, V = 2, 256, 4, 256, 300
 
 

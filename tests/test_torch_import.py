@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+pytest_plugins = ("port_fixtures",)
+
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = """

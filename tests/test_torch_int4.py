@@ -17,6 +17,8 @@ from voice_tts_tpu_torch.ops import fused_decode as pfd
 from voice_tts_tpu_torch.utils.convert import flatten_params
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
+pytest_plugins = ("port_fixtures",)
+
 L, D, H, T_MAX, V = 2, 256, 4, 256, 300
 
 

@@ -28,6 +28,8 @@ from voice_tts_tpu_torch.models.gpt.gpt2 import QuantKVCache, _quantize_kv
 from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 
+pytest_plugins = ("port_fixtures",)
+
 GREEDY = GenerationConfig(do_sample=False, repetition_penalty=2.0, num_beams=1)
 MAX_NEW = 12
 # relative to max|logits|: the same f32 arithmetic in both frameworks, sums

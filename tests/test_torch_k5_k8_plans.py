@@ -28,6 +28,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jnp = None
 
+pytest_plugins = ("port_fixtures",)
+
 HEADS = 20              # the GPT's 20 heads of 64
 # (B, length) the flagged decode paths give K5: the K5 slice (one beam,
 # prompt and text ~85 positions plus up to 256 codes), the K5 beam request

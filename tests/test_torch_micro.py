@@ -36,6 +36,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -26,6 +26,8 @@ from voice_tts_tpu_torch.models.s2mel.cfm import cfm_inference
 from voice_tts_tpu_torch.models.s2mel.dit import DiT
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 JAX_CFG = JaxTTSConfig.from_dict(CFG.to_dict())   # the same widths
 

@@ -34,6 +34,8 @@ from voice_tts_tpu_torch.utils.checkpoint import family_renamer, load_state_dict
 from voice_tts_tpu_torch.utils.convert import convert
 from voice_tts_tpu_torch.utils.quality_gate import SCHEMES, run_quality_gate
 
+pytest_plugins = ("port_fixtures",)
+
 SCHEME_NAMES = list(SCHEMES)
 
 

@@ -49,6 +49,8 @@ from voice_tts_tpu_torch.parallel.mesh import sharded_leaves
 from voice_tts_tpu_torch.parallel.tp import ShardedKV, TPStack, shard_devices
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 
+pytest_plugins = ("port_fixtures",)
+
 TINY = GPTConfig(
     layers=2, model_dim=64, heads=4, max_text_tokens=32, max_mel_tokens=48,
     number_text_tokens=40, number_mel_codes=68, start_mel_token=66,

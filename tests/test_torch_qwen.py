@@ -26,6 +26,8 @@ from voice_tts_tpu_torch.models import qwen as pqwen
 from voice_tts_tpu_torch.utils.checkpoint import convert_qwen
 from voice_tts_tpu_torch.utils.convert import flatten_params
 
+pytest_plugins = ("port_fixtures",)
+
 VOCAB, EOS = 120, 119
 # f32 on both sides, summed in other orders: as the JAX package's own test
 LOGIT_ATOL, LOGIT_RTOL = 3e-4, 1e-3

@@ -12,7 +12,6 @@ fallback as worker-info reports them, and a shutdown that leaves no task
 pending and no request waiting."""
 
 import asyncio
-import copy
 import http.client
 import json
 import logging
@@ -27,15 +26,7 @@ from voice_tts_tpu_torch.engine.engine import InferenceResult, TTSEngine, tiny_c
 from voice_tts_tpu_torch.serving import app
 from voice_tts_tpu_torch.serving.http import Request
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the tiny models' ops are too small to
-    share, and the test run's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytest_plugins = ("port_fixtures",)
 
 
 def prompt_wav(f0: float = 220.0) -> bytes:
@@ -133,22 +124,22 @@ def test_tts_roundtrip_and_metrics(server):
     assert "tts_replica_rebuilds_total" in values and "tts_requests_failed" in values
 
 
-def test_tts_matches_the_jax_service(monkeypatch):
+@pytest.fixture
+def greedy_engines(jax_tiny, jax_port):
+    """The shared tiny JAX engine and the port's converted from it, greedy."""
+    jeng = _greedy(jax_tiny())
+    return jeng, _greedy(jax_port(jeng))
+
+
+def test_tts_matches_the_jax_service(greedy_engines, monkeypatch):
     """The same /tts bodies through the JAX service and the port's, on one
     tiny engine (the port's converted from the JAX one), greedy: the same
     statuses, and the round trip's WAV within 8 LSB of int16 with the JAX
     engine's CFM noise handed to the port."""
     jax = pytest.importorskip("jax")
-    from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
     from voice_tts_tpu.serving.app import TTSService as JaxService
 
-    jeng = _greedy(JaxEngine.tiny())
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean), "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    peng = TTSEngine.from_jax_params(copy.deepcopy(jeng.cfg), params, jeng.tokenizer,
-                                     extras, device="cpu")
+    jeng, peng = greedy_engines
     keys, chain = [], jeng._s2mel_chain
 
     def rec(*args, **kwargs):

@@ -18,7 +18,6 @@ import torch
 
 from voice_tts_tpu.config import GenerationConfig as JaxGenerationConfig
 from voice_tts_tpu.config import TTSConfig as JaxTTSConfig
-from voice_tts_tpu.engine.engine import TTSEngine as JaxEngine
 from voice_tts_tpu.models.gpt import decode as jdecode
 from voice_tts_tpu.models.gpt.unified_voice import UnifiedVoice as JUV
 from voice_tts_tpu.ops import fused_decode as jfd
@@ -30,6 +29,8 @@ from voice_tts_tpu_torch.models.gpt.unified_voice import UnifiedVoice
 from voice_tts_tpu_torch.ops import fused_decode as pfd
 from voice_tts_tpu_torch.utils.convert import convert, flatten_params, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
+
+pytest_plugins = ("port_fixtures",)
 
 L, D, H, T_MAX = 2, 256, 4, 256
 K = 4
@@ -403,20 +404,19 @@ def prompt_wav() -> bytes:
     return encode_wav_int16((y * 32767).astype(np.float32), sr)
 
 
-def test_tiny_engine_spec_decode_matches_jax():
+@pytest.fixture
+def engines(jax_tiny, jax_port):
+    jeng = jax_tiny(**FLAGS)
+    return jeng, jax_port(jeng)
+
+
+def test_tiny_engine_spec_decode_matches_jax(engines):
     """The whole segment with spec decode (int4 drafts, int8 verify),
     greedy, the JAX engine's CFM noise handed to the port: WAVs within 8
     LSB of int16, the bound of `test_torch_engine.py` (identical codes;
     the f32 s2mel / vocoder and the bf16 teacher-forced GPT round at other
     points in the two frameworks).  The port counts its rounds."""
-    jeng = JaxEngine.tiny(**FLAGS)
-    params = jax.tree.map(np.asarray, jeng.params)
-    extras = {"w2v_mean": np.asarray(jeng.w2v_mean),
-              "w2v_std": np.asarray(jeng.w2v_std),
-              "emo_matrix": [np.asarray(m) for m in jeng.emo_matrix],
-              "spk_matrix": [np.asarray(m) for m in jeng.spk_matrix]}
-    peng = TTSEngine.from_jax_params(jeng.cfg, params, jeng.tokenizer, extras,
-                                     device="cpu")
+    jeng, peng = engines
     assert isinstance(peng.spec_draft_pack, pfd.FusedDecodePackInt4)
     wav = prompt_wav()
     rng0 = jeng._rng

@@ -27,6 +27,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` cases run there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 FLAGSHIP_D, FLAGSHIP_H = 1280, 20
 # the bf16 kv rows: a sum in another order may flip one bf16 rounding, one
 # ulp, which is at most 2^-7 of the largest magnitude

@@ -35,6 +35,8 @@ from voice_tts_tpu_torch.ops import fused_decode as pfd
 from voice_tts_tpu_torch.utils.convert import convert, load_family
 from voice_tts_tpu_torch.utils.quantize import quantize_gpt_state
 
+pytest_plugins = ("port_fixtures",)
+
 CFG = tiny_config()
 MAX_NEW = 12
 # Typical filtering is discontinuous in the logits, and the two frameworks'

@@ -19,6 +19,8 @@ from voice_tts_tpu_torch.ops import aa_activation as k2
 from voice_tts_tpu_torch.ops import fused_vocoder as k10
 from voice_tts_tpu_torch.ops import tf32
 
+pytest_plugins = ("port_fixtures",)
+
 SMEM_LIMIT = 232448      # the H100's shared memory a block (227 KB)
 FLAGSHIP = TTSConfig().vocoder
 TINY = tiny_config().vocoder

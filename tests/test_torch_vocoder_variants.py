@@ -34,6 +34,8 @@ try:
 except ImportError:     # the machine with the card has no JAX: the `cuda` case runs there
     jax = None
 
+pytest_plugins = ("port_fixtures",)
+
 # the same widths as tests/test_fused_vocoder.py's CFG
 CFG = BigVGANConfig(num_mels=12, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
                     upsample_initial_channel=32, resblock_kernel_sizes=(3, 7, 11),
